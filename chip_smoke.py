@@ -1,0 +1,537 @@
+"""Smoke test of the PyTorch/CUDA port (phylo_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py [--ptxas]
+
+Phases, each printing a line of its own; any failure raises and the
+script exits non-zero without printing a result:
+
+1. build every kernel from csrc/ (one nvcc per source, in parallel) and
+   read the card (nvidia-smi name and power limit);
+2. each kernel against its plain PyTorch version on the card at the main
+   path's shapes (K=2048 particles, S=256 and 898 sites, 45,056
+   transition matrices), with the tolerances printed, and timed beside
+   the plain version, the least time the card could take (bound) and,
+   where one exists, a single PyTorch library call;
+3. fixed-decision ELBO: the sweep in float32 on the card through the
+   kernels against float64 on the CPU through the plain path, with the
+   same numpy-made decisions (1e-3 relative, BASELINE.md's bar), and
+   the manual-VJP gradients likewise;
+4. the main path: two epochs of VCSMC training on primate (N=12, S=898)
+   at K=2048, site batch 256, through phylo_tpu_torch.cli.runner, with
+   every kernel's launch counter read before and after;
+5. where the time of one such epoch goes, under torch.profiler.
+
+The last lines are the kernel table as JSON, the card's name and power
+limit, and {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and FP32 (non-tensor)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+K, N, S_BATCH, S_FULL, A = 2048, 12, 256, 898, 4
+R = N - 1
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes, nops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_rel(a, b):
+    a = a.double().cpu()
+    b = b.double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def max_abs(a, b):
+    return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+
+def require(ok, what):
+    if not ok:
+        raise AssertionError(what)
+
+
+# ---------------------------------------------------------------- phase 2
+def last_rank_idx(gen, dev, S):
+    """The child index (4, K) that K1 gets at the last rank of a real
+    primate sweep (K=2048, initial ReferenceQ parameters, the first S
+    sites): rows follow the sweep's resampling genealogy, so the timed
+    launch reads the slabs the main path reads."""
+    from phylo_tpu_torch.dataio import load_dataset
+    from phylo_tpu_torch.smc.sweep import SweepConfig, sample_phylogenies
+    from phylo_tpu_torch.train.trainer import TrainConfig, init_params
+
+    ds = load_dataset("primate")
+    model, params = init_params(ds, TrainConfig(n_particles=K, device=dev))
+    leaves = torch.tensor(ds.genome[:, :S], dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        res = sample_phylogenies(gen, leaves, model, params, SweepConfig(K=K))
+    # replay the sweep's row_of_node bookkeeping (smc/sweep.py)
+    row_of_node = torch.zeros((K, R), dtype=torch.int64, device=dev)
+    for r in range(R):
+        row_of_node = row_of_node[res.ancestors[r]]
+        if r < R - 1:
+            row_of_node[:, r] = torch.arange(K, device=dev)
+    nodes = res.merged_nodes[R - 1].T                       # (2, K)
+    rows = torch.gather(row_of_node, 1,
+                        (nodes.T - N).clamp(0, R - 1)).T    # (2, K)
+    return torch.stack([rows[0], nodes[0], rows[1], nodes[1]]).to(
+        torch.int32).contiguous()
+
+
+def rank_inputs(gen, S, dev):
+    f = dict(dtype=torch.float32, device=dev)
+    buf = torch.rand((K, R, A, S), generator=gen, **f) * 0.95 + 0.05
+    leaves = torch.rand((N, A, S), generator=gen, **f) * 0.95 + 0.05
+    outc = R - 1
+    idx = last_rank_idx(gen, dev, S)
+    P_l = torch.rand((K, A, A), generator=gen, **f) * 0.95 + 0.05
+    P_r = torch.rand((K, A, A), generator=gen, **f) * 0.95 + 0.05
+    pi = torch.rand((A,), generator=gen, **f) + 0.1
+    pi = (pi / pi.sum()).contiguous()
+    w = torch.ones((S,), **f)
+    return buf, leaves, idx, outc, P_l, P_r, pi, w
+
+
+def k1_slabs_read(idx):
+    """Distinct (A, S) child slabs that idx makes K1 read: each distinct
+    leaf once (the leaves are shared by all particles) and each distinct
+    (row, column) of the buffer once."""
+    i = idx.long().cpu()
+    nodes = torch.cat([i[1], i[3]])
+    rows = torch.cat([i[0], i[2]])
+    leaf = nodes < N
+    n_leaf = int(torch.unique(nodes[leaf]).numel())
+    n_int = int(torch.unique(rows[~leaf] * (2 * N) + nodes[~leaf]).numel())
+    return n_leaf, n_int
+
+
+def check_k1(kern, gen, dev, S, save):
+    buf, leaves, idx, outc, P_l, P_r, pi, w = rank_inputs(gen, S, dev)
+    b_k, b_p = buf.clone(), buf.clone()
+    got = kern.fused_rank_update(leaves, b_k, idx, outc, P_l, P_r, pi, w,
+                                 save_children=save)
+    want = kern._fused_rank_ref(leaves, b_p, idx, outc, P_l, P_r, pi, w,
+                                save_children=save)
+    torch.cuda.synchronize()
+    errs = {"buf": max_abs(b_k, b_p), "rootll": max_rel(got[0], want[0]),
+            "logscale": max_rel(got[1], want[1])}
+    if save:
+        errs["children"] = max(max_abs(got[2], want[2]),
+                               max_abs(got[3], want[3]))
+    tol = {"buf": 1e-5, "rootll": 1e-5, "logscale": 1e-5, "children": 0.0}
+    log(f"  K1 fused_rank_update S={S} save={save}: "
+        + ", ".join(f"{k} err {v:.3e} (tol {tol[k]:g})"
+                    for k, v in errs.items()))
+    for k, v in errs.items():
+        require(v <= tol[k], f"K1 {k} error {v} > {tol[k]}")
+    ms = time_ms(lambda: kern.fused_rank_update(
+        leaves, b_k, idx, outc, P_l, P_r, pi, w, save_children=save))
+    plain = time_ms(lambda: kern._fused_rank_ref(
+        leaves, b_p, idx, outc, P_l, P_r, pi, w, save_children=save))
+    slab = A * S * 4
+    n_leaf, n_int = k1_slabs_read(idx)
+    # child slabs read once each, column outc written (+ saved children)
+    nbytes = (n_leaf + n_int) * slab + K * slab \
+        + (2 * K * slab if save else 0) \
+        + 2 * K * A * A * 4 + S * 4 + A * 4 + 4 * K * 4 + 2 * K * 4
+    nops = K * S * (4 * A * A + 4 * A + 2)
+    b_ms, b_by = bound(nbytes, nops)
+    log(f"  K1 S={S}: last-rank idx of a primate sweep reads {n_leaf} leaf "
+        f"+ {n_int} internal slabs for {2 * K} children; kernel {ms:.4f} "
+        f"ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None), \
+        (leaves, buf, idx, P_l, P_r, pi, w)
+
+
+def check_k2(kern, gen, dev, inputs):
+    leaves, buf, idx, P_l, P_r, pi, w = inputs
+    S = w.shape[0]
+    m1, m2 = kern.gather_children(leaves, buf, idx)
+    m1, m2 = m1.contiguous(), m2.contiguous()
+    f = dict(dtype=torch.float32, device=dev)
+    gm = torch.randn((K, A, S), generator=gen, **f)
+    gr = torch.randn((K,), generator=gen, **f)
+    gl = torch.randn((K,), generator=gen, **f)
+    args = (m1, m2, gm, gr, gl, P_l, P_r, pi, w)
+    got = list(kern.fused_rank_bwd_saved(*args))
+    want = list(kern._fused_rank_bwd_saved_ref(*args))
+    got[4], got[5] = got[4].sum(0), got[5].sum(0)
+    want[4], want[5] = want[4].sum(0), want[5].sum(0)
+    torch.cuda.synchronize()
+    names = ["dm1", "dm2", "dP_l", "dP_r", "dpi", "dw"]
+    errs = {n: max_rel(a, b) for n, a, b in zip(names, got, want)}
+    tol = 1e-4
+    log("  K2 fused_rank_bwd_saved: " + ", ".join(
+        f"{n} rel err {v:.3e}" for n, v in errs.items()) + f" (tol {tol:g})")
+    for n, v in errs.items():
+        require(v <= tol, f"K2 {n} relative error {v} > {tol}")
+    ms = time_ms(lambda: kern.fused_rank_bwd_saved(*args))
+    plain = time_ms(lambda: kern._fused_rank_bwd_saved_ref(*args))
+    slab = K * A * S * 4
+    nb = -(-K // kern.BWD_PARTICLES_PER_BLOCK)
+    nbytes = 3 * slab + 2 * slab + 4 * K * A * A * 4 + 2 * K * 4 \
+        + S * 4 + nb * (A + S) * 4
+    nops = K * S * (8 * A * A + 20 * A + 4)
+    b_ms, b_by = bound(nbytes, nops)
+    log(f"  K2: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=max(max_abs(a, b) for a, b in zip(got, want)),
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def check_k4(ek, gen, dev):
+    from phylo_tpu_torch.models.expm import uniformize
+    from phylo_tpu_torch.models.substitution import ReferenceQ
+
+    f = dict(dtype=torch.float32, device=dev)
+    model = ReferenceQ(A)
+    p = model.init_params(torch.float32, dev)
+    p["y_q"] = p["y_q"] + 0.3 * torch.randn((A, A), generator=gen, **f)
+    Q = model.Q(p).contiguous()
+    B = R * 2 * K
+    # main-path branch lengths: Exponential(rate 10)
+    b = torch.empty((B,), **f).exponential_(generator=gen) / 10.0
+    gbar = torch.randn((B, A, A), generator=gen, **f)
+    out = {}
+    clamped = torch.full_like(b, 500.0)
+    for region, bb in (("mu*b < 80", b), ("mu*b > 80 (clamp)", clamped)):
+        mu, Rm = uniformize(Q)
+        P_k = ek.expm_fwd(Rm, mu, bb)
+        P_p = ek._expm_fwd_plain(Rm, mu, bb)
+        F_k = ek.expm_bwd(Rm, mu, bb, gbar)
+        F_p = ek._expm_bwd_plain(Rm, mu, bb, gbar)
+        torch.cuda.synchronize()
+        e_f = max_abs(P_k, P_p)
+        e_b = max_rel(F_k.sum(0), F_p.sum(0))
+        e_bf = max_rel(F_k, F_p)
+        log(f"  K4 {region}: fwd max abs err {e_f:.3e} "
+            f"(tol 1e-6), bwd Q_bar rel err {e_b:.3e}, field rel err "
+            f"{e_bf:.3e} (tol 1e-4)")
+        require(e_f <= 1e-6, f"K4 fwd error {e_f}")
+        require(e_b <= 1e-4 and e_bf <= 1e-4, f"K4 bwd error {e_b} {e_bf}")
+        out[region] = (e_f, max_abs(F_k, F_p))
+    mu, Rm = uniformize(Q)
+    ms_f = time_ms(lambda: ek.expm_fwd(Rm, mu, b))
+    plain_f = time_ms(lambda: ek._expm_fwd_plain(Rm, mu, b))
+    Qb = (Q[None] * b[:, None, None]).contiguous()
+    lib_f = time_ms(lambda: torch.linalg.matrix_exp(Qb))
+    ms_b = time_ms(lambda: ek.expm_bwd(Rm, mu, b, gbar))
+    plain_b = time_ms(lambda: ek._expm_bwd_plain(Rm, mu, b, gbar))
+    steps = 11 + 12                      # order-1 Horner + squarings
+    mm = 2 * A ** 3
+    bf, byf = bound(B * 4 + B * A * A * 4 + (A * A + 1) * 4,
+                    B * (steps * (mm + A * A) + 10))
+    bb_, byb = bound(B * 4 + 2 * B * A * A * 4 + (A * A + 1) * 4,
+                     B * steps * (3 * mm + 3 * A * A))
+    log(f"  K4 fwd: kernel {ms_f:.4f} ms, plain {plain_f:.4f} ms, "
+        f"torch.linalg.matrix_exp {lib_f:.4f} ms, bound {bf:.4f} ms ({byf})")
+    log(f"  K4 bwd: kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms, "
+        f"bound {bb_:.4f} ms ({byb})")
+    fwd = dict(max_abs_err=max(v[0] for v in out.values()), ms=ms_f,
+               plain_ms=plain_f, bound_ms=bf, bound_by=byf, library_ms=lib_f)
+    bwd = dict(max_abs_err=max(v[1] for v in out.values()), ms=ms_b,
+               plain_ms=plain_b, bound_ms=bb_, bound_by=byb,
+               library_ms=None)
+    return fwd, bwd
+
+
+def check_k5(rk, gen, dev):
+    rng = np.random.default_rng(7)
+    # skewed weights spanning ~3 orders of magnitude
+    logits = torch.tensor(rng.gumbel(size=K) * 2.0, dtype=torch.float32,
+                          device=dev)
+    log_norm = (logits - torch.logsumexp(logits, 0)).contiguous()
+    p = torch.softmax(logits.double(), 0).cpu().numpy()
+    seed = rk.draw_seed(gen, dev)
+    got = rk.categorical(log_norm, seed)
+    want = rk._categorical_plain(log_norm, seed)
+    torch.cuda.synchronize()
+    mism = int((got != want).sum())
+    log(f"  K5 categorical: {mism} of {K} draws differ from the plain "
+        "version on the same seed (tol 2)")
+    require(mism <= 2, f"K5 disagrees with its plain version on {mism}")
+    rounds = 512
+    counts = {"kernel": torch.zeros(K, dtype=torch.int64, device=dev),
+              "torch.multinomial": torch.zeros(K, dtype=torch.int64,
+                                               device=dev)}
+    probs = torch.softmax(logits, 0)
+    for _ in range(rounds):
+        s = rk.draw_seed(gen, dev)
+        counts["kernel"] += torch.bincount(
+            rk.categorical(log_norm, s).long(), minlength=K)
+        counts["torch.multinomial"] += torch.bincount(torch.multinomial(
+            probs, K, replacement=True, generator=gen), minlength=K)
+    n = rounds * K
+    zs = {}
+    for name, c in counts.items():
+        chi2, dof = pooled_chi2(c.cpu().numpy(), p, n)
+        zs[name] = (chi2 - dof) / math.sqrt(2 * dof)
+        log(f"  K5 {name}: chi2 {chi2:.1f} on {dof} dof over {rounds}x{K}"
+            f" draws (z = {zs[name]:+.2f})")
+    require(abs(zs["kernel"]) < 4.0, f"K5 chi-square z {zs['kernel']}")
+    ms = time_ms(lambda: rk.categorical(log_norm, seed))
+    plain = time_ms(lambda: rk._categorical_plain(log_norm, seed), iters=5)
+    lib = time_ms(lambda: torch.multinomial(probs, K, replacement=True,
+                                            generator=gen))
+    # per field entry: 2 logf + subtract + compare, plus a quarter of a
+    # Philox4x32-10 call (10 rounds x 4 multiplies) counted as 10 ops
+    b_ms, b_by = bound(2 * K * 4 + 16, K * K * 14)
+    log(f"  K5: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"torch.multinomial {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=float((got - want).abs().max()), ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib)
+
+
+def pooled_chi2(counts, p, n, min_expected=5.0):
+    """Pearson chi-square of category counts against probabilities p,
+    with the categories expected fewer than `min_expected` times pooled
+    into one bin (the statistic is far from its asymptote otherwise).
+    Returns (chi2, degrees of freedom)."""
+    e = n * p
+    keep = e >= min_expected
+    obs = np.append(counts[keep], counts[~keep].sum())
+    exp = np.append(e[keep], e[~keep].sum())
+    if exp[-1] == 0:
+        obs, exp = obs[:-1], exp[:-1]
+    return float(((obs - exp) ** 2 / exp).sum()), len(exp) - 1
+
+
+# ---------------------------------------------------------------- phase 3
+def make_decisions(rng, N_, K_, rates_l, rates_r):
+    R_ = N_ - 1
+    ancestors = rng.integers(0, K_, size=(R_, K_))
+    pairs = np.zeros((R_, K_, 2), dtype=np.int64)
+    for r in range(R_):
+        pairs[r] = np.argsort(rng.random((K_, N_ - r)), axis=1)[:, :2]
+    bl = np.stack([rng.exponential(1.0 / rates_l[r], size=K_)
+                   for r in range(R_)])
+    br = np.stack([rng.exponential(1.0 / rates_r[r], size=K_)
+                   for r in range(R_)])
+    return dict(ancestors=ancestors, pairs=pairs, branches_l=bl,
+                branches_r=br)
+
+
+def fixed_decision_check(dev):
+    from phylo_tpu_torch.dataio import load_dataset
+    from phylo_tpu_torch.models.substitution import ReferenceQ
+    from phylo_tpu_torch.params import params_from_numpy
+    from phylo_tpu_torch.smc.sweep import SweepConfig, sample_phylogenies
+
+    ds = load_dataset("primate")
+    rng = np.random.default_rng(11)
+    tree = {"model": {"y_q": (np.full((A, A), 0.25) * (1 - np.eye(A))
+                              + 0.2 * rng.normal(size=(A, A))),
+                      "y_station": 0.25 + 0.2 * rng.normal(size=A)},
+            "branches": {"log_rates_l": math.log(10) + 0.3 * rng.normal(
+                size=R), "log_rates_r": math.log(10) + 0.3 * rng.normal(
+                size=R)}}
+    dec = make_decisions(rng, ds.N, K, np.exp(tree["branches"][
+        "log_rates_l"]), np.exp(tree["branches"]["log_rates_r"]))
+    model = ReferenceQ(A)
+    cfg = SweepConfig(K=K)
+    out = {}
+    for name, device, dtype in (("cuda f32", dev, torch.float32),
+                                ("cpu f64", "cpu", torch.float64)):
+        params = params_from_numpy(tree, dtype=dtype, device=device)
+        leaves = torch.tensor(ds.genome, dtype=dtype, device=device)
+        d = {k: torch.as_tensor(v, device=device) for k, v in dec.items()}
+        res = sample_phylogenies(None, leaves, model, params, cfg,
+                                 decisions=d)
+        res.elbo.backward()
+        grads = [t.grad.detach().cpu().double()
+                 for sub in params.values() for t in sub.values()]
+        out[name] = (float(res.elbo.detach()),
+                     res.log_likelihood_R.detach().cpu().double(), grads)
+    (e32, llr32, g32), (e64, llr64, g64) = out["cuda f32"], out["cpu f64"]
+    rel = abs(e32 - e64) / abs(e64)
+    rel_llr = float(((llr32 - llr64).abs() / llr64.abs()).max())
+    g32, g64 = torch.cat([g.reshape(-1) for g in g32]), torch.cat(
+        [g.reshape(-1) for g in g64])
+    rel_g = float((g32 - g64).norm() / g64.norm())
+    log(f"phase 3 fixed-decision ELBO primate K={K}: cuda f32 {e32:.6f} vs "
+        f"cpu f64 {e64:.6f}, rel err {rel:.3e} (tol 1e-3); "
+        f"log_likelihood_R max rel err {rel_llr:.3e}; manual-VJP gradient "
+        f"rel L2 err {rel_g:.3e} (tol 1e-2)")
+    require(rel <= 1e-3, f"fixed-decision ELBO rel error {rel}")
+    require(rel_llr <= 1e-3, f"log_likelihood_R rel error {rel_llr}")
+    require(rel_g <= 1e-2, f"gradient rel error {rel_g}")
+
+
+# ---------------------------------------------------------------- phase 4
+def main_path(ext):
+    from phylo_tpu_torch.cli import runner
+    from phylo_tpu_torch.train.trainer import param_tensors
+
+    argv = ["--dataset=primate_data", "--n_particles=2048",
+            "--batch_size=256", "--num_epoch=2", "--no_artifacts",
+            "--device=cuda"]
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    res = runner.run(argv)
+    torch.cuda.synchronize()
+    launches = dict(ext.LAUNCHES)
+    log(f"phase 4 main path launches: {json.dumps(launches)}")
+    for name in ("fused_rank_update", "fused_rank_bwd_saved", "expm_fwd",
+                 "expm_bwd", "categorical"):
+        require(launches.get(name, 0) > 0, f"{name} never launched")
+    elbo = res.elbo
+    require(math.isfinite(elbo) and -8000.0 < elbo < -5500.0,
+            f"ELBO {elbo} outside the primate band (-8000, -5500)")
+    for t in param_tensors(res.params):
+        g = t.grad
+        require(g is not None and bool(torch.isfinite(g).all())
+                and bool((g != 0).any()), "a gradient is missing, "
+                "non-finite or zero")
+    secs = res.history["epoch_seconds"]
+    log(f"phase 4 ELBO {elbo:.3f}; seconds per epoch after warm-up "
+        f"{secs[-1]:.4f} (epoch 1 incl. warm-up {secs[0]:.4f})")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 5
+def profile_epoch():
+    """train() for one epoch on the main path's configuration under
+    torch.profiler, after phase 4 warmed everything up.  The profiled run
+    holds train()'s set-up, its initial eval sweep and one epoch (3 SGD
+    steps + the eval sweep).  Prints its host wall time, the summed
+    device time and count of all kernel launches, the device's busy
+    share, and the kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from phylo_tpu_torch.dataio import load_dataset
+    from phylo_tpu_torch.train import TrainConfig, train
+
+    ds = load_dataset("primate_data")
+    cfg = TrainConfig(n_particles=K, batch_size=S_BATCH, num_epoch=1,
+                      save_artifacts=False, log_every=0, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train(ds, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            rows.append((e.key[:70], float(us) / 1e3, int(e.count)))
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    if not rows:
+        log(f"phase 5 profile: wall {wall_ms:.1f} ms; the profiler recorded "
+            "no device time (device numbers not measured)")
+        return
+    log("phase 5 profile of train(num_epoch=1): " + json.dumps({
+        "wall_ms": wall_ms, "device_kernel_ms": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "kernel_launches": sum(r[2] for r in rows),
+        "top_kernels": [{"name": k, "device_ms": ms, "launches": n}
+                        for k, ms, n in rows[:8]]}))
+
+
+def main(argv):
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from phylo_tpu_torch import _ext
+    from phylo_tpu_torch.device import resolve_device
+    from phylo_tpu_torch.models import expm_kernel
+    from phylo_tpu_torch.pruning import kernels
+    from phylo_tpu_torch.smc import resample_kernel
+
+    dev = resolve_device("cuda")
+    t0 = time.time()
+    times = _ext.build_all(verbose="--ptxas" in argv)
+    card = card_line()
+    log(f"phase 1 built {sorted(times)} in {time.time() - t0:.1f} s "
+        f"(per source {json.dumps({k: round(v, 1) for k, v in times.items()})}"
+        "); "
+        f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    log("phase 2 kernels against their plain versions on the card:")
+    k1, k1_inputs = check_k1(kernels, gen, dev, S_BATCH, save=True)
+    check_k1(kernels, gen, dev, S_FULL, save=False)
+    k2 = check_k2(kernels, gen, dev, k1_inputs)
+    k4f, k4b = check_k4(expm_kernel, gen, dev)
+    k5 = check_k5(resample_kernel, gen, dev)
+
+    fixed_decision_check(dev)
+    launches = main_path(_ext)
+    profile_epoch()
+
+    rows = [
+        ("fused_rank_update", "phylo_tpu_torch/csrc/rank_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:1646", k1),
+        ("fused_rank_bwd_saved", "phylo_tpu_torch/csrc/rank_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:2071", k2),
+        ("expm_fwd", "phylo_tpu_torch/csrc/expm_kernels.cu",
+         "phylo_tpu/models/expm_kernel.py:140", k4f),
+        ("expm_bwd", "phylo_tpu_torch/csrc/expm_kernels.cu",
+         "phylo_tpu/models/expm_kernel.py:169", k4b),
+        ("categorical", "phylo_tpu_torch/csrc/resample_kernels.cu",
+         "phylo_tpu/smc/resample_kernel.py:93", k5),
+    ]
+    table = [dict(name=name, route="cuda", source=src, replaces=rep,
+                  launches=int(launches.get(name, 0)), **m)
+             for name, src, rep, m in rows]
+    print(json.dumps({"kernels": table}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

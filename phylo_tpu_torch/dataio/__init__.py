@@ -1,0 +1,16 @@
+from phylo_tpu_torch.dataio.alphabets import (  # noqa: F401
+    DNA_ALPHABET,
+    DNA_AMBIGUITY,
+    PROTEIN_ALPHABET,
+    encode_strings,
+    one_hot_rows,
+)
+from phylo_tpu_torch.dataio.datasets import (  # noqa: F401
+    PhyloDataset,
+    dataset_from_arrays,
+    dataset_from_strings,
+    detect_alphabet,
+    list_datasets,
+    load_dataset,
+    simulate_dna,
+)

@@ -1,0 +1,217 @@
+"""Kernels K1 and K2: the fused rank update and its saved-children
+backward (port of phylo_tpu/pruning/kernels.py::fused_rank_update and
+::fused_rank_bwd_saved).
+
+One rank of the sweep, per particle k:
+
+    m1, m2 = children (leaves[node] if node < N else buf[k', node - N])
+    u = P_l^T m1,  v = P_r^T m2,  w = u * v            (A x S)
+    scale_s = max(max_a w[a, s], tiny)
+    buf[k, r] = w / scale                               (in place)
+    rootll_k   = sum_s weight_s log(sum_a pi_a w[a, s])
+    logscale_k = sum_s weight_s log(scale_s)
+
+The JAX kernel aliased the buffer (input_output_aliases); the port
+updates column r of the buffer in place.  K2 is the reverse of that op
+from the saved children, with reduce-max's cotangent split among ties
+and the max(raw, tiny) clamp's half-split, exactly as `_rank_bwd_core`.
+
+CUDA tensors launch csrc/rank_kernels.cu; CPU tensors run the plain
+versions `_fused_rank_ref` / `_fused_rank_bwd_saved_ref` below.  Dense
+alphabets A <= 8 only on the card (the wide and blocked bodies, K9/K10,
+are not ported).  Neither op has an autograd rule: only the manual
+whole-sweep VJP (smc.sweep_vjp) calls them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from phylo_tpu_torch import _ext
+
+MAX_A = 8
+BWD_PARTICLES_PER_BLOCK = 8     # K2: particles per CUDA block (dpi/dw
+                                # partials come back one row per block)
+
+
+def alloc_rank_buffer(K, R, A, S, dtype, device):
+    """The write-once (K, R, A, S) internal-message buffer (K6's
+    counterpart).  On the card it is an uninitialised torch.empty: every
+    column is written before it is read and children are exact slabs.
+    The CPU gets zeros, as the JAX package's non-TPU path does."""
+    if torch.device(device).type == "cuda":
+        return torch.empty((K, R, A, S), dtype=dtype, device=device)
+    return torch.zeros((K, R, A, S), dtype=dtype, device=device)
+
+
+def _ref_impl(m1, m2, P_l, P_r, pi, weights):
+    """Plain merge + rescale + root log-lik on states-major (K, A, S)
+    children.  Returns (merged_scaled, rootll (K,), logscale (K,))."""
+    u = torch.sum(m1[:, :, None, :] * P_l[:, :, :, None], dim=1)
+    v = torch.sum(m2[:, :, None, :] * P_r[:, :, :, None], dim=1)
+    w = u * v
+    scale = torch.clamp(torch.amax(w, dim=-2),
+                        min=torch.finfo(w.dtype).tiny)          # (K, S)
+    merged = w / scale[:, None, :]
+    site_ll = torch.log(torch.sum(w * pi[None, :, None], dim=1))
+    rootll = torch.sum(site_ll * weights[None, :], dim=-1)
+    logscale = torch.sum(torch.log(scale) * weights[None, :], dim=-1)
+    return merged, rootll, logscale
+
+
+def gather_children(leaves, buf, idx):
+    """(m1, m2) for idx (4, K) = [row1, node1, row2, node2]: node < N
+    reads leaves[node], else buf[row, node - N]."""
+    N = leaves.shape[0]
+    R = buf.shape[1]
+    idx = idx.long()
+    ms = []
+    for j in range(2):
+        node = idx[2 * j + 1]
+        row = idx[2 * j]
+        is_leaf = node < N
+        leaf_part = leaves[torch.clamp(node, 0, N - 1)]
+        int_part = buf[row, torch.clamp(node - N, 0, R - 1)]
+        ms.append(torch.where(is_leaf[:, None, None], leaf_part, int_part))
+    return ms[0], ms[1]
+
+
+def _fused_rank_ref(leaves, buf, idx, outc, P_l, P_r, pi, weights,
+                    save_children=False):
+    """Plain version of K1: writes buf[:, outc] in place and returns
+    (rootll, logscale[, m1, m2])."""
+    m1, m2 = gather_children(leaves, buf, idx)
+    merged, rootll, logscale = _ref_impl(m1, m2, P_l, P_r, pi, weights)
+    buf[:, outc] = merged
+    if save_children:
+        return rootll, logscale, m1, m2
+    return rootll, logscale
+
+
+def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
+                      save_children=False):
+    """One full rank update, in place: child gather + transitions +
+    merge + rescale + root log-lik + write of column `outc` of `buf`.
+
+    leaves (N, A, S) shared leaf messages; buf (K, R, A, S) write-once
+    buffer (node N+q lives in column q); idx (4, K) int32; outc int (the
+    rank, never among the children read); P_l, P_r (K, A, A); pi (A,);
+    weights (S,).  Returns (rootll (K,), logscale (K,)) and, with
+    save_children, the gathered children (K, A, S) twice."""
+    if not buf.is_cuda:
+        return _fused_rank_ref(leaves, buf, idx, outc, P_l, P_r, pi,
+                               weights, save_children)
+    K, R, A, S = buf.shape
+    N = leaves.shape[0]
+    _check_a(A)
+    f32 = torch.float32
+    _ext.require(leaves, "leaves", f32, shape=(N, A, S))
+    _ext.require(buf, "buf", f32)
+    _ext.require(idx, "idx", torch.int32, shape=(4, K))
+    _ext.require(P_l, "P_l", f32, shape=(K, A, A))
+    _ext.require(P_r, "P_r", f32, shape=(K, A, A))
+    _ext.require(pi, "pi", f32, shape=(A,))
+    _ext.require(weights, "weights", f32, shape=(S,))
+    if not 0 <= outc < R:
+        raise ValueError(f"output column {outc} outside [0, {R})")
+    dev = buf.device
+    rootll = torch.empty((K,), dtype=f32, device=dev)
+    logscale = torch.empty((K,), dtype=f32, device=dev)
+    if save_children:
+        m1 = torch.empty((K, A, S), dtype=f32, device=dev)
+        m2 = torch.empty((K, A, S), dtype=f32, device=dev)
+        p1, p2 = m1.data_ptr(), m2.data_ptr()
+    else:
+        p1 = p2 = None
+    fn = _ext.bind("rank_kernels", "launch_fused_rank", 11, 6)
+    _ext.LAUNCHES["fused_rank_update"] += 1
+    _ext.check(fn(leaves.data_ptr(), buf.data_ptr(), idx.data_ptr(),
+                  P_l.data_ptr(), P_r.data_ptr(), pi.data_ptr(),
+                  weights.data_ptr(), rootll.data_ptr(),
+                  logscale.data_ptr(), p1, p2,
+                  K, R, N, A, S, outc, _ext.stream_ptr(dev)),
+               "fused_rank_update")
+    if save_children:
+        return rootll, logscale, m1, m2
+    return rootll, logscale
+
+
+def _fused_rank_bwd_saved_ref(m1, m2, gm, gr, gl, P_l, P_r, pi, weights):
+    """Plain version of K2, term for term the math of the JAX kernel's
+    `_rank_bwd_core`.  Returns (dm1, dm2 (K, A, S), dP_l, dP_r (K, A, A),
+    dpi (1, A), dw (1, S))."""
+    dtype = m1.dtype
+    tiny = torch.finfo(dtype).tiny
+    u = torch.sum(m1[:, :, None, :] * P_l[:, :, :, None], dim=1)
+    v = torch.sum(m2[:, :, None, :] * P_r[:, :, :, None], dim=1)
+    wp = u * v                                           # (K, A, S)
+    site = torch.sum(wp * pi[None, :, None], dim=1)      # (K, S)
+    raw = torch.amax(wp, dim=1)
+    scale = torch.clamp(raw, min=tiny)
+    w = weights[None, :]
+    gr = gr[:, None]
+    gl = gl[:, None]
+    dsite = (gr * w) / site
+    inv = 1.0 / scale
+    dscale = (gl * w) / scale - torch.sum(gm * wp, dim=1) * (inv * inv)
+    draw = dscale * ((raw > tiny).to(dtype) + 0.5 * (raw == tiny).to(dtype))
+    eq = (wp == raw[:, None, :]).to(dtype)
+    neq = torch.sum(eq, dim=1)
+    dwp = (gm * inv[:, None, :] + dsite[:, None, :] * pi[None, :, None]
+           + draw[:, None, :] * eq / neq[:, None, :])
+    du = dwp * v
+    dv = dwp * u
+    dm1 = torch.sum(du[:, None, :, :] * P_l[:, :, :, None], dim=2)
+    dm2 = torch.sum(dv[:, None, :, :] * P_r[:, :, :, None], dim=2)
+    dPl = torch.sum(m1[:, :, None, :] * du[:, None, :, :], dim=-1)
+    dPr = torch.sum(m2[:, :, None, :] * dv[:, None, :, :], dim=-1)
+    dpi = torch.sum(dsite[:, None, :] * wp, dim=(0, 2))
+    dw = torch.sum(gr * torch.log(site) + gl * torch.log(scale), dim=0)
+    return dm1, dm2, dPl, dPr, dpi[None], dw[None]
+
+
+def fused_rank_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights):
+    """Reverse of one rank's merge from the children saved by the
+    forward.  gm (K, A, S) merged-message cotangent; gr, gl (K,) rootll /
+    logscale cotangents.  Returns (dm1, dm2, dP_l, dP_r, dpi_part
+    (n, A), dw_part (n, S)); the caller sums the partials over rows."""
+    if not m1.is_cuda:
+        return _fused_rank_bwd_saved_ref(m1, m2, gm, gr, gl, P_l, P_r,
+                                         pi, weights)
+    K, A, S = m1.shape
+    _check_a(A)
+    f32 = torch.float32
+    for t, name in ((m1, "m1"), (m2, "m2"), (gm, "gm")):
+        _ext.require(t, name, f32, shape=(K, A, S))
+    _ext.require(gr, "gr", f32, shape=(K,))
+    _ext.require(gl, "gl", f32, shape=(K,))
+    _ext.require(P_l, "P_l", f32, shape=(K, A, A))
+    _ext.require(P_r, "P_r", f32, shape=(K, A, A))
+    _ext.require(pi, "pi", f32, shape=(A,))
+    _ext.require(weights, "weights", f32, shape=(S,))
+    dev = m1.device
+    tkb = BWD_PARTICLES_PER_BLOCK
+    nb = -(-K // tkb)
+    dm1 = torch.empty((K, A, S), dtype=f32, device=dev)
+    dm2 = torch.empty((K, A, S), dtype=f32, device=dev)
+    dPl = torch.empty((K, A, A), dtype=f32, device=dev)
+    dPr = torch.empty((K, A, A), dtype=f32, device=dev)
+    dpi = torch.empty((nb, A), dtype=f32, device=dev)
+    dw = torch.empty((nb, S), dtype=f32, device=dev)
+    fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_saved", 15, 4)
+    _ext.LAUNCHES["fused_rank_bwd_saved"] += 1
+    _ext.check(fn(m1.data_ptr(), m2.data_ptr(), gm.data_ptr(),
+                  gr.data_ptr(), gl.data_ptr(), P_l.data_ptr(),
+                  P_r.data_ptr(), pi.data_ptr(), weights.data_ptr(),
+                  dm1.data_ptr(), dm2.data_ptr(), dPl.data_ptr(),
+                  dPr.data_ptr(), dpi.data_ptr(), dw.data_ptr(),
+                  K, A, S, tkb, _ext.stream_ptr(dev)),
+               "fused_rank_bwd_saved")
+    return dm1, dm2, dPl, dPr, dpi, dw
+
+
+def _check_a(A):
+    if not 1 <= A <= MAX_A:
+        raise NotImplementedError(
+            f"the CUDA rank kernels take dense A <= {MAX_A} states, got "
+            f"{A} (wide/blocked bodies: ROADMAP.md Queue 2 K9/K10)")

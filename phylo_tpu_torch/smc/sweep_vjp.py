@@ -1,0 +1,215 @@
+"""Manual whole-sweep VJP for the CSMC sweep (port of
+phylo_tpu/smc/sweep_vjp.py, the non-twist half).
+
+Two structural facts of the sweep carry the reverse pass:
+
+1. The message buffer is write-once, so the forward's saved children are
+   exactly the messages every rank read.
+2. Messages reach the loss only through two per-rank scalars, the
+   unscaled root log-lik `rootll_raw` and the merge's log-scale `d_lsc`.
+
+So the backward is (a) a *scalar replay* of the sweep with those
+scalars, the ancestors, pairs and branch draws injected, differentiated
+by autograd (no message tensors at all); (b) the *prologue* (rates ->
+branches -> transitions (K4) and the stationary vector) re-linearized
+once; and (c) `_messages_bwd`, a reverse loop over ranks that runs kernel
+K2 on the saved children and carries a pending-cotangent buffer for the
+internal nodes.
+
+Gradient semantics are the reference's biased VSMC gradient: resampling
+and topology indices are constants, gathered values carry gradients.
+Only parameter gradients are produced (leaves and site weights are
+constants on this path).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from phylo_tpu_torch.pruning.kernels import fused_rank_bwd_saved
+
+_DIFF_FIELDS = ("elbo", "log_weights", "log_likelihood", "log_likelihood_R",
+                "left_branches", "right_branches", "q_proposal")
+_INT_FIELDS = ("ancestors", "merged_nodes", "v_minus")
+
+
+def _flatten(params):
+    names = [(g, k) for g in sorted(params) for k in sorted(params[g])]
+    return names, [params[g][k] for g, k in names]
+
+
+def _unflatten(names, tensors):
+    out = {}
+    for (g, k), t in zip(names, tensors):
+        out.setdefault(g, {})[k] = t
+    for g in ("model", "branches"):
+        out.setdefault(g, {})
+    return out
+
+
+class _ManualSweep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, spec, *tensors):
+        from phylo_tpu_torch.smc.sweep import _sample_body
+
+        params = _unflatten(spec["names"], tensors)
+        res, aux = _sample_body(
+            spec["generator"], spec["leaves"], spec["model"], params,
+            spec["config"], decisions=spec["decisions"],
+            site_weights=spec["site_weights"], want_aux=True,
+            fused_rank=True)
+        ctx.spec = spec
+        ctx.aux = aux
+        ctx.save_for_backward(*tensors)
+        outs = tuple(getattr(res, f) for f in _DIFF_FIELDS + _INT_FIELDS)
+        ctx.mark_non_differentiable(*outs[len(_DIFF_FIELDS):])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *cts):
+        spec, aux = ctx.spec, ctx.aux
+        tensors = ctx.saved_tensors
+        cts = cts[:len(_DIFF_FIELDS)]
+        dparams = _manual_bwd(spec, aux, tensors, cts)
+        ctx.aux = None
+        return (None,) + tuple(dparams)
+
+
+def _grad(outputs, inputs, cts):
+    """autograd.grad over the outputs that require grad; None-safe."""
+    pairs = [(o, c) for o, c in zip(outputs, cts)
+             if o is not None and o.requires_grad]
+    want = [i for i in inputs if i.requires_grad]
+    if not pairs or not want:
+        return [torch.zeros_like(i) for i in inputs]
+    got = torch.autograd.grad([o for o, _ in pairs], want,
+                              [c for _, c in pairs], allow_unused=True)
+    it = iter(got)
+    out = []
+    for i in inputs:
+        g = next(it) if i.requires_grad else None
+        out.append(torch.zeros_like(i) if g is None else g)
+    return out
+
+
+def _manual_bwd(spec, aux, tensors, cts):
+    from phylo_tpu_torch.models.branches import branch_rates
+    from phylo_tpu_torch.smc.sweep import _sample_body
+
+    model, config = spec["model"], spec["config"]
+    decisions = spec["decisions"]
+    names = spec["names"]
+    leaves = spec["leaves"]
+    N = leaves.shape[0]
+    dtype = leaves.dtype
+
+    with torch.enable_grad():
+        # (a) scalar replay: merge scalars injected as leaves of the graph
+        p_leaf = [t.detach().requires_grad_(True) for t in tensors]
+        rootll = aux["rootll_raw"].detach().requires_grad_(True)
+        dlsc = aux["d_lsc"].detach().requires_grad_(True)
+        injected = dict(
+            ancestors=aux["ancestors"], do_resample=aux["do_resample"],
+            pairs=aux["pairs"], eps_l=aux["eps_l"], eps_r=aux["eps_r"],
+            rootll_raw=rootll, d_lsc=dlsc)
+        res2 = _sample_body(
+            None, leaves, model, _unflatten(names, p_leaf), config,
+            decisions=decisions, site_weights=spec["site_weights"],
+            injected=injected)
+        outs = [getattr(res2, f) for f in _DIFF_FIELDS]
+        *d_replay, g_rootll, g_dlsc = _grad(outs, p_leaf + [rootll, dlsc],
+                                            cts)
+
+        # (b) prologue: (P_all, pi) re-linearized at the forward's values
+        p_pro = [t.detach().requires_grad_(True) for t in tensors]
+        params = _unflatten(names, p_pro)
+        rates_l, rates_r = branch_rates(params["branches"])
+        if decisions is not None:
+            b_l = decisions["branches_l"].to(dtype)
+            b_r = decisions["branches_r"].to(dtype)
+        else:
+            b_l = aux["eps_l"] / rates_l.to(dtype)[:, None]
+            b_r = aux["eps_r"] / rates_r.to(dtype)[:, None]
+        P_all = model.transition(params["model"],
+                                 torch.cat([b_l, b_r], dim=1)).to(dtype)
+        pi = model.stationary(params["model"], dtype=dtype,
+                              device=leaves.device).to(dtype)
+
+        # (c) reverse pass over the message DAG (kernel K2 per rank)
+        with torch.no_grad():
+            dP_all, dpi = _messages_bwd(aux, P_all.detach(), pi.detach(),
+                                        g_rootll, g_dlsc, N)
+        d_pro = _grad([P_all, pi], p_pro, [dP_all, dpi])
+    return [a + b for a, b in zip(d_replay, d_pro)]
+
+
+def _messages_bwd(aux, P_all, pi, g_rootll, g_dlsc, N):
+    """Reverse pass over the message DAG, ranks in reverse order.
+
+    `pending` (R+1, K, A, S) holds the accumulated cotangent of each
+    internal node's scaled message in the absolute buffer frame: node
+    q = r of particle row k at pending[r, k].  Column r is written at
+    rank r and read only at ranks > r, so by the time reverse step r
+    consumes pending[r], every contribution is in.  Per rank: K2 on the
+    saved children with cotangents (pending[r], g_rootll[r], g_dlsc[r]),
+    then the internal-child cotangents are scatter-added into pending.
+    Leaf children are routed to the spare slot pending[R] explicitly
+    (index_put_ has no drop mode, and a -1 index would silently hit the
+    last column).
+
+    Returns (dP_all (R, 2K, A, A), dpi (A,)).
+    """
+    child_l, child_r = aux["child_l"], aux["child_r"]
+    ids_all = aux["merged"]                   # R x (K, 2) node ids
+    rows_all = aux["rows"]                    # R x (K, 2) buffer rows
+    w_vec = aux["site_weights"]
+    R = len(ids_all)
+    K, A, S = child_l[0].shape
+    dtype = child_l[0].dtype
+    dev = child_l[0].device
+    P_l_all = P_all[:, :K]
+    P_r_all = P_all[:, K:]
+    pi = pi.contiguous()
+    g_rootll = g_rootll.to(dtype)
+    g_dlsc = g_dlsc.to(dtype)
+
+    pending = torch.zeros((R + 1, K, A, S), dtype=dtype, device=dev)
+    dPl_out = [None] * R
+    dPr_out = [None] * R
+    dpi = torch.zeros_like(pi)
+    for r in range(R - 1, -1, -1):
+        ids, rows = ids_all[r], rows_all[r]
+        dm1, dm2, dPl, dPr, dpi_p, _dw_p = fused_rank_bwd_saved(
+            child_l[r], child_r[r], pending[r], g_rootll[r].contiguous(),
+            g_dlsc[r].contiguous(), P_l_all[r].contiguous(),
+            P_r_all[r].contiguous(), pi, w_vec)
+        dPl_out[r], dPr_out[r] = dPl, dPr
+        dpi = dpi + torch.sum(dpi_p, dim=0)
+        if r:
+            is_leaf = ids < N
+            col = torch.where(is_leaf, torch.full_like(ids, R), ids - N)
+            for j, dm in ((0, dm1), (1, dm2)):
+                pending.index_put_((col[:, j], rows[:, j]), dm,
+                                   accumulate=True)
+    dP_all = torch.cat([torch.stack(dPl_out), torch.stack(dPr_out)], dim=1)
+    return dP_all, dpi
+
+
+def sweep_manual_vjp(generator, leaves, model, params, config, *,
+                     decisions=None, site_weights=None):
+    """`sample_phylogenies` with the manual whole-sweep VJP attached;
+    returns a SweepResult whose float fields are differentiable in
+    `params`."""
+    from phylo_tpu_torch.smc.sweep import SweepResult
+
+    if leaves.requires_grad or (site_weights is not None
+                                and site_weights.requires_grad):
+        raise NotImplementedError(
+            "the manual sweep VJP differentiates params only (leaf and "
+            "site-weight cotangents: ROADMAP.md Queue 1 item 8)")
+    names, tensors = _flatten(params)
+    spec = dict(generator=generator, leaves=leaves, model=model,
+                config=config, decisions=decisions,
+                site_weights=site_weights, names=names)
+    outs = _ManualSweep.apply(spec, *tensors)
+    return SweepResult(**dict(zip(_DIFF_FIELDS + _INT_FIELDS, outs)))

@@ -1,0 +1,86 @@
+"""Boundaries of the port: phylo_tpu_torch and chip_smoke.py import
+neither jax nor phylo_tpu, and the entry points run on the GPU unless
+the caller names the CPU (they raise when no GPU is visible)."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "phylo_tpu_torch")
+
+torch.set_num_threads(1)
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_phylo_tpu_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "phylo_tpu", "optax"), (
+            f"{os.path.relpath(path, REPO)} imports {mod}")
+
+
+def test_import_leaves_jax_unloaded():
+    code = (
+        "import sys\n"
+        "import phylo_tpu_torch.cli.runner, phylo_tpu_torch.train\n"
+        "import phylo_tpu_torch.smc.sweep_vjp, phylo_tpu_torch.params\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'phylo_tpu')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
+                   env=env, timeout=120)
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is usable")
+    from phylo_tpu_torch.cli import runner
+    from phylo_tpu_torch.dataio import load_dataset
+    from phylo_tpu_torch.train import TrainConfig, train
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(load_dataset("load_strings"),
+              TrainConfig(n_particles=4, num_epoch=1, save_artifacts=False))
+    with pytest.raises(RuntimeError, match="--device=cpu"):
+        runner.main(["--dataset=load_strings", "--n_particles=4",
+                     "--num_epoch=1", "--no_artifacts"])
+
+
+def test_float64_on_cuda_is_rejected():
+    from phylo_tpu_torch.device import resolve_dtype
+
+    with pytest.raises(NotImplementedError, match="float64 on cuda"):
+        resolve_dtype("float64", "cuda")
+
+
+def test_kernel_input_checks_refuse_cpu_tensors():
+    """Wrappers validate what they hand to a kernel: a CPU tensor never
+    reaches the CUDA launch path, and the checker refuses it."""
+    from phylo_tpu_torch import _ext
+
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _ext.require(torch.zeros(3), "x", torch.float32)
