@@ -8,18 +8,21 @@ script exits non-zero without printing a result:
 1. build every kernel from csrc/ (one nvcc per source, in parallel) and
    read the card (nvidia-smi name and power limit);
 2. each kernel against its plain PyTorch version on the card at the main
-   path's shapes (K=2048 particles, S=256 and 898 sites, 45,056
-   transition matrices), with the tolerances printed, and timed beside
-   the plain version, the least time the card could take (bound) and,
-   where one exists, a single PyTorch library call;
+   paths' shapes (VCSMC: K=2048 particles, S=256 and 898 sites, 45,056
+   transition matrices; VNCSMC: K=32 chosen merges, M=10 subsamples of
+   32 x 66 candidate pairs), with the tolerances printed, and timed
+   beside the plain version, the least time the card could take (bound)
+   and, where one exists, a single PyTorch library call;
 3. fixed-decision ELBO: the sweep in float32 on the card through the
    kernels against float64 on the CPU through the plain path, with the
    same numpy-made decisions (1e-3 relative, BASELINE.md's bar), and
-   the manual-VJP gradients likewise;
-4. the main path: two epochs of VCSMC training on primate (N=12, S=898)
-   at K=2048, site batch 256, through phylo_tpu_torch.cli.runner, with
-   every kernel's launch counter read before and after;
-5. where the time of one such epoch goes, under torch.profiler.
+   the manual-VJP gradients likewise, for VCSMC (K=2048) and VNCSMC
+   (K=32, M=10);
+4. the main paths: two epochs each of VCSMC training on primate (N=12,
+   S=898) at K=2048 and of VNCSMC (twisted) training at K=32, M=10,
+   site batch 256, through phylo_tpu_torch.cli.runner, with every
+   kernel's launch counter set to 0 before each path and read after;
+5. where the time of one epoch of each path goes, under torch.profiler.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -41,7 +44,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 K, N, S_BATCH, S_FULL, A = 2048, 12, 256, 898, 4
+K_TWIST, M_TWIST = 32, 10          # VNCSMC: reference autorun.sh
 R = N - 1
+SLEEP_CYCLES = 100_000_000         # ~50 ms at the H100's ~2 GHz clock
 
 
 def log(msg):
@@ -57,11 +62,17 @@ def card_line():
 
 
 def time_ms(fn, iters=20, warmup=3):
+    """Device milliseconds per call of fn, by CUDA events around `iters`
+    calls.  A sleep kernel holds the stream while the host enqueues the
+    calls, so a small kernel's time is its own and not the rate at which
+    Python launches it (without it, K8 at K=32 read 0.049 ms, the
+    wrapper's host cost)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -266,15 +277,22 @@ def check_k4(ek, gen, dev):
                     B * (steps * (mm + A * A) + 10))
     bb_, byb = bound(B * 4 + 2 * B * A * A * 4 + (A * A + 1) * 4,
                      B * steps * (3 * mm + 3 * A * A))
+    # library: the backward of torch.linalg.matrix_exp on the same batch
+    # (the Frechet adjoint per matrix; Q_bar and b_bar follow by sums)
+    Qb_req = Qb.clone().requires_grad_(True)
+    E = torch.linalg.matrix_exp(Qb_req)
+    lib_b = time_ms(lambda: torch.autograd.grad(E, Qb_req, gbar,
+                                                retain_graph=True))
     log(f"  K4 fwd: kernel {ms_f:.4f} ms, plain {plain_f:.4f} ms, "
         f"torch.linalg.matrix_exp {lib_f:.4f} ms, bound {bf:.4f} ms ({byf})")
     log(f"  K4 bwd: kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms, "
-        f"bound {bb_:.4f} ms ({byb})")
+        f"torch.linalg.matrix_exp backward {lib_b:.4f} ms, bound "
+        f"{bb_:.4f} ms ({byb})")
     fwd = dict(max_abs_err=max(v[0] for v in out.values()), ms=ms_f,
                plain_ms=plain_f, bound_ms=bf, bound_by=byf, library_ms=lib_f)
     bwd = dict(max_abs_err=max(v[1] for v in out.values()), ms=ms_b,
                plain_ms=plain_b, bound_ms=bb_, bound_by=byb,
-               library_ms=None)
+               library_ms=lib_b)
     return fwd, bwd
 
 
@@ -326,6 +344,88 @@ def check_k5(rk, gen, dev):
                 library_ms=lib)
 
 
+def check_k8(kern, gen, dev, S):
+    """K8 on the VNCSMC path's chosen merges: K=32 particles, explicit
+    children, S=256 (SGD steps) or 898 (eval sweeps)."""
+    f = dict(dtype=torch.float32, device=dev)
+    Kt = K_TWIST
+    m1 = torch.rand((Kt, A, S), generator=gen, **f) * 0.95 + 0.05
+    m2 = torch.rand((Kt, A, S), generator=gen, **f) * 0.95 + 0.05
+    P_l = torch.rand((Kt, A, A), generator=gen, **f) * 0.95 + 0.05
+    P_r = torch.rand((Kt, A, A), generator=gen, **f) * 0.95 + 0.05
+    pi = torch.rand((A,), generator=gen, **f) + 0.1
+    pi = (pi / pi.sum()).contiguous()
+    w = torch.ones((S,), **f)
+    args = (m1, m2, P_l, P_r, pi, w)
+    got = kern.merge_loglik(*args)
+    want = kern._ref_impl(*args)
+    torch.cuda.synchronize()
+    errs = {"merged": max_abs(got[0], want[0]),
+            "rootll": max_rel(got[1], want[1]),
+            "logscale": max_rel(got[2], want[2])}
+    tol = 1e-5   # f32 site sums of S logs, summed in another order
+    log(f"  K8 fused_merge_loglik K={Kt} S={S}: " + ", ".join(
+        f"{k} err {v:.3e}" for k, v in errs.items()) + f" (tol {tol:g})")
+    for k, v in errs.items():
+        require(v <= tol, f"K8 {k} error {v} > {tol}")
+    ms = time_ms(lambda: kern.merge_loglik(*args))
+    plain = time_ms(lambda: kern._ref_impl(*args))
+    slab = Kt * A * S * 4
+    nbytes = 3 * slab + 2 * Kt * A * A * 4 + A * 4 + S * 4 + 2 * Kt * 4
+    nops = Kt * S * (4 * A * A + 4 * A + 2)
+    b_ms, b_by = bound(nbytes, nops)
+    log(f"  K8 S={S}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}); library: null (no single PyTorch call "
+        "merges, rescales and reduces the root log-likelihood)")
+    return dict(max_abs_err=max(max_abs(a, b) for a, b in zip(got, want)),
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def check_k7(kern, gen, dev):
+    """K7 at the VNCSMC training shapes: M=10 subsamples, KC = 32
+    particles x 66 candidate pairs (rank 0 of primate), S=256 sites."""
+    f = dict(dtype=torch.float32, device=dev)
+    KC = K_TWIST * (N * (N - 1) // 2)
+    m1 = torch.rand((KC, A, S_BATCH), generator=gen, **f) * 0.95 + 0.05
+    m2 = torch.rand((KC, A, S_BATCH), generator=gen, **f) * 0.95 + 0.05
+    P_l = torch.rand((M_TWIST, KC, A, A), generator=gen, **f) * 0.95 + 0.05
+    P_r = torch.rand((M_TWIST, KC, A, A), generator=gen, **f) * 0.95 + 0.05
+    pi = torch.rand((A,), generator=gen, **f) + 0.1
+    pi = (pi / pi.sum()).contiguous()
+    w = torch.ones((S_BATCH,), **f)
+    g = torch.randn((M_TWIST, KC), generator=gen, **f)
+    args = (m1, m2, P_l, P_r, pi, w, g)
+    got = kern.pair_ll_bwd(*args, want_dw=False)[:5]
+    want = kern._pair_ll_bwd_plain(*args)[:5]
+    torch.cuda.synchronize()
+    names = ["dm1", "dm2", "dP_l", "dP_r", "dpi"]
+    errs = {n: max_rel(a, b) for n, a, b in zip(names, got, want)}
+    # f32 sums over M subsamples (dm) and S sites (dP, dpi), in another
+    # order than the plain version's autograd
+    tol = 1e-4
+    log("  K7 pair_ll_bwd: " + ", ".join(
+        f"{n} rel err {v:.3e}" for n, v in errs.items()) + f" (tol {tol:g})")
+    for n, v in errs.items():
+        require(v <= tol, f"K7 {n} relative error {v} > {tol}")
+    ms = time_ms(lambda: kern.pair_ll_bwd(*args, want_dw=False))
+    plain = time_ms(lambda: kern._pair_ll_bwd_plain(*args), iters=5)
+    slab = KC * A * S_BATCH * 4
+    pbytes = M_TWIST * KC * A * A * 4
+    nbytes = 4 * slab + 4 * pbytes + M_TWIST * KC * 4 + S_BATCH * 4 \
+        + 2 * A * 4
+    # per (m, k, s): u, v (4 A^2), site (3 A), gsite (2), du/dv (4 A),
+    # dm and dP accumulation (8 A^2); an FMA counts 2
+    nops = M_TWIST * KC * S_BATCH * (12 * A * A + 7 * A + 2)
+    b_ms, b_by = bound(nbytes, nops)
+    log(f"  K7 M={M_TWIST} KC={KC} S={S_BATCH}: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); library: null (no "
+        "single PyTorch call computes this vector-Jacobian product)")
+    return dict(max_abs_err=max(max_abs(a, b) for a, b in zip(got, want)),
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
 def pooled_chi2(counts, p, n, min_expected=5.0):
     """Pearson chi-square of category counts against probabilities p,
     with the categories expected fewer than `min_expected` times pooled
@@ -355,11 +455,37 @@ def make_decisions(rng, N_, K_, rates_l, rates_r):
                 branches_r=br)
 
 
-def fixed_decision_check(dev):
+def make_twist_decisions(rng, N_, K_, M_, rates_l, rates_r):
+    """Ancestors, lexicographic branch pools (R, P, M, K) and
+    lexicographic flat choices pair * M + m on pairs active at each
+    rank, as the JAX package's test_twist.py makes them."""
+    R_ = N_ - 1
+    pairs = np.asarray([(i, j) for i in range(N_)
+                        for j in range(i + 1, N_)])
+    P = len(pairs)
+    dec = dict(
+        ancestors=rng.integers(0, K_, size=(R_, K_)),
+        twist_pool_l=rng.exponential(1.0, size=(R_, P, M_, K_))
+        / rates_l[:, None, None, None],
+        twist_pool_r=rng.exponential(1.0, size=(R_, P, M_, K_))
+        / rates_r[:, None, None, None])
+    choice = np.zeros((R_, K_), dtype=np.int64)
+    for r in range(R_):
+        valid = np.flatnonzero(pairs[:, 1] < N_ - r)
+        choice[r] = rng.choice(valid, size=K_) * M_ + rng.integers(
+            0, M_, size=K_)
+    dec["twist_choice"] = choice
+    return dec
+
+
+def fixed_decision_check(dev, twist=False):
+    """The sweep with numpy-made decisions, float32 on the card against
+    float64 on the CPU: VCSMC at K=2048, or VNCSMC at K=32, M=10."""
     from phylo_tpu_torch.dataio import load_dataset
     from phylo_tpu_torch.models.substitution import ReferenceQ
     from phylo_tpu_torch.params import params_from_numpy
     from phylo_tpu_torch.smc.sweep import SweepConfig, sample_phylogenies
+    from phylo_tpu_torch.smc.twist import TwistConfig
 
     ds = load_dataset("primate")
     rng = np.random.default_rng(11)
@@ -369,10 +495,19 @@ def fixed_decision_check(dev):
             "branches": {"log_rates_l": math.log(10) + 0.3 * rng.normal(
                 size=R), "log_rates_r": math.log(10) + 0.3 * rng.normal(
                 size=R)}}
-    dec = make_decisions(rng, ds.N, K, np.exp(tree["branches"][
-        "log_rates_l"]), np.exp(tree["branches"]["log_rates_r"]))
+    rates = (np.exp(tree["branches"]["log_rates_l"]),
+             np.exp(tree["branches"]["log_rates_r"]))
     model = ReferenceQ(A)
-    cfg = SweepConfig(K=K)
+    if twist:
+        Kd = K_TWIST
+        dec = make_twist_decisions(rng, ds.N, Kd, M_TWIST, *rates)
+        cfg = SweepConfig(K=Kd, twist=TwistConfig(M=M_TWIST))
+        label = f"VNCSMC K={Kd} M={M_TWIST}"
+    else:
+        Kd = K
+        dec = make_decisions(rng, ds.N, Kd, *rates)
+        cfg = SweepConfig(K=Kd)
+        label = f"VCSMC K={Kd}"
     out = {}
     for name, device, dtype in (("cuda f32", dev, torch.float32),
                                 ("cpu f64", "cpu", torch.float64)):
@@ -392,7 +527,7 @@ def fixed_decision_check(dev):
     g32, g64 = torch.cat([g.reshape(-1) for g in g32]), torch.cat(
         [g.reshape(-1) for g in g64])
     rel_g = float((g32 - g64).norm() / g64.norm())
-    log(f"phase 3 fixed-decision ELBO primate K={K}: cuda f32 {e32:.6f} vs "
+    log(f"phase 3 fixed-decision ELBO primate {label}: cuda f32 {e32:.6f} vs "
         f"cpu f64 {e64:.6f}, rel err {rel:.3e} (tol 1e-3); "
         f"log_likelihood_R max rel err {rel_llr:.3e}; manual-VJP gradient "
         f"rel L2 err {rel_g:.3e} (tol 1e-2)")
@@ -402,22 +537,38 @@ def fixed_decision_check(dev):
 
 
 # ---------------------------------------------------------------- phase 4
-def main_path(ext):
+PATHS = {
+    "vcsmc": dict(
+        argv=["--dataset=primate_data", f"--n_particles={K}",
+              f"--batch_size={S_BATCH}"],
+        kernels=("fused_rank_update", "fused_rank_bwd_saved", "expm_fwd",
+                 "expm_bwd", "categorical")),
+    "vncsmc": dict(
+        argv=["--dataset=primate_data", "--nested=True", f"--M={M_TWIST}",
+              f"--n_particles={K_TWIST}", f"--batch_size={S_BATCH}"],
+        kernels=("fused_merge_loglik", "pair_ll_bwd",
+                 "fused_rank_bwd_saved", "expm_fwd", "expm_bwd",
+                 "categorical")),
+}
+
+
+def main_path(ext, name):
+    """Two training epochs of one path through the runner, with the
+    launch counters set to 0 just before and read just after."""
     from phylo_tpu_torch.cli import runner
     from phylo_tpu_torch.train.trainer import param_tensors
 
-    argv = ["--dataset=primate_data", "--n_particles=2048",
-            "--batch_size=256", "--num_epoch=2", "--no_artifacts",
-            "--device=cuda"]
+    path = PATHS[name]
+    argv = path["argv"] + ["--num_epoch=2", "--no_artifacts",
+                           "--device=cuda"]
     torch.cuda.synchronize()
     ext.reset_launches()
     res = runner.run(argv)
     torch.cuda.synchronize()
     launches = dict(ext.LAUNCHES)
-    log(f"phase 4 main path launches: {json.dumps(launches)}")
-    for name in ("fused_rank_update", "fused_rank_bwd_saved", "expm_fwd",
-                 "expm_bwd", "categorical"):
-        require(launches.get(name, 0) > 0, f"{name} never launched")
+    log(f"phase 4 {name} main path launches: {json.dumps(launches)}")
+    for kname in path["kernels"]:
+        require(launches.get(kname, 0) > 0, f"{kname} never launched")
     elbo = res.elbo
     require(math.isfinite(elbo) and -8000.0 < elbo < -5500.0,
             f"ELBO {elbo} outside the primate band (-8000, -5500)")
@@ -427,14 +578,14 @@ def main_path(ext):
                 and bool((g != 0).any()), "a gradient is missing, "
                 "non-finite or zero")
     secs = res.history["epoch_seconds"]
-    log(f"phase 4 ELBO {elbo:.3f}; seconds per epoch after warm-up "
+    log(f"phase 4 {name} ELBO {elbo:.3f}; seconds per epoch after warm-up "
         f"{secs[-1]:.4f} (epoch 1 incl. warm-up {secs[0]:.4f})")
     return launches
 
 
 # ---------------------------------------------------------------- phase 5
-def profile_epoch():
-    """train() for one epoch on the main path's configuration under
+def profile_epoch(name):
+    """train() for one epoch of a main path's configuration under
     torch.profiler, after phase 4 warmed everything up.  The profiled run
     holds train()'s set-up, its initial eval sweep and one epoch (3 SGD
     steps + the eval sweep).  Prints its host wall time, the summed
@@ -446,8 +597,10 @@ def profile_epoch():
     from phylo_tpu_torch.train import TrainConfig, train
 
     ds = load_dataset("primate_data")
-    cfg = TrainConfig(n_particles=K, batch_size=S_BATCH, num_epoch=1,
-                      save_artifacts=False, log_every=0, device="cuda")
+    twist = dict(nested=True, M=M_TWIST, n_particles=K_TWIST)
+    cfg = TrainConfig(batch_size=S_BATCH, num_epoch=1, save_artifacts=False,
+                      log_every=0, device="cuda",
+                      **(twist if name == "vncsmc" else dict(n_particles=K)))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -465,15 +618,15 @@ def profile_epoch():
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     if not rows:
-        log(f"phase 5 profile: wall {wall_ms:.1f} ms; the profiler recorded "
-            "no device time (device numbers not measured)")
+        log(f"phase 5 {name} profile: wall {wall_ms:.1f} ms; the profiler "
+            "recorded no device time (device numbers not measured)")
         return
-    log("phase 5 profile of train(num_epoch=1): " + json.dumps({
+    log(f"phase 5 {name} profile of train(num_epoch=1): " + json.dumps({
         "wall_ms": wall_ms, "device_kernel_ms": device_ms,
         "device_busy_share": device_ms / wall_ms,
         "kernel_launches": sum(r[2] for r in rows),
         "top_kernels": [{"name": k, "device_ms": ms, "launches": n}
-                        for k, ms, n in rows[:8]]}))
+                        for k, ms, n in rows[:10]]}))
 
 
 def main(argv):
@@ -505,10 +658,17 @@ def main(argv):
     k2 = check_k2(kernels, gen, dev, k1_inputs)
     k4f, k4b = check_k4(expm_kernel, gen, dev)
     k5 = check_k5(resample_kernel, gen, dev)
+    k7 = check_k7(kernels, gen, dev)
+    k8 = check_k8(kernels, gen, dev, S_BATCH)
+    check_k8(kernels, gen, dev, S_FULL)
 
     fixed_decision_check(dev)
-    launches = main_path(_ext)
-    profile_epoch()
+    fixed_decision_check(dev, twist=True)
+    by_path = {name: main_path(_ext, name) for name in PATHS}
+    launches = {k: sum(c.get(k, 0) for c in by_path.values())
+                for k in set().union(*by_path.values())}
+    for name in PATHS:
+        profile_epoch(name)
 
     rows = [
         ("fused_rank_update", "phylo_tpu_torch/csrc/rank_kernels.cu",
@@ -521,6 +681,10 @@ def main(argv):
          "phylo_tpu/models/expm_kernel.py:169", k4b),
         ("categorical", "phylo_tpu_torch/csrc/resample_kernels.cu",
          "phylo_tpu/smc/resample_kernel.py:93", k5),
+        ("pair_ll_bwd", "phylo_tpu_torch/csrc/twist_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:1059", k7),
+        ("fused_merge_loglik", "phylo_tpu_torch/csrc/twist_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:159", k8),
     ]
     table = [dict(name=name, route="cuda", source=src, replaces=rep,
                   launches=int(launches.get(name, 0)), **m)

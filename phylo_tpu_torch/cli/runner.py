@@ -7,6 +7,8 @@ later slices raise NotImplementedError naming their ROADMAP.md item.
 Usage (on a GPU):
     python -m phylo_tpu_torch.cli.runner --dataset=primate_data \
         --n_particles=2048 --num_epoch=100 --batch_size=256
+    python -m phylo_tpu_torch.cli.runner --dataset=primate_data \
+        --nested=True --M=10 --n_particles=32 --batch_size=256
 """
 
 from __future__ import annotations
@@ -76,8 +78,6 @@ def _check_flags(args):
             f"{flag} is not ported to phylo_tpu_torch yet "
             f"(ROADMAP.md {item})")
 
-    if args.nested:
-        no("--nested", "Queue 1 item 10")
     if args.codons:
         no("--codons", "Queue 1 item 11")
     if args.gamma_categories:
@@ -117,6 +117,8 @@ def run(argv=None):
         batch_size=args.batch_size,
         learning_rate=args.learning_rate,
         num_epoch=args.num_epoch,
+        M=args.M,
+        nested=args.nested,
         optimizer=args.optimizer,
         branch_prior=args.branch_prior,
         jcmodel=args.jcmodel,

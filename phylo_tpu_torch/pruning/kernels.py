@@ -1,6 +1,8 @@
 """Kernels K1 and K2: the fused rank update and its saved-children
 backward (port of phylo_tpu/pruning/kernels.py::fused_rank_update and
-::fused_rank_bwd_saved).
+::fused_rank_bwd_saved); K8, the same merge on explicit children
+(::fused_merge_loglik), and K7, the VNCSMC pair-loglik backward
+(::pair_loglik's `_pair_ll_bwd_pallas`), further down.
 
 One rank of the sweep, per particle k:
 
@@ -19,8 +21,10 @@ and the max(raw, tiny) clamp's half-split, exactly as `_rank_bwd_core`.
 CUDA tensors launch csrc/rank_kernels.cu; CPU tensors run the plain
 versions `_fused_rank_ref` / `_fused_rank_bwd_saved_ref` below.  Dense
 alphabets A <= 8 only on the card (the wide and blocked bodies, K9/K10,
-are not ported).  Neither op has an autograd rule: only the manual
-whole-sweep VJP (smc.sweep_vjp) calls them.
+are not ported).  K1 and K2 have no autograd rule: only the manual
+whole-sweep VJP (smc.sweep_vjp) calls them.  K7 and K8 live in
+csrc/twist_kernels.cu and carry torch.autograd.Functions
+(`fused_merge_loglik`, `pair_loglik`).
 """
 
 from __future__ import annotations
@@ -208,6 +212,160 @@ def fused_rank_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights):
                   K, A, S, tkb, _ext.stream_ptr(dev)),
                "fused_rank_bwd_saved")
     return dm1, dm2, dPl, dPr, dpi, dw
+
+
+def merge_loglik(m1, m2, P_l, P_r, pi, weights):
+    """K8: merge + rescale + root log-lik on explicit (K, A, S) children,
+    no autograd.  Returns (merged_scaled (K, A, S), rootll (K,),
+    logscale (K,)); rootll is the log-lik of the unscaled merge."""
+    if not m1.is_cuda:
+        return _ref_impl(m1, m2, P_l, P_r, pi, weights)
+    K, A, S = m1.shape
+    _check_a(A)
+    f32 = torch.float32
+    _ext.require(m1, "m1", f32, shape=(K, A, S))
+    _ext.require(m2, "m2", f32, shape=(K, A, S))
+    _ext.require(P_l, "P_l", f32, shape=(K, A, A))
+    _ext.require(P_r, "P_r", f32, shape=(K, A, A))
+    _ext.require(pi, "pi", f32, shape=(A,))
+    _ext.require(weights, "weights", f32, shape=(S,))
+    dev = m1.device
+    merged = torch.empty((K, A, S), dtype=f32, device=dev)
+    rootll = torch.empty((K,), dtype=f32, device=dev)
+    logscale = torch.empty((K,), dtype=f32, device=dev)
+    fn = _ext.bind("twist_kernels", "launch_merge_loglik", 9, 3)
+    _ext.LAUNCHES["fused_merge_loglik"] += 1
+    _ext.check(fn(m1.data_ptr(), m2.data_ptr(), P_l.data_ptr(),
+                  P_r.data_ptr(), pi.data_ptr(), weights.data_ptr(),
+                  merged.data_ptr(), rootll.data_ptr(), logscale.data_ptr(),
+                  K, A, S, _ext.stream_ptr(dev)),
+               "fused_merge_loglik")
+    return merged, rootll, logscale
+
+
+class _FusedMergeLoglik(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, m1, m2, P_l, P_r, pi, weights):
+        ctx.save_for_backward(m1, m2, P_l, P_r, pi, weights)
+        return merge_loglik(m1, m2, P_l, P_r, pi, weights)
+
+    @staticmethod
+    def backward(ctx, gm, gr, gl):
+        saved = ctx.saved_tensors
+        if saved[0].is_cuda:
+            # K2 computes exactly these cotangents from explicit children
+            m1, m2, P_l, P_r, pi, w = saved
+            dm1, dm2, dPl, dPr, dpi, dw = fused_rank_bwd_saved(
+                m1, m2, gm.contiguous(), gr.contiguous(), gl.contiguous(),
+                P_l, P_r, pi, w)
+            return dm1, dm2, dPl, dPr, dpi.sum(0), dw.sum(0)
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in saved]
+            outs = _ref_impl(*ins)
+            return torch.autograd.grad(outs, ins, (gm, gr, gl))
+
+
+def fused_merge_loglik(m1, m2, P_l, P_r, pi, weights):
+    """Differentiable K8 (forward: the kernel on the card, `_ref_impl` on
+    the CPU; backward: K2 on the card, the autograd VJP of `_ref_impl`
+    on the CPU, as the JAX package's default `_bwd`)."""
+    return _FusedMergeLoglik.apply(m1, m2, P_l, P_r, pi, weights)
+
+
+def _pair_site_lik(m1, m2, P_l, P_r, pi):
+    """(M, K, S) site likelihoods of M candidate merges per particle, as
+    explicit multiply-adds in the JAX package's order."""
+    A = P_l.shape[-1]
+    site_lik = None
+    for b in range(A):
+        u_b = v_b = None
+        for a in range(A):
+            tu = m1[None, :, a, :] * P_l[:, :, a, b, None]
+            tv = m2[None, :, a, :] * P_r[:, :, a, b, None]
+            u_b = tu if u_b is None else u_b + tu
+            v_b = tv if v_b is None else v_b + tv
+        term = (u_b * v_b) * pi[b]
+        site_lik = term if site_lik is None else site_lik + term
+    return site_lik
+
+
+def _pair_ll_ref(m1, m2, P_l, P_r, pi, weights):
+    """Data log-likelihoods (M, K) of M candidate merges per particle:
+    m1, m2 (K, A, S) shared across M; P_l, P_r (M, K, A, A)."""
+    site_lik = _pair_site_lik(m1, m2, P_l, P_r, pi)
+    return torch.sum(torch.log(site_lik) * weights[None, None, :], dim=-1)
+
+
+def _dw_ref(m1, m2, P_l, P_r, pi, g):
+    """Site-weight cotangent sum_{m,k} g[m,k] log site_lik[m,k,s]."""
+    site_lik = _pair_site_lik(m1, m2, P_l, P_r, pi)
+    return torch.sum(g[:, :, None] * torch.log(site_lik), dim=(0, 1))
+
+
+def _pair_ll_bwd_plain(m1, m2, P_l, P_r, pi, weights, g):
+    """Plain version of K7: the autograd VJP of `_pair_ll_ref`.  Returns
+    (dm1, dm2, dP_l, dP_r, dpi, dw)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True)
+               for t in (m1, m2, P_l, P_r, pi, weights)]
+        return torch.autograd.grad(_pair_ll_ref(*ins), ins, g)
+
+
+def pair_ll_bwd(m1, m2, P_l, P_r, pi, weights, g, want_dw=True):
+    """K7: cotangents of `_pair_ll_ref` for the output cotangent g (M, K).
+    Returns (dm1, dm2 (K, A, S), dP_l, dP_r (M, K, A, A), dpi (A,), dw (S,)
+    or None without want_dw)."""
+    if not m1.is_cuda:
+        return _pair_ll_bwd_plain(m1, m2, P_l, P_r, pi, weights, g)
+    M, K, A, _ = P_l.shape
+    S = m1.shape[-1]
+    _check_a(A)
+    f32 = torch.float32
+    _ext.require(m1, "m1", f32, shape=(K, A, S))
+    _ext.require(m2, "m2", f32, shape=(K, A, S))
+    _ext.require(P_l, "P_l", f32, shape=(M, K, A, A))
+    _ext.require(P_r, "P_r", f32, shape=(M, K, A, A))
+    _ext.require(pi, "pi", f32, shape=(A,))
+    _ext.require(weights, "weights", f32, shape=(S,))
+    _ext.require(g, "g", f32, shape=(M, K))
+    dev = m1.device
+    dm1 = torch.empty((K, A, S), dtype=f32, device=dev)
+    dm2 = torch.empty((K, A, S), dtype=f32, device=dev)
+    dPl = torch.empty((M, K, A, A), dtype=f32, device=dev)
+    dPr = torch.empty((M, K, A, A), dtype=f32, device=dev)
+    fn = _ext.bind("twist_kernels", "launch_pair_ll_bwd", 11, 4)
+    _ext.LAUNCHES["pair_ll_bwd"] += 1
+    _ext.check(fn(m1.data_ptr(), m2.data_ptr(), P_l.data_ptr(),
+                  P_r.data_ptr(), pi.data_ptr(), weights.data_ptr(),
+                  g.data_ptr(), dm1.data_ptr(), dm2.data_ptr(),
+                  dPl.data_ptr(), dPr.data_ptr(), K, M, A, S,
+                  _ext.stream_ptr(dev)),
+               "pair_ll_bwd")
+    # dpi_b = sum_{m,k,a} dP_l[m,k,a,b] P_l[m,k,a,b] / pi_b: P does not
+    # depend on the site, so it factors out of dP_l's site sum
+    dpi = torch.sum(dPl * P_l, dim=(0, 1, 2)) / pi
+    dw = _dw_ref(m1, m2, P_l, P_r, pi, g) if want_dw else None
+    return dm1, dm2, dPl, dPr, dpi, dw
+
+
+class _PairLoglik(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, m1, m2, P_l, P_r, pi, weights):
+        ctx.save_for_backward(m1, m2, P_l, P_r, pi, weights)
+        return _pair_ll_ref(m1, m2, P_l, P_r, pi, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        return pair_ll_bwd(*ctx.saved_tensors, g.contiguous(),
+                           want_dw=ctx.needs_input_grad[5])
+
+
+def pair_loglik(m1, m2, P_l, P_r, pi, weights):
+    """Data log-likelihoods of M candidate merges per particle, (M, K),
+    differentiable: the forward is the plain multiply-add expression
+    (an XLA fusion in the JAX package, not a Pallas kernel), the
+    backward is K7 on the card and the plain VJP on the CPU."""
+    return _PairLoglik.apply(m1, m2, P_l, P_r, pi, weights)
 
 
 def _check_a(A):

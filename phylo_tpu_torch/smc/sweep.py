@@ -1,5 +1,6 @@
-"""The combinatorial SMC sweep (port of phylo_tpu/smc/sweep.py, the
-non-twist path).
+"""The combinatorial SMC sweep (port of phylo_tpu/smc/sweep.py): VCSMC
+with uniform pair proposals, and VNCSMC with the twisted proposals of
+smc.twist (SweepConfig.twist).
 
 State is carried with fixed shapes over the N-1 ranks, as in the JAX
 package:
@@ -16,10 +17,12 @@ package:
 
 Messages are states-major (A, S) and per-site rescaled.  The rank loop is
 a Python loop (n_active is static per rank; nothing syncs with the
-host).  With ``fused_rank`` each rank is one call of kernel K1
-(pruning.kernels.fused_rank_update, in place); otherwise the merge is
-plain torch that autograd differentiates.  On the card the sweep always
-takes the kernel path.
+host).  With ``fused_rank`` each non-twist rank is one call of kernel K1
+(pruning.kernels.fused_rank_update, in place).  Otherwise, and always
+under twist (as in the JAX package, where K1 is off under twist), the
+children are gathered explicitly and merged by K8
+(pruning.kernels.fused_merge_loglik), which autograd differentiates
+through K2.
 
 The reference quirks stay default-on (``q_raw_subtraction``,
 ``right_multiplier_bug``), see ``SweepConfig``.
@@ -29,7 +32,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -40,6 +43,7 @@ from phylo_tpu_torch.pruning.felsenstein import (
 )
 from phylo_tpu_torch.pruning.kernels import (
     alloc_rank_buffer,
+    fused_merge_loglik,
     fused_rank_update,
 )
 from phylo_tpu_torch.pruning.posterior import (
@@ -69,9 +73,11 @@ class SweepConfig:
     ess_threshold: resample only when ESS/K drops below this fraction.
     carried_weights: carried-accumulated-weights estimator of log Z.
     manual_vjp: True differentiates through the manual whole-sweep
-        VJP (smc.sweep_vjp: K1 forward, K2 reverse); False runs plain
-        torch autograd through the sweep (CPU only: its merge kernel,
-        K8, is not ported).
+        VJP (smc.sweep_vjp: K1 or K8 forward, K2 and K7 reverse); False
+        runs plain torch autograd through the sweep (K8 forward, K2
+        backward; K7 for the twist's pair log-liks).
+    twist: optional smc.twist.TwistConfig enabling VNCSMC look-ahead
+        proposals.
     """
 
     K: int
@@ -83,6 +89,7 @@ class SweepConfig:
     ess_threshold: Optional[float] = None
     carried_weights: bool = False
     manual_vjp: bool = True
+    twist: Optional[Any] = None
 
 
 @dataclass
@@ -137,13 +144,16 @@ def sample_phylogenies(generator, leaves, model, params, config, *,
     leaves: (N, S, A) one-hot / ambiguity-coded genomes.
     params: {'model': {...}, 'branches': {'log_rates_l', 'log_rates_r'}}.
     decisions: optional pre-drawn randomness ('ancestors' (N-1, K),
-        'pairs' (N-1, K, 2), 'branches_l'/'branches_r' (N-1, K)); the
-        sweep is then deterministic and the branch lengths are constants.
+        'pairs' (N-1, K, 2), 'branches_l'/'branches_r' (N-1, K); under
+        twist 'twist_pool_l'/'twist_pool_r' (N-1, P, M, K) branch
+        lengths over the lexicographic pair table and 'twist_choice'
+        (N-1, K) lexicographic flat indices pair * M + m); the sweep is
+        then deterministic and the branch lengths are constants.
 
     Differentiable in `params` when grad is enabled: through the manual
     whole-sweep VJP (smc.sweep_vjp) by default, or plain autograd with
-    SweepConfig(manual_vjp=False) on the CPU.  Injected decisions reach
-    both routes.
+    SweepConfig(manual_vjp=False).  Injected decisions reach both
+    routes.
     """
     _check_supported(config, leaves)
     tensors = [t for sub in params.values() for t in sub.values()]
@@ -161,11 +171,6 @@ def sample_phylogenies(generator, leaves, model, params, config, *,
         return sweep_manual_vjp(generator, leaves, model, params, config,
                                 decisions=decisions,
                                 site_weights=site_weights)
-    if leaves.is_cuda:
-        raise NotImplementedError(
-            "plain autograd through the sweep has no CUDA kernel (K8 "
-            "fused_merge_loglik is not ported: ROADMAP.md Queue 2); use "
-            "manual_vjp=True")
     return _sample_body(generator, leaves, model, params, config,
                         decisions=decisions, site_weights=site_weights)
 
@@ -175,13 +180,16 @@ def _sample_body(generator, leaves, model, params, config, *,
                  want_aux=False, fused_rank=False):
     """One sweep.  Modes:
 
-    * plain (fused_rank=False): torch merge ops, differentiable;
-    * fused_rank=True: kernel K1 per rank (no autograd rule);
-      want_aux also saves the children and the records the manual VJP
-      needs;
+    * plain (fused_rank=False): K8 merge (or plain torch ops without
+      rescaling), differentiable;
+    * fused_rank=True: kernel K1 per rank (no autograd rule), or K8
+      under twist; want_aux also saves the children and the records
+      the manual VJP needs;
     * injected: scalar replay for the manual VJP -- ancestors, pairs,
       resample gates and the per-rank merge scalars (rootll_raw, d_lsc)
-      come from the forward run, and no message is touched.
+      come from the forward run, and no message is touched.  Under
+      twist the pair-merge log-likelihoods (twist_llm) and the choices
+      are injected as well, with the forward's unit-rate pools.
 
     Returns SweepResult, or (SweepResult, aux) with want_aux.
     """
@@ -204,9 +212,28 @@ def _sample_body(generator, leaves, model, params, config, *,
     logK = math.log(K)
 
     # ---- branch lengths + transitions for ALL ranks, one batched call
-    # (the scalar replay needs the branch lengths only)
+    # (the scalar replay needs the branch lengths only); under twist the
+    # (R, P, M, K) branch pools instead, the transitions in the rank loop
+    twist = config.twist
     eps_l = eps_r = P_all = None
-    if decisions is not None:
+    tw_eps_l = tw_eps_r = None
+    if twist is not None:
+        from phylo_tpu_torch.smc import twist as tw
+
+        M = twist.M
+        if decisions is not None:
+            pool_l_all, pool_r_all = tw.injected_pools(decisions, N, dtype,
+                                                       dev)
+        else:
+            if injected is not None:
+                tw_eps_l, tw_eps_r = injected["twist_eps_pool"]
+            else:
+                tw_eps_l, tw_eps_r = tw.pool_draws(generator, N, M, K,
+                                                   dtype, dev)
+            # pathwise-differentiable in the rates
+            pool_l_all = tw_eps_l / rates_l[:, None, None, None]
+            pool_r_all = tw_eps_r / rates_r[:, None, None, None]
+    elif decisions is not None:
         b_l_all = decisions["branches_l"].to(dtype)
         b_r_all = decisions["branches_r"].to(dtype)
         if injected is None:
@@ -244,7 +271,9 @@ def _sample_body(generator, leaves, model, params, config, *,
     outs = {k: [] for k in ("log_w", "log_ll", "b_l", "b_r", "ancestors",
                             "merged", "v_minus", "q_pen", "rows", "pairs",
                             "rootll_raw", "d_lsc", "do_resample",
-                            "child_l", "child_r")}
+                            "child_l", "child_r", "twist_llm",
+                            "twist_choice", "slot_t", "rows_t",
+                            "eps_l", "eps_r")}
 
     for r in range(R):
         n_active = N - r
@@ -301,37 +330,58 @@ def _sample_body(generator, leaves, model, params, config, *,
         rate_l = rates_l[r]
         rate_r = rates_r[r]
 
-        # ---- 2. pair proposal + presampled branches ----
-        if injected is not None:
-            p1, p2 = injected["pairs"][r][:, 0], injected["pairs"][r][:, 1]
-        elif decisions is not None:
-            p1 = decisions["pairs"][r][:, 0].long()
-            p2 = decisions["pairs"][r][:, 1].long()
+        ils = torch.stack(logscale_cols, dim=1) if r else None    # (K, r)
+
+        # ---- 2. pair proposal + branches ----
+        if twist is not None:
+            # twisted proposal (smc.twist); the post-resample tables are
+            # what the manual twist reverse pass re-resolves pairs with
+            slot_t, rows_t = slot, row_of_node
+            if injected is not None:
+                llm_in = injected["twist_llm"][r]
+                choice_in = injected["twist_choice"][r]
+            else:
+                llm_in = None
+                choice_in = (None if decisions is None else
+                             tw.lex_to_prefix_choice(
+                                 torch.as_tensor(decisions["twist_choice"][r],
+                                                 device=dev), N, M))
+            p1, p2, b_l, b_r, q_pen, llm, choice = tw.twisted_extend(
+                generator, twist, model, params["model"], stationary,
+                leaves_sm, buf, slot, leaf_counts, row_of_node, ils,
+                root_ll, n_active, pool_l_all[r], pool_r_all[r], w_vec,
+                llm=llm_in, choice=choice_in)
+            P_l_r = P_r_r = None
+            if injected is None:
+                P_lr = model.transition(params["model"],
+                                        torch.cat([b_l, b_r])).to(dtype)
+                P_l_r, P_r_r = P_lr[:K], P_lr[K:]
         else:
-            p1, p2 = uniform_pair(generator, K, N, n_active, dtype, dev)
-        b_l = b_l_all[r]
-        b_r = b_r_all[r]
-        n_pairs = n_choose_2(n_active)
-        if config.q_raw_subtraction:
-            q_pen = torch.full((K,), 1.0 / n_pairs, dtype=dtype, device=dev)
-        else:
-            q_pen = torch.full((K,), -math.log(n_pairs), dtype=dtype,
-                               device=dev)
+            if injected is not None:
+                p1, p2 = injected["pairs"][r][:, 0], injected["pairs"][r][:, 1]
+            elif decisions is not None:
+                p1 = decisions["pairs"][r][:, 0].long()
+                p2 = decisions["pairs"][r][:, 1].long()
+            else:
+                p1, p2 = uniform_pair(generator, K, N, n_active, dtype, dev)
+            b_l = b_l_all[r]
+            b_r = b_r_all[r]
+            n_pairs = n_choose_2(n_active)
+            if config.q_raw_subtraction:
+                q_pen = torch.full((K,), 1.0 / n_pairs, dtype=dtype,
+                                   device=dev)
+            else:
+                q_pen = torch.full((K,), -math.log(n_pairs), dtype=dtype,
+                                   device=dev)
+            if P_all is not None:
+                P_l_r, P_r_r = P_all[r, :K], P_all[r, K:]
 
         # ---- 3. child lookups ----
         pair_pos = torch.stack([p1, p2], dim=1)                   # (K, 2)
-        nodes = torch.gather(slot, 1, pair_pos)
+        nodes, rows_n, q_n, is_leaf_n = lookup_nodes(slot, row_of_node,
+                                                     pair_pos, N)
         counts = torch.gather(leaf_counts, 1, pair_pos)
-        is_leaf_n = nodes < N
-        q_n = torch.clamp(nodes - N, 0, R - 1)
-        rows_n = torch.gather(row_of_node, 1, q_n)
-        if r:
-            ils = torch.stack(logscale_cols, dim=1)       # (K, r)
-            lsc_int = ils[rows_n, torch.clamp(q_n, max=r - 1)]
-            lscs = torch.where(is_leaf_n, torch.zeros_like(lsc_int),
-                               lsc_int)
-        else:
-            lscs = torch.zeros((K, 2), dtype=dtype, device=dev)
+        lscs = node_logscales(ils, rows_n, q_n, is_leaf_n, dtype)
         lsc1, lsc2 = lscs[:, 0], lscs[:, 1]
 
         child_l = child_r = None
@@ -339,29 +389,35 @@ def _sample_body(generator, leaves, model, params, config, *,
             # ---- 4'. scalar replay: merge scalars injected ----
             rootll_raw = injected["rootll_raw"][r]
             d_lsc = injected["d_lsc"][r]
-        elif fused_rank:
+        elif fused_rank and twist is None:
             # ---- 4''. kernel K1: gather + merge + in-place write ----
             idx4 = torch.stack([rows_n[:, 0], nodes[:, 0], rows_n[:, 1],
                                 nodes[:, 1]]).to(torch.int32).contiguous()
             res = fused_rank_update(
-                leaves_sm, buf, idx4, r, P_all[r, :K].contiguous(),
-                P_all[r, K:].contiguous(), stationary, w_vec,
+                leaves_sm, buf, idx4, r, P_l_r.contiguous(),
+                P_r_r.contiguous(), stationary, w_vec,
                 save_children=want_aux)
             rootll_raw, d_lsc = res[0], res[1]
             if want_aux:
                 child_l, child_r = res[2], res[3]
         else:
-            # ---- 4. plain merge (autograd-differentiable) ----
-            leaf_part = leaves_sm[torch.clamp(nodes, 0, N - 1)]
-            int_part = buf[rows_n, q_n]
-            msgs = torch.where(is_leaf_n[..., None, None], leaf_part,
-                               int_part)                  # (K, 2, A, S)
-            merged, d_lsc = merge_messages_sm(
-                msgs[:, 0], msgs[:, 1], P_all[r, :K], P_all[r, K:],
-                rescale=config.rescale, site_weights=site_weights)
-            rootll_raw = root_log_likelihood_sm(
-                merged, stationary, site_weights=site_weights) + d_lsc
+            # ---- 4. explicit children + K8 merge (autograd through K2) --
+            msgs = gather_messages(leaves_sm, buf, nodes, rows_n, q_n,
+                                   is_leaf_n)             # (K, 2, A, S)
+            m1, m2 = msgs[:, 0].contiguous(), msgs[:, 1].contiguous()
+            if config.rescale:
+                merged, rootll_raw, d_lsc = fused_merge_loglik(
+                    m1, m2, P_l_r.contiguous(), P_r_r.contiguous(),
+                    stationary, w_vec)
+            else:
+                merged, d_lsc = merge_messages_sm(
+                    m1, m2, P_l_r, P_r_r, rescale=False,
+                    site_weights=site_weights)
+                rootll_raw = root_log_likelihood_sm(
+                    merged, stationary, site_weights=site_weights) + d_lsc
             buf[:, r] = merged
+            if want_aux:
+                child_l, child_r = m1, m2
         node_lsc = d_lsc + lsc1 + lsc2
         ll_new = rootll_raw + lsc1 + lsc2
         logscale_cols.append(node_lsc)
@@ -418,6 +474,14 @@ def _sample_body(generator, leaves, model, params, config, *,
             outs["do_resample"].append(do_resample)
             outs["child_l"].append(child_l)
             outs["child_r"].append(child_r)
+            if twist is not None:
+                outs["twist_llm"].append(llm)
+                outs["twist_choice"].append(choice)
+                outs["slot_t"].append(slot_t)
+                outs["rows_t"].append(rows_t)
+                if tw_eps_l is not None:
+                    outs["eps_l"].append(tw.pick(tw_eps_l[r], choice, M))
+                    outs["eps_r"].append(tw.pick(tw_eps_r[r], choice, M))
 
     log_weights = torch.stack(outs["log_w"])
     log_likelihood = torch.stack(outs["log_ll"])
@@ -444,14 +508,54 @@ def _sample_body(generator, leaves, model, params, config, *,
     if not want_aux:
         return result
     aux = dict(
-        site_weights=w_vec, eps_l=eps_l, eps_r=eps_r,
+        site_weights=w_vec, eps_l=eps_l, eps_r=eps_r, b_l=left, b_r=right,
         ancestors=outs["ancestors"], do_resample=outs["do_resample"],
         merged=outs["merged"], pairs=outs["pairs"], rows=outs["rows"],
         rootll_raw=torch.stack(outs["rootll_raw"]),
         d_lsc=torch.stack(outs["d_lsc"]),
         child_l=outs["child_l"], child_r=outs["child_r"],
     )
+    if twist is not None:
+        # the twist reverse pass re-gathers every candidate pair from the
+        # final write-once buffer with the saved pre-rank tables
+        aux.update(
+            buf=buf, leaves_sm=leaves_sm, twist_llm=outs["twist_llm"],
+            twist_choice=outs["twist_choice"], slot_t=outs["slot_t"],
+            rows_t=outs["rows_t"], twist_eps_pool=(tw_eps_l, tw_eps_r))
+        if tw_eps_l is not None:
+            aux.update(eps_l=torch.stack(outs["eps_l"]),
+                       eps_r=torch.stack(outs["eps_r"]))
     return result, aux
+
+
+def lookup_nodes(slot, row_of_node, pos, N):
+    """Node ids at positions pos (K, n) of the forest, with their buffer
+    rows and columns (row_of_node resolution; clamped for leaves) and
+    leaf flags: (nodes, rows, q, is_leaf), each (K, n)."""
+    R = row_of_node.shape[1]
+    nodes = torch.gather(slot, 1, pos)
+    is_leaf = nodes < N
+    q = torch.clamp(nodes - N, 0, R - 1)
+    rows = torch.gather(row_of_node, 1, q)
+    return nodes, rows, q, is_leaf
+
+
+def node_logscales(node_lsc, rows, q, is_leaf, dtype):
+    """Carried log-scale totals of looked-up nodes (0 for leaves);
+    node_lsc (K, r) holds the internal nodes' columns so far, None at
+    rank 0."""
+    if node_lsc is None:
+        return torch.zeros(q.shape, dtype=dtype, device=q.device)
+    lsc = node_lsc[rows, torch.clamp(q, max=node_lsc.shape[1] - 1)]
+    return torch.where(is_leaf, torch.zeros_like(lsc), lsc)
+
+
+def gather_messages(leaves_sm, buf, nodes, rows, q, is_leaf):
+    """Scaled messages (K, n, A, S) of looked-up nodes: leaves from the
+    shared (N, A, S) array, internal nodes from buf[row, node - N]."""
+    N = leaves_sm.shape[0]
+    leaf_part = leaves_sm[torch.clamp(nodes, 0, N - 1)]
+    return torch.where(is_leaf[..., None, None], leaf_part, buf[rows, q])
 
 
 def _debiased_log_likelihood(log_likelihood, branches_l, branches_r,

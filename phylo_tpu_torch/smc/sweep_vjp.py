@@ -1,23 +1,30 @@
 """Manual whole-sweep VJP for the CSMC sweep (port of
-phylo_tpu/smc/sweep_vjp.py, the non-twist half).
+phylo_tpu/smc/sweep_vjp.py, the non-twist and the twist halves).
 
 Two structural facts of the sweep carry the reverse pass:
 
 1. The message buffer is write-once, so the forward's saved children are
-   exactly the messages every rank read.
-2. Messages reach the loss only through two per-rank scalars, the
-   unscaled root log-lik `rootll_raw` and the merge's log-scale `d_lsc`.
+   exactly the messages every rank read, and the final buffer holds
+   every message any rank read.
+2. Messages reach the loss only through per-rank scalars: the unscaled
+   root log-lik `rootll_raw` and the merge's log-scale `d_lsc`, and
+   under twist the candidate pairs' merge log-likelihoods `twist_llm`.
 
 So the backward is (a) a *scalar replay* of the sweep with those
-scalars, the ancestors, pairs and branch draws injected, differentiated
-by autograd (no message tensors at all); (b) the *prologue* (rates ->
-branches -> transitions (K4) and the stationary vector) re-linearized
-once; and (c) `_messages_bwd`, a reverse loop over ranks that runs kernel
-K2 on the saved children and carries a pending-cotangent buffer for the
-internal nodes.
+scalars, the ancestors, pairs (or twist choices) and branch draws
+injected, differentiated by autograd (no message tensors at all); (b)
+under twist, `_twist_messages_bwd`: per rank, the candidate children
+re-gathered from the final buffer, their transitions rebuilt under
+autograd (K4) and the pair log-liks pulled back through K7, with the
+child cotangents scattered into a pending-cotangent buffer; (c) the
+*prologue* (rates -> branches -> transitions (K4) and the stationary
+vector) re-linearized once; and (d) `_messages_bwd`, a reverse loop over
+ranks that runs kernel K2 on the saved children and carries the pending
+buffer for the internal nodes.
 
-Gradient semantics are the reference's biased VSMC gradient: resampling
-and topology indices are constants, gathered values carry gradients.
+Gradient semantics are the reference's biased VSMC gradient: resampling,
+topology and twist-choice indices are constants, gathered values carry
+gradients.
 Only parameter gradients are produced (leaves and site weights are
 constants on this path).
 """
@@ -103,6 +110,7 @@ def _manual_bwd(spec, aux, tensors, cts):
     N = leaves.shape[0]
     dtype = leaves.dtype
 
+    twist = config.twist
     with torch.enable_grad():
         # (a) scalar replay: merge scalars injected as leaves of the graph
         p_leaf = [t.detach().requires_grad_(True) for t in tensors]
@@ -112,21 +120,32 @@ def _manual_bwd(spec, aux, tensors, cts):
             ancestors=aux["ancestors"], do_resample=aux["do_resample"],
             pairs=aux["pairs"], eps_l=aux["eps_l"], eps_r=aux["eps_r"],
             rootll_raw=rootll, d_lsc=dlsc)
+        llm = []
+        if twist is not None:
+            llm = [t.detach().requires_grad_(True) for t in aux["twist_llm"]]
+            injected.update(twist_llm=llm, twist_choice=aux["twist_choice"],
+                            twist_eps_pool=aux["twist_eps_pool"])
         res2 = _sample_body(
             None, leaves, model, _unflatten(names, p_leaf), config,
             decisions=decisions, site_weights=spec["site_weights"],
             injected=injected)
         outs = [getattr(res2, f) for f in _DIFF_FIELDS]
-        *d_replay, g_rootll, g_dlsc = _grad(outs, p_leaf + [rootll, dlsc],
-                                            cts)
+        n_p = len(p_leaf)
+        got = _grad(outs, p_leaf + [rootll, dlsc] + llm, cts)
+        d_replay, (g_rootll, g_dlsc), g_llm = (got[:n_p], got[n_p:n_p + 2],
+                                               got[n_p + 2:])
 
-        # (b) prologue: (P_all, pi) re-linearized at the forward's values
+        # (b) twist: pair log-liks -> candidate children, transitions, pi
+        pending = d_twist = None
+        if twist is not None:
+            pending, d_twist = _twist_messages_bwd(spec, aux, tensors, g_llm)
+
+        # (c) prologue: (P_all, pi) re-linearized at the forward's values
         p_pro = [t.detach().requires_grad_(True) for t in tensors]
         params = _unflatten(names, p_pro)
         rates_l, rates_r = branch_rates(params["branches"])
         if decisions is not None:
-            b_l = decisions["branches_l"].to(dtype)
-            b_r = decisions["branches_r"].to(dtype)
+            b_l, b_r = aux["b_l"].detach(), aux["b_r"].detach()
         else:
             b_l = aux["eps_l"] / rates_l.to(dtype)[:, None]
             b_r = aux["eps_r"] / rates_r.to(dtype)[:, None]
@@ -135,15 +154,92 @@ def _manual_bwd(spec, aux, tensors, cts):
         pi = model.stationary(params["model"], dtype=dtype,
                               device=leaves.device).to(dtype)
 
-        # (c) reverse pass over the message DAG (kernel K2 per rank)
+        # (d) reverse pass over the message DAG (kernel K2 per rank)
         with torch.no_grad():
             dP_all, dpi = _messages_bwd(aux, P_all.detach(), pi.detach(),
-                                        g_rootll, g_dlsc, N)
+                                        g_rootll, g_dlsc, N, pending)
         d_pro = _grad([P_all, pi], p_pro, [dP_all, dpi])
-    return [a + b for a, b in zip(d_replay, d_pro)]
+    out = [a + b for a, b in zip(d_replay, d_pro)]
+    if d_twist is not None:
+        out = [a + b for a, b in zip(out, d_twist)]
+    return out
 
 
-def _messages_bwd(aux, P_all, pi, g_rootll, g_dlsc, N):
+def _twist_messages_bwd(spec, aux, tensors, g_llm):
+    """Reverse pass over the twist potentials (port of the JAX package's
+    `_twist_messages_bwd_unrolled`).
+
+    The scalar replay returns the cotangents g_llm of each rank's
+    (C(N-r, 2), M, K) pair-merge log-likelihoods.  Per rank and pair
+    chunk: re-gather the candidate children from the FINAL write-once
+    buffer with the pre-rank tables saved by the forward (slot_t,
+    rows_t), rebuild the candidate transitions from the saved pools under
+    autograd (K4 forward and backward on the card), pull g_llm back
+    through `pair_loglik` (K7 on the card), and scatter-add the child
+    cotangents into the pending buffer (leaf children into its spare
+    column R).  Returns (pending (R+1, K, A, S), parameter cotangents).
+    """
+    from phylo_tpu_torch.models.branches import branch_rates
+    from phylo_tpu_torch.smc import twist as tw
+    from phylo_tpu_torch.smc.sweep import gather_messages, lookup_nodes
+
+    model, config, decisions = spec["model"], spec["config"], spec["decisions"]
+    names = spec["names"]
+    M = config.twist.M
+    leaves_sm, buf, w_vec = aux["leaves_sm"], aux["buf"], aux["site_weights"]
+    N, A, S = leaves_sm.shape
+    R = N - 1
+    K = buf.shape[0]
+    dtype, dev = buf.dtype, buf.device
+    eps_l, eps_r = aux["twist_eps_pool"]
+    pairs_all = tw._tables(N, dev)[0]
+    # injected pools are constants; otherwise b = eps / rate per chunk
+    const_pools = (None if decisions is None
+                   else tw.injected_pools(decisions, N, dtype, dev))
+
+    pending = torch.zeros((R + 1, K, A, S), dtype=dtype, device=dev)
+    dparams = [torch.zeros_like(t) for t in tensors]
+    for r in range(R):
+        Pv = (N - r) * (N - r - 1) // 2
+        C = config.twist.pair_chunk or Pv
+        for c0 in range(0, Pv, C):
+            pc = pairs_all[c0:min(c0 + C, Pv)]
+            Cc = pc.shape[0]
+            sl = slice(c0, c0 + Cc)
+            nodes, rows, q, is_leaf = lookup_nodes(
+                aux["slot_t"][r], aux["rows_t"][r], tw.pair_positions(pc, K),
+                N)
+            msgs = gather_messages(leaves_sm, buf, nodes, rows, q, is_leaf)
+            m_l, m_r = (msgs[:, half].reshape(K * Cc, A, S).detach()
+                        .requires_grad_(True)
+                        for half in (slice(None, Cc), slice(Cc, None)))
+            p_leaf = [t.detach().requires_grad_(True) for t in tensors]
+            params = _unflatten(names, p_leaf)
+            pi = model.stationary(params["model"], dtype=dtype,
+                                  device=dev).to(dtype)
+            if const_pools is not None:
+                bl, br = const_pools[0][r, sl], const_pools[1][r, sl]
+            else:
+                rates_l, rates_r = branch_rates(params["branches"])
+                bl = eps_l[r, sl] / rates_l[r].to(dtype)
+                br = eps_r[r, sl] / rates_r[r].to(dtype)
+            ll = tw.chunk_loglik(model, params["model"], pi, w_vec, m_l,
+                                 m_r, bl, br)
+            dm_l, dm_r, *dp = _grad([ll], [m_l, m_r] + p_leaf,
+                                    [g_llm[r][sl]])
+            dparams = [a + b for a, b in zip(dparams, dp)]
+            with torch.no_grad():
+                for dm, half in ((dm_l, slice(None, Cc)),
+                                 (dm_r, slice(Cc, None))):
+                    col = torch.where(is_leaf[:, half], R,
+                                      nodes[:, half] - N)
+                    pending.index_put_(
+                        (col.reshape(-1), rows[:, half].reshape(-1)),
+                        dm.reshape(K * Cc, A, S), accumulate=True)
+    return pending, dparams
+
+
+def _messages_bwd(aux, P_all, pi, g_rootll, g_dlsc, N, pending=None):
     """Reverse pass over the message DAG, ranks in reverse order.
 
     `pending` (R+1, K, A, S) holds the accumulated cotangent of each
@@ -155,7 +251,8 @@ def _messages_bwd(aux, P_all, pi, g_rootll, g_dlsc, N):
     then the internal-child cotangents are scatter-added into pending.
     Leaf children are routed to the spare slot pending[R] explicitly
     (index_put_ has no drop mode, and a -1 index would silently hit the
-    last column).
+    last column).  `pending` may arrive pre-filled (the twist reverse
+    pass's contributions).
 
     Returns (dP_all (R, 2K, A, A), dpi (A,)).
     """
@@ -173,7 +270,8 @@ def _messages_bwd(aux, P_all, pi, g_rootll, g_dlsc, N):
     g_rootll = g_rootll.to(dtype)
     g_dlsc = g_dlsc.to(dtype)
 
-    pending = torch.zeros((R + 1, K, A, S), dtype=dtype, device=dev)
+    if pending is None:
+        pending = torch.zeros((R + 1, K, A, S), dtype=dtype, device=dev)
     dPl_out = [None] * R
     dPr_out = [None] * R
     dpi = torch.zeros_like(pi)

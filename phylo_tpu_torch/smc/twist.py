@@ -1,0 +1,211 @@
+"""VNCSMC look-ahead twisting (port of phylo_tpu/smc/twist.py, its
+unrolled-rank form `_twisted_extend_static`).
+
+At every rank each particle scores every candidate (pair, subsample)
+with the potential (reference vncsmc.py:341-374)
+
+    pot(pair, m, k) = ll_merge(pair, m, k) - ll(left) - ll(right)
+                      + [topology-prior deltas]
+
+where ll_merge is the data log-likelihood of merging the pair's two
+scaled messages through the subsample's branch lengths and ll(pos) =
+root_ll(pos) - logscale(node at pos) comes off the carried per-root
+tables.  The potentials are normalized per particle and one (pair, m)
+is drawn; its log probability is the proposal term q_pen.
+
+The rank loop is a Python loop, so rank r enumerates exactly the first
+C(N - r, 2) pairs of the prefix-ordered pair table (sorted by (j, i)):
+no masking and no chunk skipping.  Flat choice indices inside the port
+are prefix-flat (pair_prefix * M + m); injected decisions carry the
+JAX package's lexicographic flat index (pair_lex * M + m) and are mapped
+through `_prefix_order`'s inverse.  The proposal law is order-invariant.
+
+Branch pools are unit-rate exponential draws (R, P, M, K) made once per
+sweep in prefix order, divided by the rank's rate; the manual VJP keeps
+them instead of regenerating them.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from phylo_tpu_torch.pruning.kernels import pair_loglik
+from phylo_tpu_torch.smc.sweep import (
+    gather_messages,
+    lookup_nodes,
+    node_logscales,
+)
+from phylo_tpu_torch.utils.math import topology_log_prior
+
+
+@dataclass(frozen=True)
+class TwistConfig:
+    """M: subparticle branch samples per candidate pair (reference
+    runner.py:42-45).  pair_chunk: pairs evaluated in one batch (memory
+    knob for the (M, K * pair_chunk, S) intermediates); None evaluates a
+    rank's whole table at once."""
+
+    M: int = 10
+    pair_chunk: Optional[int] = None
+
+
+def upper_tri_pairs(N):
+    """Static (P, 2) int32 table of position pairs i < j over N slots,
+    lexicographic (the reference's nested loops, vncsmc.py:324-339)."""
+    return np.asarray([(i, j) for i in range(N) for j in range(i + 1, N)],
+                      dtype=np.int32).reshape(-1, 2)
+
+
+def _prefix_order(N):
+    """Permutation of the lexicographic pair table sorting it by (j, i),
+    so the pairs valid at any active-prefix size n (j < n) come first.
+    Returns (order, inverse): order[s] = lex index of the s-th sorted
+    pair, inverse[lex] = sorted position."""
+    pairs = upper_tri_pairs(N)
+    order = np.lexsort((pairs[:, 0], pairs[:, 1])).astype(np.int32)
+    inverse = np.argsort(order).astype(np.int32)
+    return order, inverse
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(N, device):
+    """(prefix-ordered pairs (P, 2), order (P,), inverse (P,)) as int64
+    tensors on `device`, made once per (N, device): a host-to-device copy
+    in the rank loop would synchronise with the card."""
+    order, inverse = _prefix_order(N)
+    pairs = upper_tri_pairs(N)[order]
+    return tuple(torch.as_tensor(x, dtype=torch.int64, device=device)
+                 for x in (pairs, order, inverse))
+
+
+def pool_draws(generator, N, M, K, dtype, device):
+    """Unit-rate exponential pools (R, P, M, K) x2, prefix-ordered."""
+    shape = (N - 1, N * (N - 1) // 2, M, K)
+    eps_l = torch.empty(shape, dtype=dtype, device=device)
+    eps_r = torch.empty(shape, dtype=dtype, device=device)
+    eps_l.exponential_(generator=generator)
+    eps_r.exponential_(generator=generator)
+    return eps_l, eps_r
+
+
+def injected_pools(decisions, N, dtype, device):
+    """The injected lexicographic branch-length pools `twist_pool_l/r`
+    (R, P, M, K), constants, in prefix order."""
+    order = _tables(N, device)[1]
+    return tuple(torch.as_tensor(decisions[k], device=device).to(dtype)
+                 [:, order] for k in ("twist_pool_l", "twist_pool_r"))
+
+
+def lex_to_prefix_choice(choice, N, M):
+    """Lexicographic flat (pair * M + m) -> prefix flat."""
+    inverse = _tables(N, choice.device)[2]
+    choice = choice.long()
+    return inverse[choice // M] * M + choice % M
+
+
+def pick(pool, choice, M):
+    """pool (P, M, K) entries at each particle's flat choice -> (K,)."""
+    ks = torch.arange(pool.shape[-1], device=pool.device)
+    return pool[choice // M, choice % M, ks]
+
+
+def pair_positions(pairs, K):
+    """(K, 2C) positions [i..., j...] of a (C, 2) pair table."""
+    return pairs.T.reshape(-1)[None].expand(K, -1)
+
+
+def chunk_loglik(model, model_params, stationary, weights, m_l, m_r, bl, br):
+    """Pair-merge data log-likelihoods of one chunk, (C, M, K).
+
+    m_l, m_r (K * C, A, S) in K-major flat order (k * C + c); bl, br
+    (C, M, K) branch lengths.  One batched transition call (2C, M, K)
+    and one `pair_loglik` (K7 backward on the card)."""
+    C, M, K = bl.shape
+    A = m_l.shape[1]
+    P_lr = model.transition(model_params, torch.cat([bl, br])).to(
+        m_l.dtype)                                     # (2C, M, K, A, A)
+    P_l = P_lr[:C].permute(1, 2, 0, 3, 4).reshape(M, K * C, A, A)
+    P_r = P_lr[C:].permute(1, 2, 0, 3, 4).reshape(M, K * C, A, A)
+    ll = pair_loglik(m_l.contiguous(), m_r.contiguous(), P_l.contiguous(),
+                     P_r.contiguous(), stationary, weights)   # (M, K * C)
+    return ll.reshape(M, K, C).permute(2, 0, 1)
+
+
+def pot_terms(pairs, slot, leaf_counts, row_of_node, node_lsc, root_ll, N,
+              dtype):
+    """Non-message potential terms for the pairs (C, 2), (K, C):
+
+        -ll(left) - ll(right) + [prior(merged) - prior(l) - prior(r)]
+
+    with ll(pos) = root_ll(pos) - logscale(node at pos).  `node_lsc`
+    (K, r) holds the internal nodes' log-scales (None at rank 0)."""
+    C = pairs.shape[0]
+    pos = pair_positions(pairs, slot.shape[0])
+    _, rows, q, is_leaf = lookup_nodes(slot, row_of_node, pos, N)
+    rll = torch.gather(root_ll, 1, pos) - node_logscales(
+        node_lsc, rows, q, is_leaf, dtype)
+    cts = torch.gather(leaf_counts, 1, pos)
+    c1, c2 = cts[:, :C], cts[:, C:]
+    d_prior = (topology_log_prior(c1 + c2) - topology_log_prior(c1)
+               - topology_log_prior(c2)).to(dtype)
+    return d_prior - rll[:, :C] - rll[:, C:]
+
+
+def twisted_extend(generator, twist, model, model_params, stationary,
+                   leaves_sm, buf, slot, leaf_counts, row_of_node, node_lsc,
+                   root_ll, n_active, pool_l, pool_r, weights, *, llm=None,
+                   choice=None):
+    """Twisted proposal for one rank with n_active active roots.
+
+    pool_l, pool_r: this rank's prefix-ordered branch pools (P, M, K).
+    llm: injected (Pv, M, K) merge log-likelihoods (the manual VJP's
+    scalar replay; no message is touched then).  choice: injected
+    prefix-flat choices (K,); otherwise drawn by Gumbel-max from
+    `generator`.
+
+    Returns (p1, p2, b_l, b_r, q_pen, llm, choice): the chosen pair
+    positions, branch lengths, the normalized log proposal probability
+    of the chosen (pair, m), the merge log-likelihoods and the choice.
+    """
+    N = leaves_sm.shape[0]
+    K = slot.shape[0]
+    M = twist.M
+    dtype = root_ll.dtype
+    Pv = n_active * (n_active - 1) // 2
+    pairs = _tables(N, slot.device)[0][:Pv]
+    pool_l, pool_r = pool_l[:Pv], pool_r[:Pv]
+    if llm is None:
+        C = twist.pair_chunk or Pv
+        parts = []
+        for c0 in range(0, Pv, C):
+            pc = pairs[c0:c0 + C]
+            Cc = pc.shape[0]
+            looked_up = lookup_nodes(slot, row_of_node,
+                                     pair_positions(pc, K), N)
+            msgs = gather_messages(leaves_sm, buf, *looked_up)
+            A, S = msgs.shape[-2:]
+            parts.append(chunk_loglik(
+                model, model_params, stationary, weights,
+                msgs[:, :Cc].reshape(K * Cc, A, S),
+                msgs[:, Cc:].reshape(K * Cc, A, S),
+                pool_l[c0:c0 + Cc], pool_r[c0:c0 + Cc]))
+        llm = torch.cat(parts)                               # (Pv, M, K)
+    terms = pot_terms(pairs, slot, leaf_counts, row_of_node, node_lsc,
+                      root_ll, N, dtype)                     # (K, Pv)
+    pots = llm + terms.T[:, None, :]
+    flat = pots.permute(2, 0, 1).reshape(K, Pv * M)
+    flat = flat - torch.logsumexp(flat, dim=1, keepdim=True)
+    if choice is None:
+        u = torch.rand(flat.shape, generator=generator, dtype=flat.dtype,
+                       device=flat.device)
+        choice = torch.argmax(flat.detach() - torch.log(-torch.log(u)),
+                              dim=1)
+    q_pen = torch.gather(flat, 1, choice[:, None])[:, 0]
+    pair = pairs[choice // M]
+    return (pair[:, 0], pair[:, 1], pick(pool_l, choice, M),
+            pick(pool_r, choice, M), q_pen, llm, choice)

@@ -22,9 +22,8 @@ import numpy as np
 def make_save_dir(config, dataset):
     root = config.results_dir or "./results"
     tm = datetime.now().strftime("%Y-%m-%d-%H%M%S")
-    # <nested> is always False: the port trains VCSMC only so far
     path = os.path.join(
-        root, dataset.name, "False", str(config.n_particles), tm
+        root, dataset.name, str(config.nested), str(config.n_particles), tm
     )
     os.makedirs(path, exist_ok=True)
     return path

@@ -26,6 +26,7 @@ from phylo_tpu_torch.device import resolve_device, resolve_dtype
 from phylo_tpu_torch.models.branches import branch_rates, init_branch_params
 from phylo_tpu_torch.models.substitution import get_model
 from phylo_tpu_torch.smc.sweep import SweepConfig, sample_phylogenies
+from phylo_tpu_torch.smc.twist import TwistConfig
 from phylo_tpu_torch.train.minibatch import site_batches
 
 INITIAL_EVAL_STEP = 2 ** 31 - 1
@@ -35,13 +36,15 @@ INITIAL_EVAL_STEP = 2 ** 31 - 1
 class TrainConfig:
     """Training configuration; field names mirror the JAX package's
     TrainConfig (reference runner.py:12-58).  Options of later slices
-    (nested, rate mixtures, empirical models, mesh, checkpoints) are not
-    fields yet: the runner rejects their flags."""
+    (rate mixtures, empirical models, mesh, checkpoints) are not fields
+    yet: the runner rejects their flags."""
 
     n_particles: int = 128
     batch_size: int = 256            # sites per SGD step
     learning_rate: float = 0.001
     num_epoch: int = 100
+    M: int = 10                      # twisting subparticles (nested=True)
+    nested: bool = False             # VNCSMC (twisted proposals)
     optimizer: str = "GradientDescentOptimizer"   # or 'Adam' / 'sgd' / 'adam'
     branch_prior: float = float(np.log(10.0))
     jcmodel: bool = False
@@ -90,6 +93,7 @@ def _optimizer(config, tensors):
 
 
 def _sweep_config(config):
+    twist = TwistConfig(M=config.M) if config.nested else None
     return SweepConfig(
         K=config.n_particles,
         resampling=config.resampling,
@@ -98,6 +102,7 @@ def _sweep_config(config):
         right_multiplier_bug=config.right_multiplier_bug,
         ess_threshold=config.ess_threshold,
         carried_weights=config.carried_weights,
+        twist=twist,
     )
 
 

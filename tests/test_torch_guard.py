@@ -47,6 +47,7 @@ def test_import_leaves_jax_unloaded():
         "import sys\n"
         "import phylo_tpu_torch.cli.runner, phylo_tpu_torch.train\n"
         "import phylo_tpu_torch.smc.sweep_vjp, phylo_tpu_torch.params\n"
+        "import phylo_tpu_torch.smc.twist, phylo_tpu_torch.pruning.kernels\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'phylo_tpu')]\n"
         "assert not bad, bad\n")

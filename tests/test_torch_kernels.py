@@ -1,6 +1,7 @@
 """Plain versions of the port's kernels against the JAX package's Pallas
 kernels run in interpret mode (K1 fused_rank_update, K2
-fused_rank_bwd_saved, float64), and the plain K5 (Philox Gumbel-max)
+fused_rank_bwd_saved, K7 the pair-loglik backward, K8
+fused_merge_loglik, float64), and the plain K5 (Philox Gumbel-max)
 against its own specification: Random123 known answers, a chi-square,
 and numpy's argmax on the same uniforms.  The CUDA kernels themselves are
 held against these plain versions on the card by chip_smoke.py."""
@@ -108,6 +109,87 @@ def test_fused_rank_bwd_saved_matches_autograd(rng):
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.reshape(b.shape).numpy(), b.numpy(),
                                    rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_fused_merge_loglik_matches_pallas_interpret(interpret_mode, rng,
+                                                     ties):
+    """K8's plain version against the Pallas kernel (forward) and the
+    JAX package's VJP (backward), with forced max ties; the backward
+    also equals K2's plain version, which the card runs for it."""
+    import jax
+
+    buf, leaves, idx, P_l, P_r, pi, w = _rank_inputs(rng, ties=ties)
+    m1, m2 = (t.numpy() for t in tkernels.gather_children(
+        *_t(leaves, buf), torch.tensor(idx)))
+    args = (m1, m2, P_l, P_r, pi, w)
+    want, vjp = jax.vjp(jkernels.fused_merge_loglik, *map(jnp.asarray, args))
+    cts = [rng.normal(0, 1.0, np.shape(o)) for o in want]
+    want_g = vjp(tuple(map(jnp.asarray, cts)))
+    ins = [t.requires_grad_(True) for t in _t(*args)]
+    before = dict(_ext.LAUNCHES)
+    got = tkernels.fused_merge_loglik(*ins)
+    got_g = torch.autograd.grad(got, ins, _t(*cts))
+    assert dict(_ext.LAUNCHES) == before      # CPU: plain version only
+    k2 = tkernels._fused_rank_bwd_saved_ref(*_t(m1, m2, *cts, P_l, P_r,
+                                                 pi, w))
+    k2 = list(k2[:4]) + [k2[4].sum(0), k2[5].sum(0)]
+    for name, a, b in zip(["merged", "rootll", "logscale"], got, want):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   rtol=1e-10, atol=1e-12, err_msg=name)
+    for name, a, b, c in zip(["dm1", "dm2", "dPl", "dPr", "dpi", "dw"],
+                             got_g, want_g, k2):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-10,
+                                   atol=1e-12, err_msg=name)
+        np.testing.assert_allclose(c.numpy(), np.asarray(b), rtol=1e-10,
+                                   atol=1e-12, err_msg=f"K2 {name}")
+
+
+@pytest.mark.parametrize("Kc,S,M", [(12, 40, 3), (20, 33, 10)])
+def test_pair_ll_bwd_matches_pallas_interpret(interpret_mode, rng, Kc, S, M):
+    """K7's plain version (the autograd VJP of the plain forward) against
+    the Pallas backward kernel `_kernel_ll_bwd`, and the autograd rule of
+    `pair_loglik` against both."""
+    m1 = rng.uniform(0.05, 1.0, (Kc, A, S))
+    m2 = rng.uniform(0.05, 1.0, (Kc, A, S))
+    P_l = rng.uniform(0.05, 1.0, (M, Kc, A, A))
+    P_r = rng.uniform(0.05, 1.0, (M, Kc, A, A))
+    pi = rng.uniform(0.1, 1.0, (A,))
+    pi = pi / pi.sum()
+    w = rng.uniform(0.5, 2.0, (S,))
+    g = rng.normal(0, 1.0, (M, Kc))
+    args = (m1, m2, P_l, P_r, pi, w)
+    want = jkernels._pair_ll_bwd_pallas(*map(jnp.asarray, args),
+                                        jnp.asarray(g))
+    got = tkernels.pair_ll_bwd(*_t(*args, g))
+    ins = [t.requires_grad_(True) for t in _t(*args)]
+    ll = tkernels.pair_loglik(*ins)
+    np.testing.assert_allclose(
+        ll.detach().numpy(), np.asarray(jkernels.pair_loglik(
+            *map(jnp.asarray, args))), rtol=1e-12)
+    via_autograd = torch.autograd.grad(ll, ins, torch.tensor(g))
+    for name, a, b, c in zip(["dm1", "dm2", "dPl", "dPr", "dpi", "dw"], got,
+                             want, via_autograd):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-9,
+                                   atol=1e-12, err_msg=name)
+        np.testing.assert_allclose(c.numpy(), a.numpy(), rtol=1e-12,
+                                   atol=1e-14, err_msg=f"autograd {name}")
+
+
+def test_pair_ll_bwd_dpi_identity(rng):
+    """The card's dpi (sum dP_l P_l / pi, outside the kernel) equals the
+    plain VJP's dpi."""
+    Kc, S, M = 6, 17, 4
+    args = _t(rng.uniform(0.05, 1.0, (Kc, A, S)),
+              rng.uniform(0.05, 1.0, (Kc, A, S)),
+              rng.uniform(0.05, 1.0, (M, Kc, A, A)),
+              rng.uniform(0.05, 1.0, (M, Kc, A, A)),
+              rng.dirichlet(np.ones(A)), rng.uniform(0.5, 2.0, (S,)),
+              rng.normal(0, 1.0, (M, Kc)))
+    _, _, dPl, _, dpi, _ = tkernels._pair_ll_bwd_plain(*args)
+    P_l, pi = args[2], args[4]
+    np.testing.assert_allclose((torch.sum(dPl * P_l, dim=(0, 1, 2)) / pi)
+                               .numpy(), dpi.numpy(), rtol=1e-12)
 
 
 def test_philox_known_answers():

@@ -91,7 +91,7 @@ def test_train_is_reproducible_on_cpu():
 
 
 @pytest.mark.parametrize("flag", [
-    "--nested=true", "--codons=true", "--gamma_categories=4",
+    "--codons=true", "--gamma_categories=4",
     "--paml_dat=lg.dat", "--invariant_sites=true", "--free_rates=true",
     "--mesh=4", "--num_processes=2", "--checkpoint_every=1",
     "--resume_from=ckpt", "--dtype=bfloat16", "--model=gtr",
