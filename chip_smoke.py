@@ -10,18 +10,26 @@ script exits non-zero without printing a result:
 2. each kernel against its plain PyTorch version on the card at the main
    paths' shapes (VCSMC: K=2048 particles, S=256 and 898 sites, 45,056
    transition matrices; VNCSMC: K=32 chosen merges, M=10 subsamples of
-   32 x 66 candidate pairs), with the tolerances printed, and timed
-   beside the plain version, the least time the card could take (bound)
-   and, where one exists, a single PyTorch library call;
+   32 x 66 candidate pairs; GTR+G4 on DS1: K=2048, G=4 rate blocks of
+   A=4, S=256 and 1949, and G=5 (+I); K4 on primate's 45,056 matrices
+   and DS1 GTR+G4's 425,984 a step), with the tolerances printed, and
+   timed beside the plain version, the least time the card could take
+   (bound) and, where one exists, a single PyTorch library call; and the
+   saved-children route (K10 saving + K10's backward) against the
+   re-gather route (K10 + K3) at the DS1 step shape, the trade
+   SAVE_CHILDREN_CAP decides;
 3. fixed-decision ELBO: the sweep in float32 on the card through the
    kernels against float64 on the CPU through the plain path, with the
    same numpy-made decisions (1e-3 relative, BASELINE.md's bar), and
-   the manual-VJP gradients likewise, for VCSMC (K=2048) and VNCSMC
-   (K=32, M=10);
+   the manual-VJP gradients likewise, for VCSMC (K=2048; S=256 under
+   SAVE_CHILDREN_CAP: K2, all 898 sites over it: K3), VNCSMC (K=32,
+   M=10) and GTR+G4 (primate K=512 S=256, under the cap: K10's
+   saved-children backward; DS1 K=128 S=1949, over it: K3 blocked);
 4. the main paths: two epochs each of VCSMC training on primate (N=12,
-   S=898) at K=2048 and of VNCSMC (twisted) training at K=32, M=10,
-   site batch 256, through phylo_tpu_torch.cli.runner, with every
-   kernel's launch counter set to 0 before each path and read after;
+   S=898) at K=2048, of VNCSMC (twisted) training at K=32, M=10, and of
+   GTR+G4 VCSMC training on DS1 (N=27, S=1949) at K=2048, site batch 256,
+   through phylo_tpu_torch.cli.runner, with every kernel's launch counter
+   set to 0 before each path and read after;
 5. where the time of one epoch of each path goes, under torch.profiler.
 
 The last lines are the kernel table as JSON, the card's name and power
@@ -46,6 +54,7 @@ FP32_OPS_PER_S = 67e12
 K, N, S_BATCH, S_FULL, A = 2048, 12, 256, 898, 4
 K_TWIST, M_TWIST = 32, 10          # VNCSMC: reference autorun.sh
 R = N - 1
+N_DS1, S_DS1, G_GAMMA = 27, 1949, 4   # DS1 (hohna_data_1), GTR+G4
 SLEEP_CYCLES = 100_000_000         # ~50 ms at the H100's ~2 GHz clock
 
 
@@ -103,65 +112,86 @@ def require(ok, what):
 
 
 # ---------------------------------------------------------------- phase 2
-def last_rank_idx(gen, dev, S):
-    """The child index (4, K) that K1 gets at the last rank of a real
-    primate sweep (K=2048, initial ReferenceQ parameters, the first S
-    sites): rows follow the sweep's resampling genealogy, so the timed
-    launch reads the slabs the main path reads."""
+def last_rank_idx(gen, dev, S, dataset="primate", spec=None):
+    """The child index (4, K) that K1 (K10 for a rate mixture) gets at the
+    last rank of a real sweep (K=2048, initial parameters, the first S
+    sites of `dataset` under model `spec`): rows follow the sweep's
+    resampling genealogy, so the timed launch reads the slabs the main
+    path reads."""
     from phylo_tpu_torch.dataio import load_dataset
     from phylo_tpu_torch.smc.sweep import SweepConfig, sample_phylogenies
     from phylo_tpu_torch.train.trainer import TrainConfig, init_params
 
-    ds = load_dataset("primate")
-    model, params = init_params(ds, TrainConfig(n_particles=K, device=dev))
-    leaves = torch.tensor(ds.genome[:, :S], dtype=torch.float32, device=dev)
+    ds = load_dataset(dataset)
+    Nd = ds.N
+    Rd = Nd - 1
+    model, params = init_params(ds, TrainConfig(
+        n_particles=K, device=dev, substitution_model=spec))
+    genome = ds.genome[:, :S]
+    if hasattr(model, "expand_leaves"):
+        genome = model.expand_leaves(genome)
+    leaves = torch.tensor(genome, dtype=torch.float32, device=dev)
     with torch.no_grad():
         res = sample_phylogenies(gen, leaves, model, params, SweepConfig(K=K))
     # replay the sweep's row_of_node bookkeeping (smc/sweep.py)
-    row_of_node = torch.zeros((K, R), dtype=torch.int64, device=dev)
-    for r in range(R):
+    row_of_node = torch.zeros((K, Rd), dtype=torch.int64, device=dev)
+    for r in range(Rd):
         row_of_node = row_of_node[res.ancestors[r]]
-        if r < R - 1:
+        if r < Rd - 1:
             row_of_node[:, r] = torch.arange(K, device=dev)
-    nodes = res.merged_nodes[R - 1].T                       # (2, K)
+    nodes = res.merged_nodes[Rd - 1].T                      # (2, K)
     rows = torch.gather(row_of_node, 1,
-                        (nodes.T - N).clamp(0, R - 1)).T    # (2, K)
+                        (nodes.T - Nd).clamp(0, Rd - 1)).T  # (2, K)
     return torch.stack([rows[0], nodes[0], rows[1], nodes[1]]).to(
         torch.int32).contiguous()
 
 
-def rank_inputs(gen, S, dev):
+def rank_inputs(gen, S, dev, G=1, idx=None):
+    """One rank's inputs at the main paths' shapes: primate (N=12) with
+    dense (K, A, A) transitions for G=1, DS1 (N=27) with (K, G, A, A)
+    blocks otherwise; G=5 makes block 0 the identity, the +I rate-0
+    category, whose merged planes tie."""
     f = dict(dtype=torch.float32, device=dev)
-    buf = torch.rand((K, R, A, S), generator=gen, **f) * 0.95 + 0.05
-    leaves = torch.rand((N, A, S), generator=gen, **f) * 0.95 + 0.05
-    outc = R - 1
-    idx = last_rank_idx(gen, dev, S)
-    P_l = torch.rand((K, A, A), generator=gen, **f) * 0.95 + 0.05
-    P_r = torch.rand((K, A, A), generator=gen, **f) * 0.95 + 0.05
-    pi = torch.rand((A,), generator=gen, **f) + 0.1
+    Nd = N if G == 1 else N_DS1
+    Rd = Nd - 1
+    GA = G * A
+    buf = torch.rand((K, Rd, GA, S), generator=gen, **f) * 0.95 + 0.05
+    leaves = torch.rand((Nd, GA, S), generator=gen, **f) * 0.95 + 0.05
+    outc = Rd - 1
+    if idx is None:
+        idx = (last_rank_idx(gen, dev, S) if G == 1 else
+               last_rank_idx(gen, dev, S, "hohna_data_1", "gtr+g4"))
+    pshape = (K, A, A) if G == 1 else (K, G, A, A)
+    P_l = torch.rand(pshape, generator=gen, **f) * 0.95 + 0.05
+    P_r = torch.rand(pshape, generator=gen, **f) * 0.95 + 0.05
+    if G == 5:
+        P_l[:, 0] = torch.eye(A, **f)
+        P_r[:, 0] = torch.eye(A, **f)
+    pi = torch.rand((GA,), generator=gen, **f) + 0.1
     pi = (pi / pi.sum()).contiguous()
     w = torch.ones((S,), **f)
     return buf, leaves, idx, outc, P_l, P_r, pi, w
 
 
-def k1_slabs_read(idx):
-    """Distinct (A, S) child slabs that idx makes K1 read: each distinct
-    leaf once (the leaves are shared by all particles) and each distinct
+def k1_slabs_read(idx, Nd=N):
+    """Distinct child slabs that idx makes K1 read: each distinct leaf
+    once (the leaves are shared by all particles) and each distinct
     (row, column) of the buffer once."""
     i = idx.long().cpu()
     nodes = torch.cat([i[1], i[3]])
     rows = torch.cat([i[0], i[2]])
-    leaf = nodes < N
+    leaf = nodes < Nd
     n_leaf = int(torch.unique(nodes[leaf]).numel())
-    n_int = int(torch.unique(rows[~leaf] * (2 * N) + nodes[~leaf]).numel())
+    n_int = int(torch.unique(rows[~leaf] * (2 * Nd) + nodes[~leaf]).numel())
     return n_leaf, n_int
 
 
-def check_k1(kern, gen, dev, S, save):
-    buf, leaves, idx, outc, P_l, P_r, pi, w = rank_inputs(gen, S, dev)
+def check_k1(kern, gen, dev, S, save, G=1, idx=None):
+    """K1 (G=1, primate) or K10's forward (G > 1, DS1 blocks)."""
+    buf, leaves, idx, outc, P_l, P_r, pi, w = rank_inputs(gen, S, dev, G, idx)
+    fn = kern.fused_rank_update
     b_k, b_p = buf.clone(), buf.clone()
-    got = kern.fused_rank_update(leaves, b_k, idx, outc, P_l, P_r, pi, w,
-                                 save_children=save)
+    got = fn(leaves, b_k, idx, outc, P_l, P_r, pi, w, save_children=save)
     want = kern._fused_rank_ref(leaves, b_p, idx, outc, P_l, P_r, pi, w,
                                 save_children=save)
     torch.cuda.synchronize()
@@ -171,85 +201,215 @@ def check_k1(kern, gen, dev, S, save):
         errs["children"] = max(max_abs(got[2], want[2]),
                                max_abs(got[3], want[3]))
     tol = {"buf": 1e-5, "rootll": 1e-5, "logscale": 1e-5, "children": 0.0}
-    log(f"  K1 fused_rank_update S={S} save={save}: "
+    label = "K1 fused_rank_update" if G == 1 else \
+        f"K10 fused_rank_update_blocked G={G}"
+    log(f"  {label} S={S} save={save}: "
         + ", ".join(f"{k} err {v:.3e} (tol {tol[k]:g})"
                     for k, v in errs.items()))
     for k, v in errs.items():
-        require(v <= tol[k], f"K1 {k} error {v} > {tol[k]}")
-    ms = time_ms(lambda: kern.fused_rank_update(
-        leaves, b_k, idx, outc, P_l, P_r, pi, w, save_children=save))
+        require(v <= tol[k], f"{label} {k} error {v} > {tol[k]}")
+    ms = time_ms(lambda: fn(leaves, b_k, idx, outc, P_l, P_r, pi, w,
+                            save_children=save))
     plain = time_ms(lambda: kern._fused_rank_ref(
-        leaves, b_p, idx, outc, P_l, P_r, pi, w, save_children=save))
-    slab = A * S * 4
-    n_leaf, n_int = k1_slabs_read(idx)
+        leaves, b_p, idx, outc, P_l, P_r, pi, w, save_children=save),
+        iters=3 if G > 1 else 20)
+    GA = G * A
+    slab = GA * S * 4
+    n_leaf, n_int = k1_slabs_read(idx, leaves.shape[0])
     # child slabs read once each, column outc written (+ saved children)
     nbytes = (n_leaf + n_int) * slab + K * slab \
         + (2 * K * slab if save else 0) \
-        + 2 * K * A * A * 4 + S * 4 + A * 4 + 4 * K * 4 + 2 * K * 4
-    nops = K * S * (4 * A * A + 4 * A + 2)
+        + 2 * K * G * A * A * 4 + S * 4 + GA * 4 + 4 * K * 4 + 2 * K * 4
+    nops = K * S * (4 * G * A * A + 4 * GA + 2)
     b_ms, b_by = bound(nbytes, nops)
-    log(f"  K1 S={S}: last-rank idx of a primate sweep reads {n_leaf} leaf "
-        f"+ {n_int} internal slabs for {2 * K} children; kernel {ms:.4f} "
-        f"ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"  {label.split()[0]} S={S}: last-rank idx of a real sweep reads "
+        f"{n_leaf} leaf + {n_int} internal slabs for {2 * K} children; "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
     return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None), \
         (leaves, buf, idx, P_l, P_r, pi, w)
 
 
-def check_k2(kern, gen, dev, inputs):
-    leaves, buf, idx, P_l, P_r, pi, w = inputs
-    S = w.shape[0]
-    m1, m2 = kern.gather_children(leaves, buf, idx)
-    m1, m2 = m1.contiguous(), m2.contiguous()
+def bwd_cotangents(gen, dev, K_, GA, S):
     f = dict(dtype=torch.float32, device=dev)
-    gm = torch.randn((K, A, S), generator=gen, **f)
-    gr = torch.randn((K,), generator=gen, **f)
-    gl = torch.randn((K,), generator=gen, **f)
-    args = (m1, m2, gm, gr, gl, P_l, P_r, pi, w)
-    got = list(kern.fused_rank_bwd_saved(*args))
-    want = list(kern._fused_rank_bwd_saved_ref(*args))
+    return (torch.randn((K_, GA, S), generator=gen, **f),
+            torch.randn((K_,), generator=gen, **f),
+            torch.randn((K_,), generator=gen, **f))
+
+
+def compare_bwd(label, got, want, tol=1e-4):
+    got, want = list(got), list(want)
     got[4], got[5] = got[4].sum(0), got[5].sum(0)
     want[4], want[5] = want[4].sum(0), want[5].sum(0)
     torch.cuda.synchronize()
     names = ["dm1", "dm2", "dP_l", "dP_r", "dpi", "dw"]
     errs = {n: max_rel(a, b) for n, a, b in zip(names, got, want)}
-    tol = 1e-4
-    log("  K2 fused_rank_bwd_saved: " + ", ".join(
+    log(f"  {label}: " + ", ".join(
         f"{n} rel err {v:.3e}" for n, v in errs.items()) + f" (tol {tol:g})")
     for n, v in errs.items():
-        require(v <= tol, f"K2 {n} relative error {v} > {tol}")
+        require(v <= tol, f"{label} {n} relative error {v} > {tol}")
+    return max(max_abs(a, b) for a, b in zip(got, want))
+
+
+def bwd_bytes(K_, G, S, child_slabs, nb):
+    """Bytes a rank backward must move: the children (slabs of G*A*S
+    floats), the cotangent in and the two child cotangents out, the
+    transitions in and their cotangents out, the partial rows."""
+    GA = G * A
+    slab = GA * S * 4
+    return child_slabs * slab + 3 * K_ * slab + 4 * K_ * G * A * A * 4 \
+        + 2 * K_ * 4 + S * 4 + GA * 4 + nb * (GA + S) * 4
+
+
+def check_k2(kern, gen, dev, inputs, G=1):
+    """K2 (G=1) or K10's saved-children backward (G > 1)."""
+    leaves, buf, idx, P_l, P_r, pi, w = inputs
+    S = w.shape[0]
+    GA = G * A
+    m1, m2 = kern.gather_children(leaves, buf, idx)
+    m1, m2 = m1.contiguous(), m2.contiguous()
+    args = (m1, m2, *bwd_cotangents(gen, dev, K, GA, S), P_l, P_r, pi, w)
+    label = "K2 fused_rank_bwd_saved" if G == 1 else \
+        f"K10 fused_rank_bwd_saved_blocked G={G}"
+    err = compare_bwd(label, kern.fused_rank_bwd_saved(*args),
+                      kern._fused_rank_bwd_saved_ref(*args))
     ms = time_ms(lambda: kern.fused_rank_bwd_saved(*args))
-    plain = time_ms(lambda: kern._fused_rank_bwd_saved_ref(*args))
-    slab = K * A * S * 4
+    plain = time_ms(lambda: kern._fused_rank_bwd_saved_ref(*args),
+                    iters=3 if G > 1 else 20)
     nb = -(-K // kern.BWD_PARTICLES_PER_BLOCK)
-    nbytes = 3 * slab + 2 * slab + 4 * K * A * A * 4 + 2 * K * 4 \
-        + S * 4 + nb * (A + S) * 4
-    nops = K * S * (8 * A * A + 20 * A + 4)
-    b_ms, b_by = bound(nbytes, nops)
-    log(f"  K2: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+    nops = K * S * (8 * G * A * A + 20 * GA + 4)
+    b_ms, b_by = bound(bwd_bytes(K, G, S, 2 * K, nb), nops)
+    log(f"  {label.split()[0]} S={S}: kernel {ms:.4f} ms, plain {plain:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def check_k3(kern, gen, dev, inputs, G=1, ties=False):
+    """K3: the backward re-gathering both children by the rank's index,
+    dense (G=1, primate) or blocked (G > 1, DS1).  ties: every P column
+    the same and pi uniform (JAX's test_fused_rank_bwd_handles_max_ties
+    case), so all G*A planes tie at the max."""
+    leaves, buf, idx, P_l, P_r, pi, w = inputs
+    S = w.shape[0]
+    GA = G * A
+    if ties:
+        # identical blocks (as expanded leaves are) and one P column
+        # shared by every block and state
+        leaves = leaves[:, :A].repeat(1, G, 1)
+        buf = buf[:, :, :A].repeat(1, 1, G, 1)
+        col = torch.rand((K,) + (1,) * (P_l.ndim - 3) + (A, 1),
+                         generator=gen, device=dev) * 0.95 + 0.05
+        P_l = P_r = col.expand(P_l.shape).contiguous()
+        pi = torch.full((GA,), 1.0 / GA, dtype=torch.float32, device=dev)
+    args = (leaves, buf, idx, *bwd_cotangents(gen, dev, K, GA, S), P_l, P_r,
+            pi, w)
+    label = ("K3 fused_rank_bwd" if G == 1 else
+             f"K3 fused_rank_bwd_blocked G={G}") + (" ties" if ties else "")
+    err = compare_bwd(label, kern.fused_rank_bwd(*args),
+                      kern._fused_rank_bwd_ref(*args))
+    if ties:
+        return None
+    ms = time_ms(lambda: kern.fused_rank_bwd(*args))
+    plain = time_ms(lambda: kern._fused_rank_bwd_ref(*args),
+                    iters=3 if G > 1 else 20)
+    nb = -(-K // kern.BWD_PARTICLES_PER_BLOCK)
+    n_leaf, n_int = k1_slabs_read(idx, leaves.shape[0])
+    nops = K * S * (8 * G * A * A + 20 * GA + 4)
+    b_ms, b_by = bound(bwd_bytes(K, G, S, n_leaf + n_int, nb), nops)
+    log(f"  K3 G={G} S={S}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by})")
-    return dict(max_abs_err=max(max_abs(a, b) for a, b in zip(got, want)),
-                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
 
 
-def check_k4(ek, gen, dev):
-    from phylo_tpu_torch.models.expm import uniformize
+def cap_trade(kern, gen, dev, inputs):
+    """The trade SAVE_CHILDREN_CAP decides, at the DS1 GTR+G4 step shape
+    (K=2048, 16 planes, S=256, the last rank's real index): the saved
+    route costs K10 writing the children plus K2's blocked backward
+    reading them, the re-gather route K10 without the write plus K3.
+    Measured in turns, saved, re-gather, re-gather, saved."""
+    leaves, buf, idx, P_l, P_r, pi, w = inputs
+    S = w.shape[0]
+    outc = buf.shape[1] - 1
+    GA = leaves.shape[1]
+    gm, gr, gl = bwd_cotangents(gen, dev, K, GA, S)
+    m1, m2 = kern.gather_children(leaves, buf, idx)
+    m1, m2 = m1.contiguous(), m2.contiguous()
+    b = buf.clone()
+
+    def saved():
+        kern.fused_rank_update(leaves, b, idx, outc, P_l, P_r, pi, w,
+                               save_children=True)
+        kern.fused_rank_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, w)
+
+    def regather():
+        kern.fused_rank_update(leaves, b, idx, outc, P_l, P_r, pi, w)
+        kern.fused_rank_bwd(leaves, b, idx, gm, gr, gl, P_l, P_r, pi, w)
+
+    t = {"saved": [], "regather": []}
+    for name in ("saved", "regather", "regather", "saved"):
+        t[name].append(time_ms(saved if name == "saved" else regather))
+    out = {k: sum(v) / len(v) for k, v in t.items()}
+    log(f"  SAVE_CHILDREN_CAP trade, DS1 GTR+G4 K={K} S={S} one rank: saved "
+        f"route (K10 saving + K2 blocked) {out['saved']:.4f} ms, re-gather "
+        f"route (K10 + K3 blocked) {out['regather']:.4f} ms "
+        f"(runs: {json.dumps(t)}); the cap sends DS1 b256 to re-gather")
+    return out
+
+
+def expm_inputs(gen, dev, spec=None):
+    """K4's generator and branch lengths on a main path.  Primate VCSMC
+    (spec None): the reference model's Q, moved off its initial value,
+    and R*2*K = 45,056 branch lengths b ~ Exponential(rate 10).  DS1 under
+    a rate mixture `spec`: the merge orientation Q^T of its base model
+    (exchangeabilities and frequencies moved off their initial values)
+    and the per-step batch the sweep gives K4, the (R, 2K) branch lengths
+    eps / rate at the initial branch rates times the G category rates:
+    26*4096*4 = 425,984 matrices for gtr+g4, 5 categories for gtr+g4+i
+    (its rate-0 category makes b = 0)."""
+    from phylo_tpu_torch.dataio import load_dataset
+    from phylo_tpu_torch.models.branches import branch_rates
     from phylo_tpu_torch.models.substitution import ReferenceQ
+    from phylo_tpu_torch.train.trainer import TrainConfig, init_params
 
     f = dict(dtype=torch.float32, device=dev)
-    model = ReferenceQ(A)
-    p = model.init_params(torch.float32, dev)
-    p["y_q"] = p["y_q"] + 0.3 * torch.randn((A, A), generator=gen, **f)
-    Q = model.Q(p).contiguous()
-    B = R * 2 * K
-    # main-path branch lengths: Exponential(rate 10)
-    b = torch.empty((B,), **f).exponential_(generator=gen) / 10.0
+    if spec is None:
+        model = ReferenceQ(A)
+        p = model.init_params(torch.float32, dev)
+        p["y_q"] = p["y_q"] + 0.3 * torch.randn((A, A), generator=gen, **f)
+        b = torch.empty((R * 2 * K,), **f).exponential_(generator=gen) / 10.0
+        return model.Q(p).contiguous(), b
+    ds = load_dataset("hohna_data_1")
+    model, params = init_params(ds, TrainConfig(
+        n_particles=K, device=dev, substitution_model=spec))
+    with torch.no_grad():
+        base = {k: v + 0.3 * torch.randn(v.shape, generator=gen, **f)
+                for k, v in params["model"]["base"].items()}
+        Qt = model.base.Q(base).T.contiguous()
+        rates_l, rates_r = branch_rates(params["branches"])
+        eps = torch.empty((2, ds.N - 1, K), **f).exponential_(generator=gen)
+        b = torch.cat([eps[0] / rates_l[:, None], eps[1] / rates_r[:, None]],
+                      dim=1)
+        b = (b[..., None] * model.rates(params["model"]).to(torch.float32))
+    return Qt, b.reshape(-1).contiguous()
+
+
+def check_k4(ek, gen, dev, label, Q, b, timed=True):
+    """K4 forward and backward against their plain versions on (Q, b),
+    and, with the branch lengths clamped past 80 / mu, on the clamp
+    region; timed beside the plain versions and torch.linalg.matrix_exp
+    (forward and its backward) when `timed`."""
+    from phylo_tpu_torch.models.expm import uniformize
+
+    f = dict(dtype=torch.float32, device=dev)
+    B = b.shape[0]
     gbar = torch.randn((B, A, A), generator=gen, **f)
     out = {}
     clamped = torch.full_like(b, 500.0)
+    mu, Rm = uniformize(Q)
     for region, bb in (("mu*b < 80", b), ("mu*b > 80 (clamp)", clamped)):
-        mu, Rm = uniformize(Q)
         P_k = ek.expm_fwd(Rm, mu, bb)
         P_p = ek._expm_fwd_plain(Rm, mu, bb)
         F_k = ek.expm_bwd(Rm, mu, bb, gbar)
@@ -258,13 +418,16 @@ def check_k4(ek, gen, dev):
         e_f = max_abs(P_k, P_p)
         e_b = max_rel(F_k.sum(0), F_p.sum(0))
         e_bf = max_rel(F_k, F_p)
-        log(f"  K4 {region}: fwd max abs err {e_f:.3e} "
+        log(f"  K4 {label} B={B} {region}: fwd max abs err {e_f:.3e} "
             f"(tol 1e-6), bwd Q_bar rel err {e_b:.3e}, field rel err "
             f"{e_bf:.3e} (tol 1e-4)")
-        require(e_f <= 1e-6, f"K4 fwd error {e_f}")
-        require(e_b <= 1e-4 and e_bf <= 1e-4, f"K4 bwd error {e_b} {e_bf}")
+        require(e_f <= 1e-6, f"K4 {label} fwd error {e_f}")
+        require(e_b <= 1e-4 and e_bf <= 1e-4,
+                f"K4 {label} bwd error {e_b} {e_bf}")
         out[region] = (e_f, max_abs(F_k, F_p))
-    mu, Rm = uniformize(Q)
+        del P_k, P_p, F_k, F_p
+    if not timed:
+        return None
     ms_f = time_ms(lambda: ek.expm_fwd(Rm, mu, b))
     plain_f = time_ms(lambda: ek._expm_fwd_plain(Rm, mu, b))
     Qb = (Q[None] * b[:, None, None]).contiguous()
@@ -283,10 +446,11 @@ def check_k4(ek, gen, dev):
     E = torch.linalg.matrix_exp(Qb_req)
     lib_b = time_ms(lambda: torch.autograd.grad(E, Qb_req, gbar,
                                                 retain_graph=True))
-    log(f"  K4 fwd: kernel {ms_f:.4f} ms, plain {plain_f:.4f} ms, "
-        f"torch.linalg.matrix_exp {lib_f:.4f} ms, bound {bf:.4f} ms ({byf})")
-    log(f"  K4 bwd: kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms, "
-        f"torch.linalg.matrix_exp backward {lib_b:.4f} ms, bound "
+    log(f"  K4 fwd {label} B={B}: kernel {ms_f:.4f} ms, plain {plain_f:.4f} "
+        f"ms, torch.linalg.matrix_exp {lib_f:.4f} ms, bound {bf:.4f} ms "
+        f"({byf})")
+    log(f"  K4 bwd {label} B={B}: kernel {ms_b:.4f} ms, plain {plain_b:.4f} "
+        f"ms, torch.linalg.matrix_exp backward {lib_b:.4f} ms, bound "
         f"{bb_:.4f} ms ({byb})")
     fwd = dict(max_abs_err=max(v[0] for v in out.values()), ms=ms_f,
                plain_ms=plain_f, bound_ms=bf, bound_by=byf, library_ms=lib_f)
@@ -478,77 +642,136 @@ def make_twist_decisions(rng, N_, K_, M_, rates_l, rates_r):
     return dec
 
 
-def fixed_decision_check(dev, twist=False):
+def mixture_tree(model, rng, Nd):
+    """Initial parameters of `model` (nested for a rate mixture) moved by
+    seeded noise, as numpy, with branch log-rates near log(10)."""
+    from phylo_tpu_torch.params import params_to_numpy
+
+    tree = {"model": params_to_numpy(model.init_params(torch.float64)),
+            "branches": {
+                "log_rates_l": math.log(10) + 0.3 * rng.normal(size=Nd - 1),
+                "log_rates_r": math.log(10) + 0.3 * rng.normal(size=Nd - 1)}}
+
+    def move(sub):
+        if isinstance(sub, dict):
+            return {k: move(v) for k, v in sub.items()}
+        return sub + 0.2 * rng.normal(size=np.shape(sub))
+    tree["model"] = move(tree["model"])
+    return tree
+
+
+def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
+                         Kd=K, S=None, route=None):
     """The sweep with numpy-made decisions, float32 on the card against
-    float64 on the CPU: VCSMC at K=2048, or VNCSMC at K=32, M=10."""
+    float64 on the CPU: VCSMC at K=2048, VNCSMC at K=32, M=10, or a rate
+    mixture `spec` on the first S sites of `dataset` at Kd particles;
+    `route` names the reverse-pass kernel the card must have launched."""
+    from phylo_tpu_torch import _ext
     from phylo_tpu_torch.dataio import load_dataset
-    from phylo_tpu_torch.models.substitution import ReferenceQ
+    from phylo_tpu_torch.models.substitution import ReferenceQ, get_model
     from phylo_tpu_torch.params import params_from_numpy
     from phylo_tpu_torch.smc.sweep import SweepConfig, sample_phylogenies
     from phylo_tpu_torch.smc.twist import TwistConfig
+    from phylo_tpu_torch.train.trainer import param_tensors
 
-    ds = load_dataset("primate")
+    ds = load_dataset(dataset)
     rng = np.random.default_rng(11)
-    tree = {"model": {"y_q": (np.full((A, A), 0.25) * (1 - np.eye(A))
-                              + 0.2 * rng.normal(size=(A, A))),
-                      "y_station": 0.25 + 0.2 * rng.normal(size=A)},
-            "branches": {"log_rates_l": math.log(10) + 0.3 * rng.normal(
-                size=R), "log_rates_r": math.log(10) + 0.3 * rng.normal(
-                size=R)}}
+    genome = ds.genome[:, :S] if S else ds.genome
+    if spec is None:
+        model = ReferenceQ(A)
+        tree = {"model": {"y_q": (np.full((A, A), 0.25) * (1 - np.eye(A))
+                                  + 0.2 * rng.normal(size=(A, A))),
+                          "y_station": 0.25 + 0.2 * rng.normal(size=A)},
+                "branches": {"log_rates_l": math.log(10) + 0.3 * rng.normal(
+                    size=R), "log_rates_r": math.log(10) + 0.3 * rng.normal(
+                    size=R)}}
+    else:
+        model = get_model(spec, A=ds.A)
+        tree = mixture_tree(model, rng, ds.N)
+        genome = model.expand_leaves(genome)
     rates = (np.exp(tree["branches"]["log_rates_l"]),
              np.exp(tree["branches"]["log_rates_r"]))
-    model = ReferenceQ(A)
     if twist:
         Kd = K_TWIST
         dec = make_twist_decisions(rng, ds.N, Kd, M_TWIST, *rates)
         cfg = SweepConfig(K=Kd, twist=TwistConfig(M=M_TWIST))
-        label = f"VNCSMC K={Kd} M={M_TWIST}"
+        label = f"primate VNCSMC K={Kd} M={M_TWIST}"
     else:
-        Kd = K
         dec = make_decisions(rng, ds.N, Kd, *rates)
         cfg = SweepConfig(K=Kd)
-        label = f"VCSMC K={Kd}"
+        label = (f"primate VCSMC K={Kd} S={genome.shape[1]}" if spec is None
+                 else f"{dataset} {spec} K={Kd} S={genome.shape[1]}")
     out = {}
     for name, device, dtype in (("cuda f32", dev, torch.float32),
                                 ("cpu f64", "cpu", torch.float64)):
         params = params_from_numpy(tree, dtype=dtype, device=device)
-        leaves = torch.tensor(ds.genome, dtype=dtype, device=device)
+        leaves = torch.tensor(genome, dtype=dtype, device=device)
         d = {k: torch.as_tensor(v, device=device) for k, v in dec.items()}
+        _ext.reset_launches()
         res = sample_phylogenies(None, leaves, model, params, cfg,
                                  decisions=d)
         res.elbo.backward()
-        grads = [t.grad.detach().cpu().double()
-                 for sub in params.values() for t in sub.values()]
+        if device != "cpu" and route is not None:
+            require(_ext.LAUNCHES[route] > 0, f"{route} did not run in the "
+                    f"{label} gradient")
+        grads = [t.grad.detach().cpu().double() for t in param_tensors(params)]
+        named = {k: params["model"][k].grad.detach().cpu().double()
+                 for k in ("log_alpha",) if k in params["model"]}
+        if spec is not None and "log_exch" in params["model"].get("base", {}):
+            named["log_exch"] = params["model"]["base"]["log_exch"].grad \
+                .detach().cpu().double()
         out[name] = (float(res.elbo.detach()),
-                     res.log_likelihood_R.detach().cpu().double(), grads)
-    (e32, llr32, g32), (e64, llr64, g64) = out["cuda f32"], out["cpu f64"]
+                     res.log_likelihood_R.detach().cpu().double(), grads,
+                     named)
+        del res, params, leaves
+    (e32, llr32, g32, n32), (e64, llr64, g64, n64) = (out["cuda f32"],
+                                                      out["cpu f64"])
     rel = abs(e32 - e64) / abs(e64)
     rel_llr = float(((llr32 - llr64).abs() / llr64.abs()).max())
     g32, g64 = torch.cat([g.reshape(-1) for g in g32]), torch.cat(
         [g.reshape(-1) for g in g64])
     rel_g = float((g32 - g64).norm() / g64.norm())
-    log(f"phase 3 fixed-decision ELBO primate {label}: cuda f32 {e32:.6f} vs "
+    rel_named = {k: float((n32[k] - n64[k]).norm() / n64[k].norm())
+                 for k in n64}
+    extra = "".join(f"; {k} rel err {v:.3e} (tol 1e-2)"
+                    for k, v in rel_named.items())
+    via = f" (reverse pass through {route})" if route else ""
+    log(f"phase 3 fixed-decision ELBO {label}{via}: cuda f32 {e32:.6f} vs "
         f"cpu f64 {e64:.6f}, rel err {rel:.3e} (tol 1e-3); "
         f"log_likelihood_R max rel err {rel_llr:.3e}; manual-VJP gradient "
-        f"rel L2 err {rel_g:.3e} (tol 1e-2)")
+        f"rel L2 err {rel_g:.3e} (tol 1e-2){extra}")
     require(rel <= 1e-3, f"fixed-decision ELBO rel error {rel}")
     require(rel_llr <= 1e-3, f"log_likelihood_R rel error {rel_llr}")
     require(rel_g <= 1e-2, f"gradient rel error {rel_g}")
+    for k, v in rel_named.items():
+        require(v <= 1e-2, f"{k} gradient rel error {v}")
 
 
 # ---------------------------------------------------------------- phase 4
+# ELBO bands: primate from the port's card runs (-6512 at init, about
+# -6457 / -6292 after 2 epochs); DS1 GTR+G4 from a CPU run of the port
+# (K=32, b256, seed 0: -9102.1 at init, -8406.5 after 2 epochs)
 PATHS = {
     "vcsmc": dict(
-        argv=["--dataset=primate_data", f"--n_particles={K}",
-              f"--batch_size={S_BATCH}"],
+        dataset="primate_data", band=(-8000.0, -5500.0),
+        train=dict(n_particles=K),
+        argv=[f"--n_particles={K}"],
         kernels=("fused_rank_update", "fused_rank_bwd_saved", "expm_fwd",
                  "expm_bwd", "categorical")),
     "vncsmc": dict(
-        argv=["--dataset=primate_data", "--nested=True", f"--M={M_TWIST}",
-              f"--n_particles={K_TWIST}", f"--batch_size={S_BATCH}"],
+        dataset="primate_data", band=(-8000.0, -5500.0),
+        train=dict(nested=True, M=M_TWIST, n_particles=K_TWIST),
+        argv=["--nested=True", f"--M={M_TWIST}",
+              f"--n_particles={K_TWIST}"],
         kernels=("fused_merge_loglik", "pair_ll_bwd",
                  "fused_rank_bwd_saved", "expm_fwd", "expm_bwd",
                  "categorical")),
+    "gtr_g4_ds1": dict(
+        dataset="hohna_data_1", band=(-10500.0, -7000.0),
+        train=dict(n_particles=K, substitution_model="gtr+g4"),
+        argv=["--model=gtr+g4", f"--n_particles={K}"],
+        kernels=("fused_rank_update_blocked", "fused_rank_bwd_blocked",
+                 "expm_fwd", "expm_bwd", "categorical")),
 }
 
 
@@ -559,8 +782,8 @@ def main_path(ext, name):
     from phylo_tpu_torch.train.trainer import param_tensors
 
     path = PATHS[name]
-    argv = path["argv"] + ["--num_epoch=2", "--no_artifacts",
-                           "--device=cuda"]
+    argv = [f"--dataset={path['dataset']}", f"--batch_size={S_BATCH}"] \
+        + path["argv"] + ["--num_epoch=2", "--no_artifacts", "--device=cuda"]
     torch.cuda.synchronize()
     ext.reset_launches()
     res = runner.run(argv)
@@ -570,8 +793,9 @@ def main_path(ext, name):
     for kname in path["kernels"]:
         require(launches.get(kname, 0) > 0, f"{kname} never launched")
     elbo = res.elbo
-    require(math.isfinite(elbo) and -8000.0 < elbo < -5500.0,
-            f"ELBO {elbo} outside the primate band (-8000, -5500)")
+    lo, hi = path["band"]
+    require(math.isfinite(elbo) and lo < elbo < hi,
+            f"ELBO {elbo} outside the {name} band ({lo}, {hi})")
     for t in param_tensors(res.params):
         g = t.grad
         require(g is not None and bool(torch.isfinite(g).all())
@@ -587,8 +811,8 @@ def main_path(ext, name):
 def profile_epoch(name):
     """train() for one epoch of a main path's configuration under
     torch.profiler, after phase 4 warmed everything up.  The profiled run
-    holds train()'s set-up, its initial eval sweep and one epoch (3 SGD
-    steps + the eval sweep).  Prints its host wall time, the summed
+    holds train()'s set-up, its initial eval sweep and one epoch (the
+    SGD steps + the eval sweep).  Prints its host wall time, the summed
     device time and count of all kernel launches, the device's busy
     share, and the kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -596,11 +820,10 @@ def profile_epoch(name):
     from phylo_tpu_torch.dataio import load_dataset
     from phylo_tpu_torch.train import TrainConfig, train
 
-    ds = load_dataset("primate_data")
-    twist = dict(nested=True, M=M_TWIST, n_particles=K_TWIST)
+    path = PATHS[name]
+    ds = load_dataset(path["dataset"])
     cfg = TrainConfig(batch_size=S_BATCH, num_epoch=1, save_artifacts=False,
-                      log_every=0, device="cuda",
-                      **(twist if name == "vncsmc" else dict(n_particles=K)))
+                      log_every=0, device="cuda", **path["train"])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -656,14 +879,45 @@ def main(argv):
     k1, k1_inputs = check_k1(kernels, gen, dev, S_BATCH, save=True)
     check_k1(kernels, gen, dev, S_FULL, save=False)
     k2 = check_k2(kernels, gen, dev, k1_inputs)
-    k4f, k4b = check_k4(expm_kernel, gen, dev)
+    k3 = check_k3(kernels, gen, dev, k1_inputs)
+    del k1_inputs
+    # DS1 GTR+G4 (K10, K3 blocked): one real child index per site count
+    idx_b = last_rank_idx(gen, dev, S_BATCH, "hohna_data_1", "gtr+g4")
+    k10f, blk_inputs = check_k1(kernels, gen, dev, S_BATCH, save=True,
+                                G=G_GAMMA, idx=idx_b)
+    check_k1(kernels, gen, dev, S_BATCH, save=False, G=G_GAMMA, idx=idx_b)
+    check_k1(kernels, gen, dev, S_BATCH, save=True, G=G_GAMMA + 1, idx=idx_b)
+    k10b = check_k2(kernels, gen, dev, blk_inputs, G=G_GAMMA)
+    k3b = check_k3(kernels, gen, dev, blk_inputs, G=G_GAMMA)
+    check_k3(kernels, gen, dev, blk_inputs, G=G_GAMMA, ties=True)
+    cap_trade(kernels, gen, dev, blk_inputs)
+    del blk_inputs
+    check_k1(kernels, gen, dev, S_DS1, save=False, G=G_GAMMA)
+    torch.cuda.empty_cache()
+    # K4 on primate VCSMC's batch, and on DS1 GTR+G4's (the kernels line
+    # carries the latter: the largest batch a main path gives K4)
+    check_k4(expm_kernel, gen, dev, "primate", *expm_inputs(gen, dev))
+    k4f, k4b = check_k4(expm_kernel, gen, dev, "DS1 gtr+g4",
+                        *expm_inputs(gen, dev, "gtr+g4"))
+    check_k4(expm_kernel, gen, dev, "DS1 gtr+g4+i",
+             *expm_inputs(gen, dev, "gtr+g4+i"), timed=False)
+    torch.cuda.empty_cache()
     k5 = check_k5(resample_kernel, gen, dev)
     k7 = check_k7(kernels, gen, dev)
     k8 = check_k8(kernels, gen, dev, S_BATCH)
     check_k8(kernels, gen, dev, S_FULL)
 
-    fixed_decision_check(dev)
+    # primate VCSMC: at the main path's site batch, under the cap (K2), and
+    # at all 898 sites, over it (K3)
+    fixed_decision_check(dev, S=S_BATCH, route="fused_rank_bwd_saved")
+    fixed_decision_check(dev, route="fused_rank_bwd")
     fixed_decision_check(dev, twist=True)
+    # GTR+G4: under the cap (K10's saved-children backward), over it (K3)
+    fixed_decision_check(dev, spec="gtr+g4", Kd=512, S=S_BATCH,
+                         route="fused_rank_bwd_saved_blocked")
+    fixed_decision_check(dev, spec="gtr+g4", dataset="hohna_data_1", Kd=128,
+                         route="fused_rank_bwd_blocked")
+    torch.cuda.empty_cache()
     by_path = {name: main_path(_ext, name) for name in PATHS}
     launches = {k: sum(c.get(k, 0) for c in by_path.values())
                 for k in set().union(*by_path.values())}
@@ -675,6 +929,15 @@ def main(argv):
          "phylo_tpu/pruning/kernels.py:1646", k1),
         ("fused_rank_bwd_saved", "phylo_tpu_torch/csrc/rank_kernels.cu",
          "phylo_tpu/pruning/kernels.py:2071", k2),
+        ("fused_rank_bwd", "phylo_tpu_torch/csrc/rank_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:1949", k3),
+        ("fused_rank_update_blocked", "phylo_tpu_torch/csrc/rank_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:1646", k10f),
+        ("fused_rank_bwd_saved_blocked",
+         "phylo_tpu_torch/csrc/rank_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:2071", k10b),
+        ("fused_rank_bwd_blocked", "phylo_tpu_torch/csrc/rank_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:1949", k3b),
         ("expm_fwd", "phylo_tpu_torch/csrc/expm_kernels.cu",
          "phylo_tpu/models/expm_kernel.py:140", k4f),
         ("expm_bwd", "phylo_tpu_torch/csrc/expm_kernels.cu",

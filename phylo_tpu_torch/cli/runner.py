@@ -9,6 +9,8 @@ Usage (on a GPU):
         --n_particles=2048 --num_epoch=100 --batch_size=256
     python -m phylo_tpu_torch.cli.runner --dataset=primate_data \
         --nested=True --M=10 --n_particles=32 --batch_size=256
+    python -m phylo_tpu_torch.cli.runner --dataset=hohna_data_1 \
+        --model=gtr+g4 --n_particles=2048 --batch_size=256
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ def parse_args(argv=None):
     p.add_argument("--nested", type=_boolish, default=False)
     p.add_argument("--jcmodel", type=_boolish, default=False)
     p.add_argument("--model", default=None,
-                   help="substitution model: jc69|reference")
+                   help="substitution model spec: jc69|reference|gtr|hky, "
+                   "optionally +gN, +i or +rN (e.g. gtr+g4+i)")
     p.add_argument("--codons", type=_boolish, default=False)
     p.add_argument("--gamma_categories", type=int, default=0)
     p.add_argument("--paml_dat", default=None)
@@ -79,15 +82,9 @@ def _check_flags(args):
             f"(ROADMAP.md {item})")
 
     if args.codons:
-        no("--codons", "Queue 1 item 11")
-    if args.gamma_categories:
-        no("--gamma_categories", "Queue 1 item 11")
+        no("--codons", "Queue 1 item 11b")
     if args.paml_dat or args.plus_f:
-        no("--paml_dat/--plus_f", "Queue 1 item 11")
-    if args.invariant_sites:
-        no("--invariant_sites", "Queue 1 item 11")
-    if args.free_rates:
-        no("--free_rates", "Queue 1 item 11")
+        no("--paml_dat/--plus_f", "Queue 1 item 11b")
     if args.mesh:
         no("--mesh", "Queue 1 item 16")
     if args.coordinator or args.num_processes or args.process_id \
@@ -123,6 +120,9 @@ def run(argv=None):
         branch_prior=args.branch_prior,
         jcmodel=args.jcmodel,
         substitution_model=args.model,
+        gamma_categories=args.gamma_categories,
+        invariant_sites=args.invariant_sites,
+        free_rates=args.free_rates,
         resampling=args.resampling,
         ess_threshold=args.ess_threshold,
         carried_weights=args.carried_weights,

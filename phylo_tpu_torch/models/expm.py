@@ -83,7 +83,7 @@ def expm_ctmc(Q, b, *, order=12, squarings=12):
     (models.expm_kernel.expm_ctmc_kernel; float32, A <= 8, any batch);
     CPU tensors through `expm_chain`."""
     dtype = torch.promote_types(Q.dtype, b.dtype)
-    Q = Q.to(dtype)
+    Q = Q.to(dtype).contiguous()      # GTR/HKY pass Q^T, a strided view
     b = b.to(dtype)
     if b.is_cuda:
         from phylo_tpu_torch.models.expm_kernel import expm_ctmc_kernel

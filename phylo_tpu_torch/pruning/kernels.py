@@ -1,8 +1,10 @@
-"""Kernels K1 and K2: the fused rank update and its saved-children
-backward (port of phylo_tpu/pruning/kernels.py::fused_rank_update and
-::fused_rank_bwd_saved); K8, the same merge on explicit children
-(::fused_merge_loglik), and K7, the VNCSMC pair-loglik backward
-(::pair_loglik's `_pair_ll_bwd_pallas`), further down.
+"""Kernels K1, K2, K3 and K10: the fused rank update, its backward from
+saved children and its backward that re-gathers the children (port of
+phylo_tpu/pruning/kernels.py::fused_rank_update, ::fused_rank_bwd_saved
+and ::fused_rank_bwd), dense and blocked (K10, rate mixtures: G > 1);
+K8, the same merge on explicit children (::fused_merge_loglik), and K7,
+the VNCSMC pair-loglik backward (::pair_loglik's `_pair_ll_bwd_pallas`),
+further down.
 
 One rank of the sweep, per particle k:
 
@@ -13,15 +15,22 @@ One rank of the sweep, per particle k:
     rootll_k   = sum_s weight_s log(sum_a pi_a w[a, s])
     logscale_k = sum_s weight_s log(scale_s)
 
-The JAX kernel aliased the buffer (input_output_aliases); the port
-updates column r of the buffer in place.  K2 is the reverse of that op
-from the saved children, with reduce-max's cotangent split among ties
-and the max(raw, tiny) clamp's half-split, exactly as `_rank_bwd_core`.
+Blocked (GammaSites / FreeRates): messages carry G*A planes, P is
+(K, G, A, A) and u, v contract within each block; the max and the root
+sum run over all G*A planes.  The JAX kernel aliased the buffer
+(input_output_aliases); the port updates column r of the buffer in
+place.  K2 is the reverse of that op from the saved children, K3 the
+same from children re-gathered by the rank's index, with reduce-max's
+cotangent split among ties and the max(raw, tiny) clamp's half-split,
+exactly as `_rank_bwd_core`.  The sweep saves the children, and so takes
+K2, while 2 R K GA S itemsize <= SAVE_CHILDREN_CAP (JAX's value and
+rule), and K3 above it.
 
 CUDA tensors launch csrc/rank_kernels.cu; CPU tensors run the plain
-versions `_fused_rank_ref` / `_fused_rank_bwd_saved_ref` below.  Dense
-alphabets A <= 8 only on the card (the wide and blocked bodies, K9/K10,
-are not ported).  K1 and K2 have no autograd rule: only the manual
+versions `_fused_rank_ref` / `_fused_rank_bwd_saved_ref` /
+`_fused_rank_bwd_ref` below.  On the card a block has A <= 8 states and
+G <= 32 blocks (the wide bodies K9 for dense A = 20 / 61 are not
+ported).  K1, K2 and K3 have no autograd rule: only the manual
 whole-sweep VJP (smc.sweep_vjp) calls them.  K7 and K8 live in
 csrc/twist_kernels.cu and carry torch.autograd.Functions
 (`fused_merge_loglik`, `pair_loglik`).
@@ -33,9 +42,18 @@ import torch
 
 from phylo_tpu_torch import _ext
 
-MAX_A = 8
-BWD_PARTICLES_PER_BLOCK = 8     # K2: particles per CUDA block (dpi/dw
+MAX_A = 8                       # states per block on the card
+MAX_G = 32                      # rate-category blocks on the card
+BWD_PARTICLES_PER_BLOCK = 8     # K2/K3: particles per CUDA block (dpi/dw
                                 # partials come back one row per block)
+# bytes of the (R, K, 2, G*A, S) child residuals the manual-VJP forward
+# may save for K2; above it the reverse pass re-gathers through K3
+SAVE_CHILDREN_CAP = 2 ** 28
+
+
+def save_children_ok(R, K, GA, S, itemsize):
+    """JAX's rule: save the children when 2 R K GA S itemsize <= cap."""
+    return 2 * R * K * GA * S * itemsize <= SAVE_CHILDREN_CAP
 
 
 def alloc_rank_buffer(K, R, A, S, dtype, device):
@@ -46,6 +64,17 @@ def alloc_rank_buffer(K, R, A, S, dtype, device):
     if torch.device(device).type == "cuda":
         return torch.empty((K, R, A, S), dtype=dtype, device=device)
     return torch.zeros((K, R, A, S), dtype=dtype, device=device)
+
+
+def blockdiag_dense(P):
+    """(..., G, A, A) block transitions -> dense (..., G*A, G*A) block-
+    diagonal matrices; the zero off-block entries make the dense merge
+    equal the blocked one."""
+    G, A = P.shape[-3], P.shape[-1]
+    out = P.new_zeros(P.shape[:-3] + (G * A, G * A))
+    for g in range(G):
+        out[..., g * A:(g + 1) * A, g * A:(g + 1) * A] = P[..., g, :, :]
+    return out
 
 
 def _ref_impl(m1, m2, P_l, P_r, pi, weights):
@@ -82,8 +111,11 @@ def gather_children(leaves, buf, idx):
 
 def _fused_rank_ref(leaves, buf, idx, outc, P_l, P_r, pi, weights,
                     save_children=False):
-    """Plain version of K1: writes buf[:, outc] in place and returns
-    (rootll, logscale[, m1, m2])."""
+    """Plain version of K1 / K10: writes buf[:, outc] in place and
+    returns (rootll, logscale[, m1, m2]).  Blocked transitions go through
+    their dense block-diagonal form, as in the JAX package."""
+    if P_l.ndim == 4:
+        P_l, P_r = blockdiag_dense(P_l), blockdiag_dense(P_r)
     m1, m2 = gather_children(leaves, buf, idx)
     merged, rootll, logscale = _ref_impl(m1, m2, P_l, P_r, pi, weights)
     buf[:, outc] = merged
@@ -92,29 +124,43 @@ def _fused_rank_ref(leaves, buf, idx, outc, P_l, P_r, pi, weights,
     return rootll, logscale
 
 
+def _blocks(P_l, GA):
+    """(G, A) of transitions (K, A, A) (G = 1) or (K, G, A, A)."""
+    G = P_l.shape[1] if P_l.ndim == 4 else 1
+    A = P_l.shape[-1]
+    if G * A != GA:
+        raise ValueError(f"transitions {tuple(P_l.shape)} do not match "
+                         f"{GA} message planes")
+    return G, A
+
+
 def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
                       save_children=False):
     """One full rank update, in place: child gather + transitions +
     merge + rescale + root log-lik + write of column `outc` of `buf`.
 
-    leaves (N, A, S) shared leaf messages; buf (K, R, A, S) write-once
+    leaves (N, GA, S) shared leaf messages; buf (K, R, GA, S) write-once
     buffer (node N+q lives in column q); idx (4, K) int32; outc int (the
-    rank, never among the children read); P_l, P_r (K, A, A); pi (A,);
-    weights (S,).  Returns (rootll (K,), logscale (K,)) and, with
-    save_children, the gathered children (K, A, S) twice."""
+    rank, never among the children read); P_l, P_r (K, A, A), or
+    (K, G, A, A) blocked (K10); pi (GA,); weights (S,).  Returns (rootll
+    (K,), logscale (K,)) and, with save_children, the gathered children
+    (K, GA, S) twice."""
     if not buf.is_cuda:
         return _fused_rank_ref(leaves, buf, idx, outc, P_l, P_r, pi,
                                weights, save_children)
-    K, R, A, S = buf.shape
+    K, R, GA, S = buf.shape
     N = leaves.shape[0]
-    _check_a(A)
+    G, A = _blocks(P_l, GA)
+    _check_a(A, G)
+    blocked = P_l.ndim == 4
     f32 = torch.float32
-    _ext.require(leaves, "leaves", f32, shape=(N, A, S))
+    _ext.require(leaves, "leaves", f32, shape=(N, GA, S))
     _ext.require(buf, "buf", f32)
     _ext.require(idx, "idx", torch.int32, shape=(4, K))
-    _ext.require(P_l, "P_l", f32, shape=(K, A, A))
-    _ext.require(P_r, "P_r", f32, shape=(K, A, A))
-    _ext.require(pi, "pi", f32, shape=(A,))
+    pshape = (K, G, A, A) if blocked else (K, A, A)
+    _ext.require(P_l, "P_l", f32, shape=pshape)
+    _ext.require(P_r, "P_r", f32, shape=pshape)
+    _ext.require(pi, "pi", f32, shape=(GA,))
     _ext.require(weights, "weights", f32, shape=(S,))
     if not 0 <= outc < R:
         raise ValueError(f"output column {outc} outside [0, {R})")
@@ -122,33 +168,50 @@ def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
     rootll = torch.empty((K,), dtype=f32, device=dev)
     logscale = torch.empty((K,), dtype=f32, device=dev)
     if save_children:
-        m1 = torch.empty((K, A, S), dtype=f32, device=dev)
-        m2 = torch.empty((K, A, S), dtype=f32, device=dev)
+        m1 = torch.empty((K, GA, S), dtype=f32, device=dev)
+        m2 = torch.empty((K, GA, S), dtype=f32, device=dev)
         p1, p2 = m1.data_ptr(), m2.data_ptr()
     else:
         p1 = p2 = None
-    fn = _ext.bind("rank_kernels", "launch_fused_rank", 11, 6)
-    _ext.LAUNCHES["fused_rank_update"] += 1
-    _ext.check(fn(leaves.data_ptr(), buf.data_ptr(), idx.data_ptr(),
-                  P_l.data_ptr(), P_r.data_ptr(), pi.data_ptr(),
-                  weights.data_ptr(), rootll.data_ptr(),
-                  logscale.data_ptr(), p1, p2,
-                  K, R, N, A, S, outc, _ext.stream_ptr(dev)),
-               "fused_rank_update")
+    ptrs = (leaves.data_ptr(), buf.data_ptr(), idx.data_ptr(),
+            P_l.data_ptr(), P_r.data_ptr(), pi.data_ptr(),
+            weights.data_ptr(), rootll.data_ptr(), logscale.data_ptr(), p1,
+            p2)
+    if blocked:
+        fn = _ext.bind("rank_kernels", "launch_fused_rank_blocked", 11, 7)
+        name = "fused_rank_update_blocked"
+        _ext.LAUNCHES[name] += 1
+        code = fn(*ptrs, K, R, N, G, A, S, outc, _ext.stream_ptr(dev))
+    else:
+        fn = _ext.bind("rank_kernels", "launch_fused_rank", 11, 6)
+        name = "fused_rank_update"
+        _ext.LAUNCHES[name] += 1
+        code = fn(*ptrs, K, R, N, A, S, outc, _ext.stream_ptr(dev))
+    _ext.check(code, name)
     if save_children:
         return rootll, logscale, m1, m2
     return rootll, logscale
 
 
 def _fused_rank_bwd_saved_ref(m1, m2, gm, gr, gl, P_l, P_r, pi, weights):
-    """Plain version of K2, term for term the math of the JAX kernel's
-    `_rank_bwd_core`.  Returns (dm1, dm2 (K, A, S), dP_l, dP_r (K, A, A),
-    dpi (1, A), dw (1, S))."""
+    """Plain version of K2 (and of K10's backward), term for term the
+    math of the JAX kernel's `_rank_bwd_core`.  Returns (dm1, dm2
+    (K, GA, S), dP_l, dP_r (K, A, A) or (K, G, A, A), dpi (1, GA),
+    dw (1, S))."""
     dtype = m1.dtype
     tiny = torch.finfo(dtype).tiny
-    u = torch.sum(m1[:, :, None, :] * P_l[:, :, :, None], dim=1)
-    v = torch.sum(m2[:, :, None, :] * P_r[:, :, :, None], dim=1)
-    wp = u * v                                           # (K, A, S)
+    K, GA, S = m1.shape
+    blocked = P_l.ndim == 4
+    Pl = P_l if blocked else P_l[:, None]                # (K, G, A, A)
+    Pr = P_r if blocked else P_r[:, None]
+    G, A = Pl.shape[1], Pl.shape[-1]
+    mb1 = m1.reshape(K, G, A, S)
+    mb2 = m2.reshape(K, G, A, S)
+    u = torch.sum(mb1[:, :, :, None, :] * Pl[..., None], dim=2)
+    v = torch.sum(mb2[:, :, :, None, :] * Pr[..., None], dim=2)
+    u = u.reshape(K, GA, S)
+    v = v.reshape(K, GA, S)
+    wp = u * v                                           # (K, GA, S)
     site = torch.sum(wp * pi[None, :, None], dim=1)      # (K, S)
     raw = torch.amax(wp, dim=1)
     scale = torch.clamp(raw, min=tiny)
@@ -163,55 +226,123 @@ def _fused_rank_bwd_saved_ref(m1, m2, gm, gr, gl, P_l, P_r, pi, weights):
     neq = torch.sum(eq, dim=1)
     dwp = (gm * inv[:, None, :] + dsite[:, None, :] * pi[None, :, None]
            + draw[:, None, :] * eq / neq[:, None, :])
-    du = dwp * v
-    dv = dwp * u
-    dm1 = torch.sum(du[:, None, :, :] * P_l[:, :, :, None], dim=2)
-    dm2 = torch.sum(dv[:, None, :, :] * P_r[:, :, :, None], dim=2)
-    dPl = torch.sum(m1[:, :, None, :] * du[:, None, :, :], dim=-1)
-    dPr = torch.sum(m2[:, :, None, :] * dv[:, None, :, :], dim=-1)
+    du = (dwp * v).reshape(K, G, A, S)
+    dv = (dwp * u).reshape(K, G, A, S)
+    dm1 = torch.sum(du[:, :, None, :, :] * Pl[..., None], dim=3)
+    dm2 = torch.sum(dv[:, :, None, :, :] * Pr[..., None], dim=3)
+    dPl = torch.sum(mb1[:, :, :, None, :] * du[:, :, None, :, :], dim=-1)
+    dPr = torch.sum(mb2[:, :, :, None, :] * dv[:, :, None, :, :], dim=-1)
     dpi = torch.sum(dsite[:, None, :] * wp, dim=(0, 2))
     dw = torch.sum(gr * torch.log(site) + gl * torch.log(scale), dim=0)
-    return dm1, dm2, dPl, dPr, dpi[None], dw[None]
+    if not blocked:
+        dPl, dPr = dPl[:, 0], dPr[:, 0]
+    return (dm1.reshape(K, GA, S), dm2.reshape(K, GA, S), dPl, dPr,
+            dpi[None], dw[None])
+
+
+def _fused_rank_bwd_ref(leaves, buf, idx, gm, gr, gl, P_l, P_r, pi,
+                        weights):
+    """Plain version of K3: the children resolved by idx as the forward
+    resolved them, then `_fused_rank_bwd_saved_ref`."""
+    m1, m2 = gather_children(leaves, buf, idx)
+    return _fused_rank_bwd_saved_ref(m1, m2, gm, gr, gl, P_l, P_r, pi,
+                                     weights)
+
+
+def _bwd_outputs(K, GA, S, P_shape, dev):
+    nb = -(-K // BWD_PARTICLES_PER_BLOCK)
+    f = dict(dtype=torch.float32, device=dev)
+    return (torch.empty((K, GA, S), **f), torch.empty((K, GA, S), **f),
+            torch.empty(P_shape, **f), torch.empty(P_shape, **f),
+            torch.empty((nb, GA), **f), torch.empty((nb, S), **f))
+
+
+def _check_bwd_args(gm, gr, gl, P_l, P_r, pi, weights, K, GA, S):
+    f32 = torch.float32
+    G, A = _blocks(P_l, GA)
+    _check_a(A, G)
+    _ext.require(gm, "gm", f32, shape=(K, GA, S))
+    _ext.require(gr, "gr", f32, shape=(K,))
+    _ext.require(gl, "gl", f32, shape=(K,))
+    _ext.require(P_l, "P_l", f32, shape=(K,) + tuple(P_l.shape[1:]))
+    _ext.require(P_r, "P_r", f32, shape=P_l.shape)
+    _ext.require(pi, "pi", f32, shape=(GA,))
+    _ext.require(weights, "weights", f32, shape=(S,))
+    return G, A
 
 
 def fused_rank_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights):
     """Reverse of one rank's merge from the children saved by the
-    forward.  gm (K, A, S) merged-message cotangent; gr, gl (K,) rootll /
-    logscale cotangents.  Returns (dm1, dm2, dP_l, dP_r, dpi_part
-    (n, A), dw_part (n, S)); the caller sums the partials over rows."""
+    forward (K2; K10's backward for blocked P).  gm (K, GA, S)
+    merged-message cotangent; gr, gl (K,) rootll / logscale cotangents.
+    Returns (dm1, dm2, dP_l, dP_r, dpi_part (n, GA), dw_part (n, S));
+    the caller sums the partials over rows."""
     if not m1.is_cuda:
         return _fused_rank_bwd_saved_ref(m1, m2, gm, gr, gl, P_l, P_r,
                                          pi, weights)
-    K, A, S = m1.shape
-    _check_a(A)
-    f32 = torch.float32
-    for t, name in ((m1, "m1"), (m2, "m2"), (gm, "gm")):
-        _ext.require(t, name, f32, shape=(K, A, S))
-    _ext.require(gr, "gr", f32, shape=(K,))
-    _ext.require(gl, "gl", f32, shape=(K,))
-    _ext.require(P_l, "P_l", f32, shape=(K, A, A))
-    _ext.require(P_r, "P_r", f32, shape=(K, A, A))
-    _ext.require(pi, "pi", f32, shape=(A,))
-    _ext.require(weights, "weights", f32, shape=(S,))
+    K, GA, S = m1.shape
+    G, A = _check_bwd_args(gm, gr, gl, P_l, P_r, pi, weights, K, GA, S)
+    _ext.require(m1, "m1", torch.float32, shape=(K, GA, S))
+    _ext.require(m2, "m2", torch.float32, shape=(K, GA, S))
     dev = m1.device
     tkb = BWD_PARTICLES_PER_BLOCK
-    nb = -(-K // tkb)
-    dm1 = torch.empty((K, A, S), dtype=f32, device=dev)
-    dm2 = torch.empty((K, A, S), dtype=f32, device=dev)
-    dPl = torch.empty((K, A, A), dtype=f32, device=dev)
-    dPr = torch.empty((K, A, A), dtype=f32, device=dev)
-    dpi = torch.empty((nb, A), dtype=f32, device=dev)
-    dw = torch.empty((nb, S), dtype=f32, device=dev)
-    fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_saved", 15, 4)
-    _ext.LAUNCHES["fused_rank_bwd_saved"] += 1
-    _ext.check(fn(m1.data_ptr(), m2.data_ptr(), gm.data_ptr(),
-                  gr.data_ptr(), gl.data_ptr(), P_l.data_ptr(),
-                  P_r.data_ptr(), pi.data_ptr(), weights.data_ptr(),
-                  dm1.data_ptr(), dm2.data_ptr(), dPl.data_ptr(),
-                  dPr.data_ptr(), dpi.data_ptr(), dw.data_ptr(),
-                  K, A, S, tkb, _ext.stream_ptr(dev)),
-               "fused_rank_bwd_saved")
-    return dm1, dm2, dPl, dPr, dpi, dw
+    outs = _bwd_outputs(K, GA, S, P_l.shape, dev)
+    ins = [t.data_ptr() for t in (m1, m2, gm, gr, gl, P_l, P_r, pi,
+                                  weights)]
+    out_p = [t.data_ptr() for t in outs]
+    if P_l.ndim == 4:
+        scratch = torch.empty((outs[4].shape[0], 5, S), dtype=torch.float32,
+                              device=dev)
+        fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_saved_blocked",
+                       16, 5)
+        name = "fused_rank_bwd_saved_blocked"
+        _ext.LAUNCHES[name] += 1
+        code = fn(*ins, *out_p, scratch.data_ptr(), K, G, A, S, tkb,
+                  _ext.stream_ptr(dev))
+    else:
+        fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_saved", 15, 4)
+        name = "fused_rank_bwd_saved"
+        _ext.LAUNCHES[name] += 1
+        code = fn(*ins, *out_p, K, A, S, tkb, _ext.stream_ptr(dev))
+    _ext.check(code, name)
+    return outs
+
+
+def fused_rank_bwd(leaves, buf, idx, gm, gr, gl, P_l, P_r, pi, weights):
+    """K3: reverse of one rank's merge with both children re-gathered
+    from `leaves` (N, GA, S) and the final write-once `buf` (K, R, GA, S)
+    by the rank's idx (4, K) (the same contract as fused_rank_update).
+    Same outputs as fused_rank_bwd_saved."""
+    if not buf.is_cuda:
+        return _fused_rank_bwd_ref(leaves, buf, idx, gm, gr, gl, P_l, P_r,
+                                   pi, weights)
+    K, R, GA, S = buf.shape
+    N = leaves.shape[0]
+    G, A = _check_bwd_args(gm, gr, gl, P_l, P_r, pi, weights, K, GA, S)
+    _ext.require(leaves, "leaves", torch.float32, shape=(N, GA, S))
+    _ext.require(buf, "buf", torch.float32)
+    _ext.require(idx, "idx", torch.int32, shape=(4, K))
+    dev = buf.device
+    tkb = BWD_PARTICLES_PER_BLOCK
+    outs = _bwd_outputs(K, GA, S, P_l.shape, dev)
+    ins = [t.data_ptr() for t in (leaves, buf, idx, gm, gr, gl, P_l, P_r,
+                                  pi, weights)]
+    out_p = [t.data_ptr() for t in outs]
+    if P_l.ndim == 4:
+        scratch = torch.empty((outs[4].shape[0], 5, S), dtype=torch.float32,
+                              device=dev)
+        fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_blocked", 17, 7)
+        name = "fused_rank_bwd_blocked"
+        _ext.LAUNCHES[name] += 1
+        code = fn(*ins, *out_p, scratch.data_ptr(), K, R, N, G, A, S, tkb,
+                  _ext.stream_ptr(dev))
+    else:
+        fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd", 16, 6)
+        name = "fused_rank_bwd"
+        _ext.LAUNCHES[name] += 1
+        code = fn(*ins, *out_p, K, R, N, A, S, tkb, _ext.stream_ptr(dev))
+    _ext.check(code, name)
+    return outs
 
 
 def merge_loglik(m1, m2, P_l, P_r, pi, weights):
@@ -368,8 +499,13 @@ def pair_loglik(m1, m2, P_l, P_r, pi, weights):
     return _PairLoglik.apply(m1, m2, P_l, P_r, pi, weights)
 
 
-def _check_a(A):
+def _check_a(A, G=1):
+    """The card's limits: A <= 8 states per block, G <= 32 blocks."""
     if not 1 <= A <= MAX_A:
         raise NotImplementedError(
-            f"the CUDA rank kernels take dense A <= {MAX_A} states, got "
-            f"{A} (wide/blocked bodies: ROADMAP.md Queue 2 K9/K10)")
+            f"the CUDA rank kernels take A <= {MAX_A} states per block, got "
+            f"{A} (the wide bodies for A = 20 / 61: ROADMAP.md Queue 2 K9)")
+    if not 1 <= G <= MAX_G:
+        raise NotImplementedError(
+            f"the CUDA rank kernels take at most {MAX_G} rate-category "
+            f"blocks, got {G}")

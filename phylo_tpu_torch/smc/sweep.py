@@ -18,11 +18,12 @@ package:
 Messages are states-major (A, S) and per-site rescaled.  The rank loop is
 a Python loop (n_active is static per rank; nothing syncs with the
 host).  With ``fused_rank`` each non-twist rank is one call of kernel K1
-(pruning.kernels.fused_rank_update, in place).  Otherwise, and always
-under twist (as in the JAX package, where K1 is off under twist), the
-children are gathered explicitly and merged by K8
-(pruning.kernels.fused_merge_loglik), which autograd differentiates
-through K2.
+(pruning.kernels.fused_rank_update, in place; K10, its blocked form, for
+a rate mixture).  Otherwise, and always under twist (as in the JAX
+package, where K1 is off under twist), the children are gathered
+explicitly and merged by K8 (pruning.kernels.fused_merge_loglik), which
+autograd differentiates through K2 -- or, for a rate mixture's blocked
+merge, by plain torch ops, as JAX's blocked merge runs no kernel.
 
 The reference quirks stay default-on (``q_raw_subtraction``,
 ``right_multiplier_bug``), see ``SweepConfig``.
@@ -37,6 +38,8 @@ from typing import Any, Optional
 import torch
 
 from phylo_tpu_torch.models.branches import branch_rates
+from phylo_tpu_torch.params import flatten
+from phylo_tpu_torch.pruning import kernels as _kernels
 from phylo_tpu_torch.pruning.felsenstein import (
     merge_messages_sm,
     root_log_likelihood_sm,
@@ -73,11 +76,17 @@ class SweepConfig:
     ess_threshold: resample only when ESS/K drops below this fraction.
     carried_weights: carried-accumulated-weights estimator of log Z.
     manual_vjp: True differentiates through the manual whole-sweep
-        VJP (smc.sweep_vjp: K1 or K8 forward, K2 and K7 reverse); False
-        runs plain torch autograd through the sweep (K8 forward, K2
-        backward; K7 for the twist's pair log-liks).
+        VJP (smc.sweep_vjp: K1 or K8 forward, K2/K3 and K7 reverse);
+        False runs plain torch autograd through the sweep (K8 forward, K2
+        backward; K7 for the twist's pair log-liks; plain torch for a
+        blocked merge).
     twist: optional smc.twist.TwistConfig enabling VNCSMC look-ahead
         proposals.
+
+    A rate-mixture model (one with `blocks`, e.g. GammaSites) merges with
+    per-category (G, A, A) transitions instead of the dense (GA, GA)
+    block-diagonal ones (K10 on the card), except under twist, which
+    enumerates with dense transitions.
     """
 
     K: int
@@ -113,19 +122,27 @@ def compute_log_zsmc(log_weights):
 
 
 def _presample_transitions(model, model_params, rates_l, rates_r, eps_l,
-                           eps_r, dtype):
+                           eps_r, dtype, blocked=False):
     """Branch lengths b = eps / rate (pathwise-differentiable in the
     rates) and ONE batched transition call for all ranks' branches,
-    (R, 2K, A, A).  Shared by the sweep and the manual-VJP prologue so
-    both linearize at identical values."""
+    (R, 2K, A, A), or (R, 2K, G, A, A) per-category blocks when
+    `blocked`.  Shared by the sweep and the manual-VJP prologue so both
+    linearize at identical values."""
     b_l_all = eps_l / rates_l[:, None]
     b_r_all = eps_r / rates_r[:, None]
-    P_all = model.transition(
-        model_params, torch.cat([b_l_all, b_r_all], dim=1)).to(dtype)
+    P_all = transitions(model, model_params,
+                        torch.cat([b_l_all, b_r_all], dim=1), blocked, dtype)
     return b_l_all, b_r_all, P_all
 
 
-def _check_supported(config, leaves):
+def transitions(model, model_params, b, blocked, dtype):
+    """The model's transitions for branch lengths b: per-category blocks
+    (..., G, A, A) when `blocked`, else dense (..., A, A)."""
+    fn = model.transition_blocks if blocked else model.transition
+    return fn(model_params, b).to(dtype)
+
+
+def _check_supported(config, leaves, model):
     if config.resampling not in ("multinomial", "systematic",
                                  "stratified", "none"):
         raise ValueError(
@@ -133,6 +150,12 @@ def _check_supported(config, leaves):
     if leaves.is_cuda and not config.rescale:
         raise NotImplementedError(
             "rescale=False has no CUDA kernel (K1 always rescales)")
+    if leaves.is_cuda and config.twist is not None and hasattr(
+            model, "blocks"):
+        raise NotImplementedError(
+            "twist with a rate mixture is not ported to the card: the twist "
+            "enumerates dense (G*A)-state transitions and K7/K8 take A <= 8 "
+            "(ROADMAP.md Queue 3: twist with a rate mixture)")
 
 
 def sample_phylogenies(generator, leaves, model, params, config, *,
@@ -155,8 +178,8 @@ def sample_phylogenies(generator, leaves, model, params, config, *,
     SweepConfig(manual_vjp=False).  Injected decisions reach both
     routes.
     """
-    _check_supported(config, leaves)
-    tensors = [t for sub in params.values() for t in sub.values()]
+    _check_supported(config, leaves, model)
+    tensors = flatten(params)[1]
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in tensors)
     if not needs_grad:
@@ -199,6 +222,9 @@ def _sample_body(generator, leaves, model, params, config, *,
     dtype = leaves.dtype
     dev = leaves.device
     leaves_sm = leaves.transpose(1, 2).contiguous()         # (N, A, S)
+    # (G, A) of a rate mixture's blocked merge; the twist enumerates with
+    # dense transitions
+    blocks = getattr(model, "blocks", None) if config.twist is None else None
 
     stationary = model.stationary(params["model"], dtype=dtype,
                                   device=dev).to(dtype)
@@ -237,9 +263,9 @@ def _sample_body(generator, leaves, model, params, config, *,
         b_l_all = decisions["branches_l"].to(dtype)
         b_r_all = decisions["branches_r"].to(dtype)
         if injected is None:
-            P_all = model.transition(
-                params["model"], torch.cat([b_l_all, b_r_all], dim=1)
-            ).to(dtype)
+            P_all = transitions(model, params["model"],
+                                torch.cat([b_l_all, b_r_all], dim=1),
+                                blocks is not None, dtype)
     elif injected is not None:
         eps_l, eps_r = injected["eps_l"], injected["eps_r"]
         b_l_all = eps_l / rates_l[:, None]
@@ -250,11 +276,17 @@ def _sample_body(generator, leaves, model, params, config, *,
         eps_l.exponential_(generator=generator)
         eps_r.exponential_(generator=generator)
         b_l_all, b_r_all, P_all = _presample_transitions(
-            model, params["model"], rates_l, rates_r, eps_l, eps_r, dtype)
+            model, params["model"], rates_l, rates_r, eps_l, eps_r, dtype,
+            blocked=blocks is not None)
 
     buf = None
     if injected is None:
         buf = alloc_rank_buffer(K, R, A, S, dtype, dev)
+    # the manual VJP's reverse pass reads the saved children (K2) while
+    # they fit under the cap, else re-gathers them (K3)
+    save_children = (want_aux and fused_rank and twist is None
+                     and _kernels.save_children_ok(R, K, A, S,
+                                                   leaves.element_size()))
 
     ar_K = torch.arange(K, device=dev)
     pos_idx = torch.arange(N, device=dev)
@@ -396,16 +428,24 @@ def _sample_body(generator, leaves, model, params, config, *,
             res = fused_rank_update(
                 leaves_sm, buf, idx4, r, P_l_r.contiguous(),
                 P_r_r.contiguous(), stationary, w_vec,
-                save_children=want_aux)
+                save_children=save_children)
             rootll_raw, d_lsc = res[0], res[1]
-            if want_aux:
+            if save_children:
                 child_l, child_r = res[2], res[3]
         else:
             # ---- 4. explicit children + K8 merge (autograd through K2) --
             msgs = gather_messages(leaves_sm, buf, nodes, rows_n, q_n,
                                    is_leaf_n)             # (K, 2, A, S)
             m1, m2 = msgs[:, 0].contiguous(), msgs[:, 1].contiguous()
-            if config.rescale:
+            if blocks is not None:
+                # plain torch, as the JAX package's blocked merge (its
+                # merge kernel is off for blocked models)
+                merged, d_lsc = merge_messages_sm(
+                    m1, m2, P_l_r, P_r_r, rescale=config.rescale,
+                    site_weights=site_weights, blocks=blocks)
+                rootll_raw = root_log_likelihood_sm(
+                    merged, stationary, site_weights=site_weights) + d_lsc
+            elif config.rescale:
                 merged, rootll_raw, d_lsc = fused_merge_loglik(
                     m1, m2, P_l_r.contiguous(), P_r_r.contiguous(),
                     stationary, w_vec)
@@ -507,6 +547,9 @@ def _sample_body(generator, leaves, model, params, config, *,
     )
     if not want_aux:
         return result
+    # without saved children the reverse pass re-gathers them from the
+    # final write-once buffer (K3), as the twist reverse pass does every
+    # candidate pair; with them, the buffer is not kept
     aux = dict(
         site_weights=w_vec, eps_l=eps_l, eps_r=eps_r, b_l=left, b_r=right,
         ancestors=outs["ancestors"], do_resample=outs["do_resample"],
@@ -514,12 +557,14 @@ def _sample_body(generator, leaves, model, params, config, *,
         rootll_raw=torch.stack(outs["rootll_raw"]),
         d_lsc=torch.stack(outs["d_lsc"]),
         child_l=outs["child_l"], child_r=outs["child_r"],
+        buf=None if save_children else buf, leaves_sm=leaves_sm,
+        blocks=blocks,
     )
     if twist is not None:
         # the twist reverse pass re-gathers every candidate pair from the
         # final write-once buffer with the saved pre-rank tables
         aux.update(
-            buf=buf, leaves_sm=leaves_sm, twist_llm=outs["twist_llm"],
+            twist_llm=outs["twist_llm"],
             twist_choice=outs["twist_choice"], slot_t=outs["slot_t"],
             rows_t=outs["rows_t"], twist_eps_pool=(tw_eps_l, tw_eps_r))
         if tw_eps_l is not None:

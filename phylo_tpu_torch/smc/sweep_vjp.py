@@ -18,9 +18,11 @@ re-gathered from the final buffer, their transitions rebuilt under
 autograd (K4) and the pair log-liks pulled back through K7, with the
 child cotangents scattered into a pending-cotangent buffer; (c) the
 *prologue* (rates -> branches -> transitions (K4) and the stationary
-vector) re-linearized once; and (d) `_messages_bwd`, a reverse loop over
-ranks that runs kernel K2 on the saved children and carries the pending
-buffer for the internal nodes.
+vector) re-linearized once, per-category blocks for a blocked merge; and
+(d) `_messages_bwd`, a reverse loop over ranks that runs kernel K2 on the
+saved children -- or K3, which re-gathers them from the final buffer,
+when the residuals would exceed SAVE_CHILDREN_CAP -- and carries the
+pending buffer for the internal nodes.
 
 Gradient semantics are the reference's biased VSMC gradient: resampling,
 topology and twist-choice indices are constants, gathered values carry
@@ -33,25 +35,13 @@ from __future__ import annotations
 
 import torch
 
-from phylo_tpu_torch.pruning.kernels import fused_rank_bwd_saved
+from phylo_tpu_torch.params import flatten as _flatten
+from phylo_tpu_torch.params import unflatten as _unflatten
+from phylo_tpu_torch.pruning.kernels import fused_rank_bwd, fused_rank_bwd_saved
 
 _DIFF_FIELDS = ("elbo", "log_weights", "log_likelihood", "log_likelihood_R",
                 "left_branches", "right_branches", "q_proposal")
 _INT_FIELDS = ("ancestors", "merged_nodes", "v_minus")
-
-
-def _flatten(params):
-    names = [(g, k) for g in sorted(params) for k in sorted(params[g])]
-    return names, [params[g][k] for g, k in names]
-
-
-def _unflatten(names, tensors):
-    out = {}
-    for (g, k), t in zip(names, tensors):
-        out.setdefault(g, {})[k] = t
-    for g in ("model", "branches"):
-        out.setdefault(g, {})
-    return out
 
 
 class _ManualSweep(torch.autograd.Function):
@@ -101,7 +91,7 @@ def _grad(outputs, inputs, cts):
 
 def _manual_bwd(spec, aux, tensors, cts):
     from phylo_tpu_torch.models.branches import branch_rates
-    from phylo_tpu_torch.smc.sweep import _sample_body
+    from phylo_tpu_torch.smc.sweep import _sample_body, transitions
 
     model, config = spec["model"], spec["config"]
     decisions = spec["decisions"]
@@ -140,7 +130,8 @@ def _manual_bwd(spec, aux, tensors, cts):
         if twist is not None:
             pending, d_twist = _twist_messages_bwd(spec, aux, tensors, g_llm)
 
-        # (c) prologue: (P_all, pi) re-linearized at the forward's values
+        # (c) prologue: (P_all, pi) re-linearized at the forward's values,
+        # per-category blocks (R, 2K, G, A, A) for a blocked merge
         p_pro = [t.detach().requires_grad_(True) for t in tensors]
         params = _unflatten(names, p_pro)
         rates_l, rates_r = branch_rates(params["branches"])
@@ -149,8 +140,9 @@ def _manual_bwd(spec, aux, tensors, cts):
         else:
             b_l = aux["eps_l"] / rates_l.to(dtype)[:, None]
             b_r = aux["eps_r"] / rates_r.to(dtype)[:, None]
-        P_all = model.transition(params["model"],
-                                 torch.cat([b_l, b_r], dim=1)).to(dtype)
+        P_all = transitions(model, params["model"],
+                            torch.cat([b_l, b_r], dim=1),
+                            aux["blocks"] is not None, dtype)
         pi = model.stationary(params["model"], dtype=dtype,
                               device=leaves.device).to(dtype)
 
@@ -242,28 +234,31 @@ def _twist_messages_bwd(spec, aux, tensors, g_llm):
 def _messages_bwd(aux, P_all, pi, g_rootll, g_dlsc, N, pending=None):
     """Reverse pass over the message DAG, ranks in reverse order.
 
-    `pending` (R+1, K, A, S) holds the accumulated cotangent of each
+    `pending` (R+1, K, GA, S) holds the accumulated cotangent of each
     internal node's scaled message in the absolute buffer frame: node
     q = r of particle row k at pending[r, k].  Column r is written at
     rank r and read only at ranks > r, so by the time reverse step r
     consumes pending[r], every contribution is in.  Per rank: K2 on the
-    saved children with cotangents (pending[r], g_rootll[r], g_dlsc[r]),
-    then the internal-child cotangents are scatter-added into pending.
-    Leaf children are routed to the spare slot pending[R] explicitly
-    (index_put_ has no drop mode, and a -1 index would silently hit the
-    last column).  `pending` may arrive pre-filled (the twist reverse
-    pass's contributions).
+    saved children, or K3 re-gathering them from the leaves and the
+    final buffer when the forward did not save them (the sweep's
+    SAVE_CHILDREN_CAP gate), with cotangents (pending[r], g_rootll[r],
+    g_dlsc[r]); then the internal-child cotangents are scatter-added
+    into pending.  Leaf children are routed to the spare slot pending[R]
+    explicitly (index_put_ has no drop mode, and a -1 index would
+    silently hit the last column).  `pending` may arrive pre-filled (the
+    twist reverse pass's contributions).
 
-    Returns (dP_all (R, 2K, A, A), dpi (A,)).
+    Returns (dP_all (R, 2K, A, A) or (R, 2K, G, A, A), dpi (GA,)).
     """
     child_l, child_r = aux["child_l"], aux["child_r"]
+    leaves_sm, buf = aux["leaves_sm"], aux["buf"]
     ids_all = aux["merged"]                   # R x (K, 2) node ids
     rows_all = aux["rows"]                    # R x (K, 2) buffer rows
     w_vec = aux["site_weights"]
     R = len(ids_all)
-    K, A, S = child_l[0].shape
-    dtype = child_l[0].dtype
-    dev = child_l[0].device
+    K = ids_all[0].shape[0]
+    _, GA, S = leaves_sm.shape
+    dtype, dev = leaves_sm.dtype, leaves_sm.device
     P_l_all = P_all[:, :K]
     P_r_all = P_all[:, K:]
     pi = pi.contiguous()
@@ -271,16 +266,22 @@ def _messages_bwd(aux, P_all, pi, g_rootll, g_dlsc, N, pending=None):
     g_dlsc = g_dlsc.to(dtype)
 
     if pending is None:
-        pending = torch.zeros((R + 1, K, A, S), dtype=dtype, device=dev)
+        pending = torch.zeros((R + 1, K, GA, S), dtype=dtype, device=dev)
     dPl_out = [None] * R
     dPr_out = [None] * R
     dpi = torch.zeros_like(pi)
     for r in range(R - 1, -1, -1):
         ids, rows = ids_all[r], rows_all[r]
-        dm1, dm2, dPl, dPr, dpi_p, _dw_p = fused_rank_bwd_saved(
-            child_l[r], child_r[r], pending[r], g_rootll[r].contiguous(),
-            g_dlsc[r].contiguous(), P_l_all[r].contiguous(),
-            P_r_all[r].contiguous(), pi, w_vec)
+        cts = (pending[r], g_rootll[r].contiguous(), g_dlsc[r].contiguous(),
+               P_l_all[r].contiguous(), P_r_all[r].contiguous(), pi, w_vec)
+        if child_l[r] is not None:
+            dm1, dm2, dPl, dPr, dpi_p, _dw_p = fused_rank_bwd_saved(
+                child_l[r], child_r[r], *cts)
+        else:
+            idx4 = torch.stack([rows[:, 0], ids[:, 0], rows[:, 1],
+                                ids[:, 1]]).to(torch.int32).contiguous()
+            dm1, dm2, dPl, dPr, dpi_p, _dw_p = fused_rank_bwd(
+                leaves_sm, buf, idx4, *cts)
         dPl_out[r], dPr_out[r] = dPl, dPr
         dpi = dpi + torch.sum(dpi_p, dim=0)
         if r:

@@ -24,7 +24,10 @@ import torch
 
 from phylo_tpu_torch.device import resolve_device, resolve_dtype
 from phylo_tpu_torch.models.branches import branch_rates, init_branch_params
-from phylo_tpu_torch.models.substitution import get_model
+from phylo_tpu_torch.models.substitution import (
+    FreeRates, GammaSites, get_model,
+)
+from phylo_tpu_torch.params import flatten
 from phylo_tpu_torch.smc.sweep import SweepConfig, sample_phylogenies
 from phylo_tpu_torch.smc.twist import TwistConfig
 from phylo_tpu_torch.train.minibatch import site_batches
@@ -36,8 +39,8 @@ INITIAL_EVAL_STEP = 2 ** 31 - 1
 class TrainConfig:
     """Training configuration; field names mirror the JAX package's
     TrainConfig (reference runner.py:12-58).  Options of later slices
-    (rate mixtures, empirical models, mesh, checkpoints) are not fields
-    yet: the runner rejects their flags."""
+    (empirical models, codons, mesh, checkpoints) are not fields yet: the
+    runner rejects their flags."""
 
     n_particles: int = 128
     batch_size: int = 256            # sites per SGD step
@@ -49,6 +52,13 @@ class TrainConfig:
     branch_prior: float = float(np.log(10.0))
     jcmodel: bool = False
     substitution_model: Optional[str] = None
+    # across-site rate mixtures (the spec's +g/+i/+r as flags):
+    # discrete Gamma with this many categories (0/1 = off), a learnable
+    # proportion of invariant sites, or FreeRates with gamma_categories
+    # learnable categories (exclusive with invariant_sites)
+    gamma_categories: int = 0
+    invariant_sites: bool = False
+    free_rates: bool = False
     resampling: str = "multinomial"
     dtype: str = "float32"
     seed: int = 0
@@ -107,7 +117,8 @@ def _sweep_config(config):
 
 
 def param_tensors(params):
-    return [t for g in sorted(params) for _, t in sorted(params[g].items())]
+    """The leaf tensors of a nested parameter dict, in sorted key order."""
+    return flatten(params)[1]
 
 
 def init_params(dataset, config, device=None):
@@ -117,7 +128,7 @@ def init_params(dataset, config, device=None):
     dtype = resolve_dtype(config.dtype, dev)
     name = config.substitution_model or (
         "jc69" if config.jcmodel else "reference")
-    model = get_model(name, A=dataset.A)
+    model = _rate_mixture(get_model(name, A=dataset.A), config)
     params = {
         "model": model.init_params(dtype, dev),
         "branches": init_branch_params(
@@ -127,6 +138,28 @@ def init_params(dataset, config, device=None):
     for t in param_tensors(params):
         t.requires_grad_(True)
     return model, params
+
+
+def _rate_mixture(model, config):
+    """Wrap `model` in the rate mixture the flags ask for (the JAX
+    trainer's rule); a spec that already has one refuses the flags."""
+    flags = (config.gamma_categories or config.invariant_sites
+             or config.free_rates)
+    if hasattr(model, "expand_leaves") and flags:
+        raise ValueError(
+            "substitution_model spec already includes a rate mixture "
+            "(+g/+i/+r); drop the gamma_categories/invariant_sites/"
+            "free_rates flags")
+    if config.free_rates:
+        if config.invariant_sites:
+            raise ValueError(
+                "free_rates and invariant_sites are mutually exclusive "
+                "(FreeRates can learn a near-zero-rate category)")
+        return FreeRates(model, G=max(config.gamma_categories, 2))
+    if config.gamma_categories > 1 or config.invariant_sites:
+        return GammaSites(model, G=max(config.gamma_categories, 1),
+                          invariant=config.invariant_sites)
+    return model
 
 
 def sgd_step(model, params, optimizer, sweep_cfg, generator, batch, *,
@@ -155,7 +188,10 @@ def train(dataset, config: TrainConfig):
     model, params = init_params(dataset, config, device=dev)
     sweep_cfg = _sweep_config(config)
     optimizer = _optimizer(config, param_tensors(params))
-    leaves = torch.tensor(dataset.genome, dtype=dtype, device=dev)
+    genome = dataset.genome
+    if hasattr(model, "expand_leaves"):
+        genome = model.expand_leaves(genome)     # rate mixture: A -> G*A
+    leaves = torch.tensor(genome, dtype=dtype, device=dev)
     S = dataset.S
 
     initial_elbo = None
