@@ -12,7 +12,9 @@ script exits non-zero without printing a result:
    transition matrices; VNCSMC: K=32 chosen merges, M=10 subsamples of
    32 x 66 candidate pairs; GTR+G4 on DS1: K=2048, G=4 rate blocks of
    A=4, S=256 and 1949, and G=5 (+I); K4 on primate's 45,056 matrices
-   and DS1 GTR+G4's 425,984 a step), with the tolerances printed, and
+   and DS1 GTR+G4's 425,984 a step; GY94 codons: K9 at K=128, A=61,
+   S=256 and 1086, and A=100, A=20 at a small shape, the all-planes-tied
+   case included), with the tolerances printed, and
    timed beside the plain version, the least time the card could take
    (bound) and, where one exists, a single PyTorch library call; and the
    saved-children route (K10 saving + K10's backward) against the
@@ -23,13 +25,17 @@ script exits non-zero without printing a result:
    same numpy-made decisions (1e-3 relative, BASELINE.md's bar), and
    the manual-VJP gradients likewise, for VCSMC (K=2048; S=256 under
    SAVE_CHILDREN_CAP: K2, all 898 sites over it: K3), VNCSMC (K=32,
-   M=10) and GTR+G4 (primate K=512 S=256, under the cap: K10's
-   saved-children backward; DS1 K=128 S=1949, over it: K3 blocked);
+   M=10), GTR+G4 (primate K=512 S=256, under the cap: K10's
+   saved-children backward; DS1 K=128 S=1949, over it: K3 blocked) and
+   GY94 on betacorona1's codons (K=128; S=256 under the cap: K9bs; all
+   1086 codons over it: K9b), after a probe of GY94's transitions from a
+   float32 eigh (why expm_reversible works in float64);
 4. the main paths: two epochs each of VCSMC training on primate (N=12,
-   S=898) at K=2048, of VNCSMC (twisted) training at K=32, M=10, and of
-   GTR+G4 VCSMC training on DS1 (N=27, S=1949) at K=2048, site batch 256,
-   through phylo_tpu_torch.cli.runner, with every kernel's launch counter
-   set to 0 before each path and read after;
+   S=898) at K=2048, of VNCSMC (twisted) training at K=32, M=10, of
+   GTR+G4 VCSMC training on DS1 (N=27, S=1949) at K=2048 and of GY94
+   codon VCSMC training on betacorona1 (N=17, 1086 codons, A=61) at
+   K=128, site batch 256, through phylo_tpu_torch.cli.runner, with every
+   kernel's launch counter set to 0 before each path and read after;
 5. where the time of one epoch of each path goes, under torch.profiler.
 
 The last lines are the kernel table as JSON, the card's name and power
@@ -55,6 +61,9 @@ K, N, S_BATCH, S_FULL, A = 2048, 12, 256, 898, 4
 K_TWIST, M_TWIST = 32, 10          # VNCSMC: reference autorun.sh
 R = N - 1
 N_DS1, S_DS1, G_GAMMA = 27, 1949, 4   # DS1 (hohna_data_1), GTR+G4
+# betacorona1 as 61 sense codons under GY94 (BENCH_DETAILS.json
+# codon_gy94_step: 17 x 1086, K=128)
+K_CODON, N_CODON, S_CODON, A_CODON = 128, 17, 1086, 61
 SLEEP_CYCLES = 100_000_000         # ~50 ms at the H100's ~2 GHz clock
 
 
@@ -112,33 +121,42 @@ def require(ok, what):
 
 
 # ---------------------------------------------------------------- phase 2
-def last_rank_idx(gen, dev, S, dataset="primate", spec=None):
-    """The child index (4, K) that K1 (K10 for a rate mixture) gets at the
-    last rank of a real sweep (K=2048, initial parameters, the first S
-    sites of `dataset` under model `spec`): rows follow the sweep's
-    resampling genealogy, so the timed launch reads the slabs the main
-    path reads."""
-    from phylo_tpu_torch.dataio import load_dataset
+def load(dataset, codons=False):
+    """The dataset, converted to the 61 sense codons when `codons`."""
+    from phylo_tpu_torch.dataio import codon_dataset, load_dataset
+
+    ds = load_dataset(dataset)
+    return codon_dataset(ds) if codons else ds
+
+
+def last_rank_idx(gen, dev, S, dataset="primate", spec=None, Kd=K,
+                  codons=False):
+    """The child index (4, Kd) that K1 (K10 for a rate mixture, K9 for
+    codons) gets at the last rank of a real sweep (Kd particles, initial
+    parameters, the first S sites of `dataset` under model `spec`): rows
+    follow the sweep's resampling genealogy, so the timed launch reads
+    the slabs the main path reads."""
     from phylo_tpu_torch.smc.sweep import SweepConfig, sample_phylogenies
     from phylo_tpu_torch.train.trainer import TrainConfig, init_params
 
-    ds = load_dataset(dataset)
+    ds = load(dataset, codons)
     Nd = ds.N
     Rd = Nd - 1
     model, params = init_params(ds, TrainConfig(
-        n_particles=K, device=dev, substitution_model=spec))
+        n_particles=Kd, device=dev, substitution_model=spec))
     genome = ds.genome[:, :S]
     if hasattr(model, "expand_leaves"):
         genome = model.expand_leaves(genome)
     leaves = torch.tensor(genome, dtype=torch.float32, device=dev)
     with torch.no_grad():
-        res = sample_phylogenies(gen, leaves, model, params, SweepConfig(K=K))
+        res = sample_phylogenies(gen, leaves, model, params,
+                                 SweepConfig(K=Kd))
     # replay the sweep's row_of_node bookkeeping (smc/sweep.py)
-    row_of_node = torch.zeros((K, Rd), dtype=torch.int64, device=dev)
+    row_of_node = torch.zeros((Kd, Rd), dtype=torch.int64, device=dev)
     for r in range(Rd):
         row_of_node = row_of_node[res.ancestors[r]]
         if r < Rd - 1:
-            row_of_node[:, r] = torch.arange(K, device=dev)
+            row_of_node[:, r] = torch.arange(Kd, device=dev)
     nodes = res.merged_nodes[Rd - 1].T                      # (2, K)
     rows = torch.gather(row_of_node, 1,
                         (nodes.T - Nd).clamp(0, Rd - 1)).T  # (2, K)
@@ -324,17 +342,18 @@ def check_k3(kern, gen, dev, inputs, G=1, ties=False):
                 bound_by=b_by, library_ms=None)
 
 
-def cap_trade(kern, gen, dev, inputs):
-    """The trade SAVE_CHILDREN_CAP decides, at the DS1 GTR+G4 step shape
-    (K=2048, 16 planes, S=256, the last rank's real index): the saved
-    route costs K10 writing the children plus K2's blocked backward
-    reading them, the re-gather route K10 without the write plus K3.
-    Measured in turns, saved, re-gather, re-gather, saved."""
+def cap_trade(kern, gen, dev, inputs, label, fwd, bwd_saved, bwd):
+    """The trade SAVE_CHILDREN_CAP decides, at a main path's step shape
+    (site batch 256, the last rank's real index): the saved route costs
+    the forward writing the children plus the saved-children backward
+    reading them, the re-gather route the forward without the write plus
+    the re-gathering backward.  Measured in turns, saved, re-gather,
+    re-gather, saved."""
     leaves, buf, idx, P_l, P_r, pi, w = inputs
-    S = w.shape[0]
+    Kd, S = idx.shape[1], w.shape[0]
     outc = buf.shape[1] - 1
     GA = leaves.shape[1]
-    gm, gr, gl = bwd_cotangents(gen, dev, K, GA, S)
+    gm, gr, gl = bwd_cotangents(gen, dev, Kd, GA, S)
     m1, m2 = kern.gather_children(leaves, buf, idx)
     m1, m2 = m1.contiguous(), m2.contiguous()
     b = buf.clone()
@@ -352,11 +371,152 @@ def cap_trade(kern, gen, dev, inputs):
     for name in ("saved", "regather", "regather", "saved"):
         t[name].append(time_ms(saved if name == "saved" else regather))
     out = {k: sum(v) / len(v) for k, v in t.items()}
-    log(f"  SAVE_CHILDREN_CAP trade, DS1 GTR+G4 K={K} S={S} one rank: saved "
-        f"route (K10 saving + K2 blocked) {out['saved']:.4f} ms, re-gather "
-        f"route (K10 + K3 blocked) {out['regather']:.4f} ms "
-        f"(runs: {json.dumps(t)}); the cap sends DS1 b256 to re-gather")
+    rule = ("saves the children" if kern.save_children_ok(
+        buf.shape[1], Kd, GA, S, 4) else "sends it to re-gather")
+    log(f"  SAVE_CHILDREN_CAP trade, {label} K={Kd} S={S} one rank: saved "
+        f"route ({fwd} saving + {bwd_saved}) {out['saved']:.4f} ms, "
+        f"re-gather route ({fwd} + {bwd}) {out['regather']:.4f} ms "
+        f"(runs: {json.dumps(t)}); at this step shape the cap {rule}")
     return out
+
+
+def wide_inputs(gen, dev, S, idx, Kd=K_CODON, Nd=N_CODON, A_=A_CODON,
+                ties=False):
+    """One rank's inputs on the codon path: Kd particles, Nd leaves, A_
+    states, dense (Kd, A_, A_) transitions, the child index `idx`.  ties:
+    every P column the same and pi uniform (JAX's
+    test_fused_rank_bwd_wide_handles_max_ties case), so all A_ planes
+    tie at every site's max."""
+    f = dict(dtype=torch.float32, device=dev)
+    buf = torch.rand((Kd, Nd - 1, A_, S), generator=gen, **f) * 0.95 + 0.05
+    leaves = torch.rand((Nd, A_, S), generator=gen, **f) * 0.95 + 0.05
+    P_l = torch.rand((Kd, A_, A_), generator=gen, **f) * 0.95 + 0.05
+    P_r = torch.rand((Kd, A_, A_), generator=gen, **f) * 0.95 + 0.05
+    pi = torch.rand((A_,), generator=gen, **f) + 0.1
+    if ties:
+        col = torch.rand((Kd, A_, 1), generator=gen, **f) * 0.95 + 0.05
+        P_l = P_r = col.expand(Kd, A_, A_).contiguous()
+        pi = torch.ones((A_,), **f)
+    pi = (pi / pi.sum()).contiguous()
+    w = torch.ones((S,), **f)
+    return leaves, buf, idx, P_l, P_r, pi, w
+
+
+def k9_bounds(kern, idx, A_, S, Nd, kind):
+    """(bound ms, by) of one K9 launch on these inputs.  kind: "fwd",
+    "fwd_save" (K9f), "bwd_saved" (K9bs), "bwd" (K9b).  Bytes: the child
+    slabs read once each (the distinct ones idx names, or the 2 Kd saved
+    copies for K9bs), the cotangent in and outputs out, transitions and
+    their cotangents, the partial rows.  FP32 operations per particle and
+    site: 4 A^2 + 4 A + 2 forward (u and v: 2 A^2 FMAs), 12 A^2 + 20 A + 4
+    backward (u, v, dm1, dm2, dP_l, dP_r)."""
+    Kd = idx.shape[1]
+    slab = A_ * S * 4
+    n_leaf, n_int = k1_slabs_read(idx, Nd)
+    child = (2 * Kd if kind == "bwd_saved" else n_leaf + n_int) * slab
+    small = 2 * Kd * A_ * A_ * 4 + S * 4 + A_ * 4
+    if kind.startswith("fwd"):
+        T = -(-S // kern.WIDE_TILE)
+        nbytes = child + Kd * slab + small + 2 * Kd * T * 4 \
+            + (2 * Kd * slab if kind == "fwd_save" else 0)
+        return bound(nbytes, Kd * S * (4 * A_ * A_ + 4 * A_ + 2))
+    nbytes = child + 3 * Kd * slab + 2 * small + 2 * Kd * 4 \
+        + Kd * (A_ + S) * 4
+    return bound(nbytes, Kd * S * (12 * A_ * A_ + 20 * A_ + 4))
+
+
+def check_k9(kern, gen, dev, idx, S, Nd=N_CODON, A_=A_CODON, timed=True):
+    """K9f (saving the children and not), K9bs and K9b against their plain
+    versions at the codon path's shapes (Kd = idx.shape[1] particles, Nd
+    leaves, A_ states; untimed for a side check at other shapes), the
+    all-planes-tied case included; timed beside the plain versions and,
+    as a yardstick for a later design, the two torch.bmm contractions
+    u = P_l^T m1, v = P_r^T m2 alone.  Returns the kernels line's
+    entries {name: dict} when timed."""
+    Kd = idx.shape[1]
+    out = {}
+    leaves, buf, idx, P_l, P_r, pi, w = wide_inputs(gen, dev, S, idx, Kd,
+                                                    Nd, A_)
+    outc = buf.shape[1] - 1
+    tag = f"K={Kd} A={A_} S={S}"
+    for save in (True, False):
+        b_k, b_p = buf.clone(), buf.clone()
+        got = kern.fused_rank_update(leaves, b_k, idx, outc, P_l, P_r, pi, w,
+                                     save_children=save)
+        want = kern._fused_rank_ref(leaves, b_p, idx, outc, P_l, P_r, pi, w,
+                                    save_children=save)
+        torch.cuda.synchronize()
+        # w / scale lies in [0, 1]: its absolute error is a relative one
+        errs = {"buf": max_abs(b_k, b_p), "rootll": max_rel(got[0], want[0]),
+                "logscale": max_rel(got[1], want[1])}
+        if save:
+            errs["children"] = max(max_abs(got[2], want[2]),
+                                   max_abs(got[3], want[3]))
+        tol = {"buf": 1e-5, "rootll": 1e-5, "logscale": 1e-5, "children": 0.0}
+        log(f"  K9f fused_rank_update_wide {tag} save={save}: " + ", ".join(
+            f"{k} err {v:.3e} (tol {tol[k]:g})" for k, v in errs.items()))
+        for k, v in errs.items():
+            require(v <= tol[k], f"K9f {k} error {v} > {tol[k]}")
+        if not timed:
+            continue
+        ms = time_ms(lambda: kern.fused_rank_update(
+            leaves, b_k, idx, outc, P_l, P_r, pi, w, save_children=save))
+        plain = time_ms(lambda: kern._fused_rank_ref(
+            leaves, b_p, idx, outc, P_l, P_r, pi, w, save_children=save),
+            iters=3)
+        b_ms, b_by = k9_bounds(kern, idx, A_, S, Nd,
+                               "fwd_save" if save else "fwd")
+        log(f"  K9f {tag} save={save}: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); library: null "
+            "(no single PyTorch call gathers, merges, rescales and reduces)")
+        if save:
+            out["fused_rank_update_wide"] = dict(
+                max_abs_err=max(errs.values()), ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    m1, m2 = kern.gather_children(leaves, buf, idx)
+    m1, m2 = m1.contiguous(), m2.contiguous()
+    if timed:
+        Plt = P_l.transpose(1, 2).contiguous()
+        Prt = P_r.transpose(1, 2).contiguous()
+        mm = time_ms(lambda: (torch.bmm(Plt, m1), torch.bmm(Prt, m2)))
+        log(f"  K9 yardstick {tag}: the two contractions alone as torch.bmm "
+            f"(full float32) {mm:.4f} ms")
+    for ties in (False, True):
+        if ties:
+            leaves, buf, idx, P_l, P_r, pi, w = wide_inputs(
+                gen, dev, S, idx, Kd, Nd, A_, ties=True)
+            m1, m2 = kern.gather_children(leaves, buf, idx)
+            m1, m2 = m1.contiguous(), m2.contiguous()
+        cts = (*bwd_cotangents(gen, dev, Kd, A_, S), P_l, P_r, pi, w)
+        for name, kind, fn, ref, args in (
+                ("fused_rank_bwd_saved_wide", "bwd_saved",
+                 kern.fused_rank_bwd_saved, kern._fused_rank_bwd_saved_ref,
+                 (m1, m2, *cts)),
+                ("fused_rank_bwd_wide", "bwd", kern.fused_rank_bwd,
+                 kern._fused_rank_bwd_ref, (leaves, buf, idx, *cts))):
+            label = ("K9bs " if kind == "bwd_saved" else "K9b ") + name
+            err = compare_bwd(f"{label} {tag}" + (" ties" if ties else ""),
+                              fn(*args), ref(*args))
+            if not timed or ties:
+                continue
+            ms = time_ms(lambda: fn(*args))
+            plain = time_ms(lambda: ref(*args), iters=3)
+            b_ms, b_by = k9_bounds(kern, idx, A_, S, Nd, kind)
+            log(f"  {label.split()[0]} {tag}: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); library: "
+                "null (no single PyTorch call computes this backward)")
+            out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return out
+
+
+def small_idx(gen, dev, Kd, Nd, R_):
+    """A random child index (4, Kd) over Nd leaves and R_ - 1 filled
+    buffer columns (the last one is written)."""
+    rows = torch.randint(0, Kd, (2, Kd), generator=gen, device=dev)
+    nodes = torch.randint(0, Nd + R_ - 1, (2, Kd), generator=gen, device=dev)
+    return torch.stack([rows[0], nodes[0], rows[1], nodes[1]]).to(
+        torch.int32).contiguous()
 
 
 def expm_inputs(gen, dev, spec=None):
@@ -661,20 +821,23 @@ def mixture_tree(model, rng, Nd):
 
 
 def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
-                         Kd=K, S=None, route=None):
+                         Kd=K, S=None, route=None, codons=False):
     """The sweep with numpy-made decisions, float32 on the card against
-    float64 on the CPU: VCSMC at K=2048, VNCSMC at K=32, M=10, or a rate
-    mixture `spec` on the first S sites of `dataset` at Kd particles;
-    `route` names the reverse-pass kernel the card must have launched."""
+    float64 on the CPU: VCSMC at K=2048, VNCSMC at K=32, M=10, or model
+    `spec` (a rate mixture, or GY94 on `dataset` as codons, with the
+    alignment's F61 frequencies) on the first S sites of `dataset` at Kd
+    particles; `route` names the reverse-pass kernel the card must have
+    launched."""
     from phylo_tpu_torch import _ext
-    from phylo_tpu_torch.dataio import load_dataset
     from phylo_tpu_torch.models.substitution import ReferenceQ, get_model
     from phylo_tpu_torch.params import params_from_numpy
     from phylo_tpu_torch.smc.sweep import SweepConfig, sample_phylogenies
     from phylo_tpu_torch.smc.twist import TwistConfig
-    from phylo_tpu_torch.train.trainer import param_tensors
+    from phylo_tpu_torch.train.trainer import (
+        _resolve_codon_frequencies, param_tensors,
+    )
 
-    ds = load_dataset(dataset)
+    ds = load(dataset, codons)
     rng = np.random.default_rng(11)
     genome = ds.genome[:, :S] if S else ds.genome
     if spec is None:
@@ -686,9 +849,10 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
                     size=R), "log_rates_r": math.log(10) + 0.3 * rng.normal(
                     size=R)}}
     else:
-        model = get_model(spec, A=ds.A)
+        model = _resolve_codon_frequencies(get_model(spec, A=ds.A), ds)
         tree = mixture_tree(model, rng, ds.N)
-        genome = model.expand_leaves(genome)
+        if hasattr(model, "expand_leaves"):
+            genome = model.expand_leaves(genome)
     rates = (np.exp(tree["branches"]["log_rates_l"]),
              np.exp(tree["branches"]["log_rates_r"]))
     if twist:
@@ -716,7 +880,8 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
                     f"{label} gradient")
         grads = [t.grad.detach().cpu().double() for t in param_tensors(params)]
         named = {k: params["model"][k].grad.detach().cpu().double()
-                 for k in ("log_alpha",) if k in params["model"]}
+                 for k in ("log_alpha", "log_kappa", "log_omega")
+                 if k in params["model"]}
         if spec is not None and "log_exch" in params["model"].get("base", {}):
             named["log_exch"] = params["model"]["base"]["log_exch"].grad \
                 .detach().cpu().double()
@@ -733,18 +898,50 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
     rel_g = float((g32 - g64).norm() / g64.norm())
     rel_named = {k: float((n32[k] - n64[k]).norm() / n64[k].norm())
                  for k in n64}
+    values = "".join(f"; {k} grad cuda {float(n32[k].reshape(-1)[0]):.6f} "
+                     f"cpu {float(n64[k].reshape(-1)[0]):.6f}"
+                     for k in n64 if n64[k].numel() == 1)
     extra = "".join(f"; {k} rel err {v:.3e} (tol 1e-2)"
                     for k, v in rel_named.items())
     via = f" (reverse pass through {route})" if route else ""
     log(f"phase 3 fixed-decision ELBO {label}{via}: cuda f32 {e32:.6f} vs "
         f"cpu f64 {e64:.6f}, rel err {rel:.3e} (tol 1e-3); "
         f"log_likelihood_R max rel err {rel_llr:.3e}; manual-VJP gradient "
-        f"rel L2 err {rel_g:.3e} (tol 1e-2){extra}")
+        f"rel L2 err {rel_g:.3e} (tol 1e-2){extra}{values}")
     require(rel <= 1e-3, f"fixed-decision ELBO rel error {rel}")
     require(rel_llr <= 1e-3, f"log_likelihood_R rel error {rel_llr}")
     require(rel_g <= 1e-2, f"gradient rel error {rel_g}")
     for k, v in rel_named.items():
         require(v <= 1e-2, f"{k} gradient rel error {v}")
+
+
+def spectral_float32_probe(dev):
+    """Why models.expm.expm_reversible works in float64: GY94's
+    transitions (betacorona1's F61 frequencies, initial kappa and omega)
+    rebuilt from a float32 eigh and a float32 product on the card,
+    against the port's (float64 on the card), at b = 0.01, 0.1, 0.5."""
+    from phylo_tpu_torch.models.expm import expm_reversible
+    from phylo_tpu_torch.models.substitution import get_model
+    from phylo_tpu_torch.train.trainer import _resolve_codon_frequencies
+
+    ds = load("betacorona1", codons=True)
+    model = _resolve_codon_frequencies(get_model("gy94", A=ds.A), ds)
+    f64 = dict(dtype=torch.float64, device=dev)
+    p = model.init_params(**f64)
+    Q, pi = model.Q(p), model.stationary(p, **f64)
+    b = torch.tensor([0.01, 0.1, 0.5], **f64)
+    want = expm_reversible(Q, pi, b)
+    Q, pi, b = Q.float(), pi.float(), b.float()
+    d = torch.sqrt(pi)
+    S = Q * (d[:, None] / d[None, :])
+    w, U = torch.linalg.eigh((S + S.T) / 2)
+    left = (U * d[:, None]) * torch.exp(w * b[:, None])[:, None, :]
+    got = torch.clamp(torch.matmul(left, (U / d[:, None]).T), min=0.0)
+    err = (got.double() - want).abs()
+    log(f"phase 3 GY94 transitions from a float32 eigh: max abs err "
+        f"{float(err.max()):.3e} on entries down to {float(want.min()):.3e};"
+        f" {float((err > 1e-2 * want).double().mean()):.1%} of the entries "
+        f"more than 1% off (expm_reversible works in float64)")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -772,6 +969,20 @@ PATHS = {
         argv=["--model=gtr+g4", f"--n_particles={K}"],
         kernels=("fused_rank_update_blocked", "fused_rank_bwd_blocked",
                  "expm_fwd", "expm_bwd", "categorical")),
+    # GY94 on betacorona1's codons: 4 SGD steps of 256 codons (saved
+    # children: K9bs) + the 1086-codon eval sweep, 16 ranks each; the
+    # transitions are spectral (no expm kernel); exact launch counts of
+    # K9f and K9bs (initial eval + 2 epochs)
+    "gy94_codon": dict(
+        dataset="betacorona1", codons=True, band=(-70000.0, -30000.0),
+        train=dict(n_particles=K_CODON, substitution_model="gy94"),
+        argv=["--codons=True", f"--n_particles={K_CODON}"],
+        kernels=("fused_rank_update_wide", "fused_rank_bwd_saved_wide",
+                 "categorical"),
+        exact={"fused_rank_update_wide": (N_CODON - 1) * (1 + 2 * (
+            S_CODON // S_BATCH + 1)),
+               "fused_rank_bwd_saved_wide": (N_CODON - 1) * 2 * (
+            S_CODON // S_BATCH)}),
 }
 
 
@@ -792,6 +1003,11 @@ def main_path(ext, name):
     log(f"phase 4 {name} main path launches: {json.dumps(launches)}")
     for kname in path["kernels"]:
         require(launches.get(kname, 0) > 0, f"{kname} never launched")
+    for kname, n in path.get("exact", {}).items():
+        require(launches.get(kname, 0) == n,
+                f"{kname} launched {launches.get(kname, 0)} times, not {n}")
+    log(f"phase 4 {name} ELBO after each epoch: "
+        f"{json.dumps(res.history['elbo'])}")
     elbo = res.elbo
     lo, hi = path["band"]
     require(math.isfinite(elbo) and lo < elbo < hi,
@@ -801,6 +1017,9 @@ def main_path(ext, name):
         require(g is not None and bool(torch.isfinite(g).all())
                 and bool((g != 0).any()), "a gradient is missing, "
                 "non-finite or zero")
+    log(f"phase 4 {name}: every gradient finite and non-zero ("
+        + ", ".join(f"{grp}.{k}" for grp in ("model", "branches")
+                    for k in sorted(res.params[grp])) + ")")
     secs = res.history["epoch_seconds"]
     log(f"phase 4 {name} ELBO {elbo:.3f}; seconds per epoch after warm-up "
         f"{secs[-1]:.4f} (epoch 1 incl. warm-up {secs[0]:.4f})")
@@ -817,11 +1036,10 @@ def profile_epoch(name):
     share, and the kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from phylo_tpu_torch.dataio import load_dataset
     from phylo_tpu_torch.train import TrainConfig, train
 
     path = PATHS[name]
-    ds = load_dataset(path["dataset"])
+    ds = load(path["dataset"], path.get("codons", False))
     cfg = TrainConfig(batch_size=S_BATCH, num_epoch=1, save_artifacts=False,
                       log_every=0, device="cuda", **path["train"])
     torch.cuda.synchronize()
@@ -890,7 +1108,8 @@ def main(argv):
     k10b = check_k2(kernels, gen, dev, blk_inputs, G=G_GAMMA)
     k3b = check_k3(kernels, gen, dev, blk_inputs, G=G_GAMMA)
     check_k3(kernels, gen, dev, blk_inputs, G=G_GAMMA, ties=True)
-    cap_trade(kernels, gen, dev, blk_inputs)
+    cap_trade(kernels, gen, dev, blk_inputs, "DS1 GTR+G4", "K10",
+              "K2 blocked", "K3 blocked")
     del blk_inputs
     check_k1(kernels, gen, dev, S_DS1, save=False, G=G_GAMMA)
     torch.cuda.empty_cache()
@@ -906,7 +1125,25 @@ def main(argv):
     k7 = check_k7(kernels, gen, dev)
     k8 = check_k8(kernels, gen, dev, S_BATCH)
     check_k8(kernels, gen, dev, S_FULL)
+    # K9 on GY94 codons (K=128, A=61): one real child index per site
+    # count; the kernels line carries S=256 (the SGD steps) for K9f and
+    # K9bs and S=1086 (the re-gather route's shape) for K9b
+    idx_c = last_rank_idx(gen, dev, S_BATCH, "betacorona1", "gy94",
+                          K_CODON, codons=True)
+    k9 = check_k9(kernels, gen, dev, idx_c, S_BATCH)
+    cap_trade(kernels, gen, dev, wide_inputs(gen, dev, S_BATCH, idx_c),
+              "GY94 codons", "K9f", "K9bs", "K9b")
+    k9_full = check_k9(kernels, gen, dev, last_rank_idx(
+        gen, dev, S_CODON, "betacorona1", "gy94", K_CODON, codons=True),
+        S_CODON)
+    k9["fused_rank_bwd_wide"] = k9_full["fused_rank_bwd_wide"]
+    del k9_full
+    # the 512-thread backward (64 < A <= 128) at a small shape, untimed
+    check_k9(kernels, gen, dev, small_idx(gen, dev, 8, 6, 5), 70, Nd=6,
+             A_=100, timed=False)
+    torch.cuda.empty_cache()
 
+    log(f"phase 2 done at {time.time() - t0:.1f} s")
     # primate VCSMC: at the main path's site batch, under the cap (K2), and
     # at all 898 sites, over it (K3)
     fixed_decision_check(dev, S=S_BATCH, route="fused_rank_bwd_saved")
@@ -917,12 +1154,22 @@ def main(argv):
                          route="fused_rank_bwd_saved_blocked")
     fixed_decision_check(dev, spec="gtr+g4", dataset="hohna_data_1", Kd=128,
                          route="fused_rank_bwd_blocked")
+    # GY94 codons at K=128: under the cap (K9bs), over it (K9b)
+    spectral_float32_probe(dev)
+    fixed_decision_check(dev, spec="gy94", dataset="betacorona1", codons=True,
+                         Kd=K_CODON, S=S_BATCH,
+                         route="fused_rank_bwd_saved_wide")
+    fixed_decision_check(dev, spec="gy94", dataset="betacorona1", codons=True,
+                         Kd=K_CODON, route="fused_rank_bwd_wide")
     torch.cuda.empty_cache()
+    log(f"phase 3 done at {time.time() - t0:.1f} s")
     by_path = {name: main_path(_ext, name) for name in PATHS}
     launches = {k: sum(c.get(k, 0) for c in by_path.values())
                 for k in set().union(*by_path.values())}
+    log(f"phase 4 done at {time.time() - t0:.1f} s")
     for name in PATHS:
         profile_epoch(name)
+    log(f"phase 5 done at {time.time() - t0:.1f} s")
 
     rows = [
         ("fused_rank_update", "phylo_tpu_torch/csrc/rank_kernels.cu",
@@ -948,6 +1195,13 @@ def main(argv):
          "phylo_tpu/pruning/kernels.py:1059", k7),
         ("fused_merge_loglik", "phylo_tpu_torch/csrc/twist_kernels.cu",
          "phylo_tpu/pruning/kernels.py:159", k8),
+        ("fused_rank_update_wide", "phylo_tpu_torch/csrc/wide_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:1646", k9["fused_rank_update_wide"]),
+        ("fused_rank_bwd_saved_wide", "phylo_tpu_torch/csrc/wide_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:2071",
+         k9["fused_rank_bwd_saved_wide"]),
+        ("fused_rank_bwd_wide", "phylo_tpu_torch/csrc/wide_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:1949", k9["fused_rank_bwd_wide"]),
     ]
     table = [dict(name=name, route="cuda", source=src, replaces=rep,
                   launches=int(launches.get(name, 0)), **m)

@@ -11,6 +11,8 @@ Usage (on a GPU):
         --nested=True --M=10 --n_particles=32 --batch_size=256
     python -m phylo_tpu_torch.cli.runner --dataset=hohna_data_1 \
         --model=gtr+g4 --n_particles=2048 --batch_size=256
+    python -m phylo_tpu_torch.cli.runner --dataset=betacorona1 \
+        --codons=True --n_particles=128 --batch_size=256
 """
 
 from __future__ import annotations
@@ -41,9 +43,12 @@ def parse_args(argv=None):
     p.add_argument("--nested", type=_boolish, default=False)
     p.add_argument("--jcmodel", type=_boolish, default=False)
     p.add_argument("--model", default=None,
-                   help="substitution model spec: jc69|reference|gtr|hky, "
-                   "optionally +gN, +i or +rN (e.g. gtr+g4+i)")
-    p.add_argument("--codons", type=_boolish, default=False)
+                   help="substitution model spec: jc69|reference|gtr|hky|"
+                   "gy94, optionally +gN, +i or +rN (e.g. gtr+g4+i), "
+                   "+f for gy94")
+    p.add_argument("--codons", type=_boolish, default=False,
+                   help="convert the DNA alignment to the 61 sense codons "
+                   "(model defaults to gy94)")
     p.add_argument("--gamma_categories", type=int, default=0)
     p.add_argument("--paml_dat", default=None)
     p.add_argument("--plus_f", type=_boolish, default=False)
@@ -81,10 +86,8 @@ def _check_flags(args):
             f"{flag} is not ported to phylo_tpu_torch yet "
             f"(ROADMAP.md {item})")
 
-    if args.codons:
-        no("--codons", "Queue 1 item 11b")
     if args.paml_dat or args.plus_f:
-        no("--paml_dat/--plus_f", "Queue 1 item 11b")
+        no("--paml_dat/--plus_f", "Queue 1 item 11b, protein half")
     if args.mesh:
         no("--mesh", "Queue 1 item 16")
     if args.coordinator or args.num_processes or args.process_id \
@@ -107,6 +110,12 @@ def run(argv=None):
     from phylo_tpu_torch.train import TrainConfig, train
 
     ds = load_dataset(args.dataset)
+    if args.codons:
+        from phylo_tpu_torch.dataio.codons import codon_dataset
+
+        ds = codon_dataset(ds)
+        if args.model is None:
+            args.model = "gy94"
     print(f"Dataset: {ds.name}  N={ds.N} taxa, S={ds.S} sites, "
           f"A={ds.A} states")
     config = TrainConfig(

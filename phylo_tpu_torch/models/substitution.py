@@ -1,6 +1,7 @@
 """Substitution models (port of phylo_tpu/models/substitution.py: JC69,
-ReferenceQ, FixedQ, GTR, HKY and the across-site rate mixtures
-GammaSites (+G, +I) and FreeRates (+R)).
+ReferenceQ, FixedQ, GTR, HKY, the across-site rate mixtures GammaSites
+(+G, +I) and FreeRates (+R), and the spec parser, which also resolves
+the codon model GY94 of models/codon.py).
 
 Models are stateless objects over parameter dicts of tensors (nested for
 the mixtures: {"base": {...}, "log_alpha": ...}).  Transition matrices
@@ -353,13 +354,19 @@ class FreeRates(_SiteMixture):
 def _not_ported(spec):
     return NotImplementedError(
         f"substitution model {spec!r} is not ported yet (ROADMAP.md Queue 1 "
-        "item 11b: PAML .dat empirical protein models, '+f', GY94 codons)")
+        "item 11b, protein half: PAML .dat empirical protein models)")
 
 
 def _get_base_model(name, A):
     lowered = name.lower()
-    if lowered.endswith(".dat") or lowered in ("gy94", "codon"):
+    if lowered.endswith(".dat"):
         raise _not_ported(name)
+    if lowered in ("gy94", "codon"):
+        # uniform-frequency GY94; the trainer swaps in the alignment's
+        # empirical F61 frequencies
+        from phylo_tpu_torch.models.codon import GY94
+
+        return GY94()
     if lowered in ("jc", "jc69", "jcmodel"):
         return JC69(A)
     if lowered in ("reference", "referenceq", "learned", "learned_q"):
@@ -373,11 +380,12 @@ def _get_base_model(name, A):
 
 def get_model(name, A=4):
     """Resolve a substitution-model spec: a base name (jc69, reference,
-    gtr, hky) optionally followed by '+'-separated across-site modifiers
+    gtr, hky, gy94/codon) optionally followed by '+'-separated modifiers
     -- ``+gN`` discrete Gamma with N categories (``+g`` = ``+g4``),
-    ``+i`` invariant sites, ``+rN`` FreeRates -- as in PhyML/RAxML/
-    IQ-TREE model strings (``gtr+g4+i``, ``jc69+r3``).  PAML ``.dat``
-    bases, ``+f`` and ``gy94``/``codon`` raise NotImplementedError."""
+    ``+i`` invariant sites, ``+rN`` FreeRates, ``+f`` learnable
+    stationary frequencies (gy94 bases only here) -- as in PhyML/RAxML/
+    IQ-TREE model strings (``gtr+g4+i``, ``jc69+r3``, ``gy94+f``).  PAML
+    ``.dat`` bases raise NotImplementedError."""
     parts = str(name).split("+")
     base = _get_base_model(parts[0], A)
     gamma = None
@@ -390,7 +398,16 @@ def get_model(name, A=4):
         if m == "i":
             invariant = True
         elif m == "f":
-            raise _not_ported(name)
+            from phylo_tpu_torch.models.codon import GY94
+
+            if isinstance(base, GY94):
+                base = GY94(base._freqs, plus_f=True,
+                            normalize=base.normalize,
+                            spectral=base.spectral)
+            else:
+                raise ValueError(
+                    f"'+f' requires a PAML .dat or gy94 base model "
+                    f"(spec {name!r})")
         elif m[0] == "g" and (len(m) == 1 or m[1:].isdigit()):
             gamma = int(m[1:]) if len(m) > 1 else 4
         elif m[0] == "r" and (len(m) == 1 or m[1:].isdigit()):

@@ -26,14 +26,17 @@ exactly as `_rank_bwd_core`.  The sweep saves the children, and so takes
 K2, while 2 R K GA S itemsize <= SAVE_CHILDREN_CAP (JAX's value and
 rule), and K3 above it.
 
-CUDA tensors launch csrc/rank_kernels.cu; CPU tensors run the plain
-versions `_fused_rank_ref` / `_fused_rank_bwd_saved_ref` /
-`_fused_rank_bwd_ref` below.  On the card a block has A <= 8 states and
-G <= 32 blocks (the wide bodies K9 for dense A = 20 / 61 are not
-ported).  K1, K2 and K3 have no autograd rule: only the manual
-whole-sweep VJP (smc.sweep_vjp) calls them.  K7 and K8 live in
-csrc/twist_kernels.cu and carry torch.autograd.Functions
-(`fused_merge_loglik`, `pair_loglik`).
+CUDA tensors launch csrc/rank_kernels.cu, or csrc/wide_kernels.cu for
+dense messages of 8 < A <= 128 states (K9, the wide bodies: JAX's
+`wide_rank_kernel` rule, G A^2 > 64, for G = 1; codon GY94 has A = 61);
+CPU tensors run the plain versions `_fused_rank_ref` /
+`_fused_rank_bwd_saved_ref` / `_fused_rank_bwd_ref` below, at any A.  A
+blocked model takes A <= 8 states per block and G <= 32 blocks on the
+card (K9's blocked wide form is not ported).  K1, K2, K3 and K9 have no
+autograd rule: only the manual whole-sweep VJP (smc.sweep_vjp) and the
+no-grad sweep call them.  K7 and K8 live in csrc/twist_kernels.cu, take
+A <= 8 and carry torch.autograd.Functions (`fused_merge_loglik`,
+`pair_loglik`).
 """
 
 from __future__ import annotations
@@ -41,9 +44,12 @@ from __future__ import annotations
 import torch
 
 from phylo_tpu_torch import _ext
+from phylo_tpu_torch.models.expm import exact_matmul
 
-MAX_A = 8                       # states per block on the card
+MAX_A = 8                       # states per block of K1-K3, K7, K8, K10
 MAX_G = 32                      # rate-category blocks on the card
+MAX_WIDE_A = 128                # dense states of the wide kernels K9
+WIDE_TILE = 32                  # K9f: sites per CUDA block (partial rows)
 BWD_PARTICLES_PER_BLOCK = 8     # K2/K3: particles per CUDA block (dpi/dw
                                 # partials come back one row per block)
 # bytes of the (R, K, 2, G*A, S) child residuals the manual-VJP forward
@@ -77,11 +83,22 @@ def blockdiag_dense(P):
     return out
 
 
+def _apply_t(m, P):
+    """u[..., b, s] = sum_a m[..., a, s] P[..., a, b] for states-major
+    messages m (..., A, S) and transitions P (..., A, A), as one batched
+    product (full float32 on the card).  Its accumulation over a runs in
+    the same order for every output plane, so planes that tie in exact
+    arithmetic tie here too, as the kernels' FMA chains do (the
+    all-planes-tied cases of the tests and of chip_smoke.py hold this;
+    a torch.sum over a broke such ties at A = 61 on the CPU)."""
+    return exact_matmul(P.transpose(-1, -2), m)
+
+
 def _ref_impl(m1, m2, P_l, P_r, pi, weights):
     """Plain merge + rescale + root log-lik on states-major (K, A, S)
     children.  Returns (merged_scaled, rootll (K,), logscale (K,))."""
-    u = torch.sum(m1[:, :, None, :] * P_l[:, :, :, None], dim=1)
-    v = torch.sum(m2[:, :, None, :] * P_r[:, :, :, None], dim=1)
+    u = _apply_t(m1, P_l)
+    v = _apply_t(m2, P_r)
     w = u * v
     scale = torch.clamp(torch.amax(w, dim=-2),
                         min=torch.finfo(w.dtype).tiny)          # (K, S)
@@ -134,6 +151,23 @@ def _blocks(P_l, GA):
     return G, A
 
 
+def wide_rank(P_l, GA):
+    """True when a rank on the card takes the wide kernels K9: dense
+    transitions with A^2 > 64 (JAX's `wide_rank_kernel` rule at G = 1).
+    Raises where the card has no kernel (blocked A > 8, dense A > 128)."""
+    G, A = _blocks(P_l, GA)
+    if P_l.ndim == 4:
+        _check_a(A, G, blocked=True)
+        return False
+    if A * A <= 64:
+        return False
+    if A > MAX_WIDE_A:
+        raise NotImplementedError(
+            f"the wide CUDA rank kernels take A <= {MAX_WIDE_A} states, "
+            f"got {A}")
+    return True
+
+
 def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
                       save_children=False):
     """One full rank update, in place: child gather + transitions +
@@ -151,7 +185,7 @@ def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
     K, R, GA, S = buf.shape
     N = leaves.shape[0]
     G, A = _blocks(P_l, GA)
-    _check_a(A, G)
+    wide = wide_rank(P_l, GA)
     blocked = P_l.ndim == 4
     f32 = torch.float32
     _ext.require(leaves, "leaves", f32, shape=(N, GA, S))
@@ -165,8 +199,10 @@ def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
     if not 0 <= outc < R:
         raise ValueError(f"output column {outc} outside [0, {R})")
     dev = buf.device
-    rootll = torch.empty((K,), dtype=f32, device=dev)
-    logscale = torch.empty((K,), dtype=f32, device=dev)
+    # K9f writes one partial row per 32-site tile, summed below (fixed
+    # order); K1 and K10 write rootll and logscale themselves
+    T = -(-S // WIDE_TILE) if wide else 1
+    sums = torch.empty((2, K, T), dtype=f32, device=dev)
     if save_children:
         m1 = torch.empty((K, GA, S), dtype=f32, device=dev)
         m2 = torch.empty((K, GA, S), dtype=f32, device=dev)
@@ -175,9 +211,14 @@ def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
         p1 = p2 = None
     ptrs = (leaves.data_ptr(), buf.data_ptr(), idx.data_ptr(),
             P_l.data_ptr(), P_r.data_ptr(), pi.data_ptr(),
-            weights.data_ptr(), rootll.data_ptr(), logscale.data_ptr(), p1,
+            weights.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(), p1,
             p2)
-    if blocked:
+    if wide:
+        fn = _ext.bind("wide_kernels", "launch_wide_rank", 11, 6)
+        name = "fused_rank_update_wide"
+        _ext.LAUNCHES[name] += 1
+        code = fn(*ptrs, K, R, N, A, S, outc, _ext.stream_ptr(dev))
+    elif blocked:
         fn = _ext.bind("rank_kernels", "launch_fused_rank_blocked", 11, 7)
         name = "fused_rank_update_blocked"
         _ext.LAUNCHES[name] += 1
@@ -188,6 +229,7 @@ def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
         _ext.LAUNCHES[name] += 1
         code = fn(*ptrs, K, R, N, A, S, outc, _ext.stream_ptr(dev))
     _ext.check(code, name)
+    rootll, logscale = torch.sum(sums, dim=2) if wide else sums[:, :, 0]
     if save_children:
         return rootll, logscale, m1, m2
     return rootll, logscale
@@ -207,8 +249,8 @@ def _fused_rank_bwd_saved_ref(m1, m2, gm, gr, gl, P_l, P_r, pi, weights):
     G, A = Pl.shape[1], Pl.shape[-1]
     mb1 = m1.reshape(K, G, A, S)
     mb2 = m2.reshape(K, G, A, S)
-    u = torch.sum(mb1[:, :, :, None, :] * Pl[..., None], dim=2)
-    v = torch.sum(mb2[:, :, :, None, :] * Pr[..., None], dim=2)
+    u = _apply_t(mb1, Pl)
+    v = _apply_t(mb2, Pr)
     u = u.reshape(K, GA, S)
     v = v.reshape(K, GA, S)
     wp = u * v                                           # (K, GA, S)
@@ -228,10 +270,12 @@ def _fused_rank_bwd_saved_ref(m1, m2, gm, gr, gl, P_l, P_r, pi, weights):
            + draw[:, None, :] * eq / neq[:, None, :])
     du = (dwp * v).reshape(K, G, A, S)
     dv = (dwp * u).reshape(K, G, A, S)
-    dm1 = torch.sum(du[:, :, None, :, :] * Pl[..., None], dim=3)
-    dm2 = torch.sum(dv[:, :, None, :, :] * Pr[..., None], dim=3)
-    dPl = torch.sum(mb1[:, :, :, None, :] * du[:, :, None, :, :], dim=-1)
-    dPr = torch.sum(mb2[:, :, :, None, :] * dv[:, :, None, :, :], dim=-1)
+    # dm = P du and dP = m du^T as batched products (no (K, G, A, A, S)
+    # intermediate at wide A; full float32 on the card)
+    dm1 = exact_matmul(Pl, du)
+    dm2 = exact_matmul(Pr, dv)
+    dPl = exact_matmul(mb1, du.transpose(-1, -2))
+    dPr = exact_matmul(mb2, dv.transpose(-1, -2))
     dpi = torch.sum(dsite[:, None, :] * wp, dim=(0, 2))
     dw = torch.sum(gr * torch.log(site) + gl * torch.log(scale), dim=0)
     if not blocked:
@@ -257,10 +301,20 @@ def _bwd_outputs(K, GA, S, P_shape, dev):
             torch.empty((nb, GA), **f), torch.empty((nb, S), **f))
 
 
+def _wide_bwd_outputs(K, A, S, dev):
+    """K9bs / K9b: one CUDA block per particle, so dpi / dw come back as
+    (K, A) / (K, S) partial rows."""
+    f = dict(dtype=torch.float32, device=dev)
+    return (torch.empty((K, A, S), **f), torch.empty((K, A, S), **f),
+            torch.empty((K, A, A), **f), torch.empty((K, A, A), **f),
+            torch.empty((K, A), **f), torch.empty((K, S), **f))
+
+
 def _check_bwd_args(gm, gr, gl, P_l, P_r, pi, weights, K, GA, S):
+    """Validates the backward's common inputs; returns (G, A, wide)."""
     f32 = torch.float32
     G, A = _blocks(P_l, GA)
-    _check_a(A, G)
+    wide = wide_rank(P_l, GA)
     _ext.require(gm, "gm", f32, shape=(K, GA, S))
     _ext.require(gr, "gr", f32, shape=(K,))
     _ext.require(gl, "gl", f32, shape=(K,))
@@ -268,7 +322,7 @@ def _check_bwd_args(gm, gr, gl, P_l, P_r, pi, weights, K, GA, S):
     _ext.require(P_r, "P_r", f32, shape=P_l.shape)
     _ext.require(pi, "pi", f32, shape=(GA,))
     _ext.require(weights, "weights", f32, shape=(S,))
-    return G, A
+    return G, A, wide
 
 
 def fused_rank_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights):
@@ -281,16 +335,23 @@ def fused_rank_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights):
         return _fused_rank_bwd_saved_ref(m1, m2, gm, gr, gl, P_l, P_r,
                                          pi, weights)
     K, GA, S = m1.shape
-    G, A = _check_bwd_args(gm, gr, gl, P_l, P_r, pi, weights, K, GA, S)
+    G, A, wide = _check_bwd_args(gm, gr, gl, P_l, P_r, pi, weights, K, GA,
+                                 S)
     _ext.require(m1, "m1", torch.float32, shape=(K, GA, S))
     _ext.require(m2, "m2", torch.float32, shape=(K, GA, S))
     dev = m1.device
     tkb = BWD_PARTICLES_PER_BLOCK
-    outs = _bwd_outputs(K, GA, S, P_l.shape, dev)
+    outs = (_wide_bwd_outputs(K, A, S, dev) if wide
+            else _bwd_outputs(K, GA, S, P_l.shape, dev))
     ins = [t.data_ptr() for t in (m1, m2, gm, gr, gl, P_l, P_r, pi,
                                   weights)]
     out_p = [t.data_ptr() for t in outs]
-    if P_l.ndim == 4:
+    if wide:
+        fn = _ext.bind("wide_kernels", "launch_wide_rank_bwd_saved", 15, 3)
+        name = "fused_rank_bwd_saved_wide"
+        _ext.LAUNCHES[name] += 1
+        code = fn(*ins, *out_p, K, A, S, _ext.stream_ptr(dev))
+    elif P_l.ndim == 4:
         scratch = torch.empty((outs[4].shape[0], 5, S), dtype=torch.float32,
                               device=dev)
         fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_saved_blocked",
@@ -318,17 +379,24 @@ def fused_rank_bwd(leaves, buf, idx, gm, gr, gl, P_l, P_r, pi, weights):
                                    pi, weights)
     K, R, GA, S = buf.shape
     N = leaves.shape[0]
-    G, A = _check_bwd_args(gm, gr, gl, P_l, P_r, pi, weights, K, GA, S)
+    G, A, wide = _check_bwd_args(gm, gr, gl, P_l, P_r, pi, weights, K, GA,
+                                 S)
     _ext.require(leaves, "leaves", torch.float32, shape=(N, GA, S))
     _ext.require(buf, "buf", torch.float32)
     _ext.require(idx, "idx", torch.int32, shape=(4, K))
     dev = buf.device
     tkb = BWD_PARTICLES_PER_BLOCK
-    outs = _bwd_outputs(K, GA, S, P_l.shape, dev)
+    outs = (_wide_bwd_outputs(K, A, S, dev) if wide
+            else _bwd_outputs(K, GA, S, P_l.shape, dev))
     ins = [t.data_ptr() for t in (leaves, buf, idx, gm, gr, gl, P_l, P_r,
                                   pi, weights)]
     out_p = [t.data_ptr() for t in outs]
-    if P_l.ndim == 4:
+    if wide:
+        fn = _ext.bind("wide_kernels", "launch_wide_rank_bwd", 16, 5)
+        name = "fused_rank_bwd_wide"
+        _ext.LAUNCHES[name] += 1
+        code = fn(*ins, *out_p, K, R, N, A, S, _ext.stream_ptr(dev))
+    elif P_l.ndim == 4:
         scratch = torch.empty((outs[4].shape[0], 5, S), dtype=torch.float32,
                               device=dev)
         fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_blocked", 17, 7)
@@ -499,12 +567,17 @@ def pair_loglik(m1, m2, P_l, P_r, pi, weights):
     return _PairLoglik.apply(m1, m2, P_l, P_r, pi, weights)
 
 
-def _check_a(A, G=1):
-    """The card's limits: A <= 8 states per block, G <= 32 blocks."""
+def _check_a(A, G=1, blocked=False):
+    """The card's limits of the narrow kernels: A <= 8 states per block,
+    G <= 32 blocks (`blocked`: a rate mixture's K10)."""
     if not 1 <= A <= MAX_A:
+        what, item = (("blocked rank kernels", "K9 blocked, ROADMAP.md "
+                       "Queue 2") if blocked else
+                      ("merge and twist kernels K7/K8", "K7/K8 wide, "
+                       "ROADMAP.md Queue 3"))
         raise NotImplementedError(
-            f"the CUDA rank kernels take A <= {MAX_A} states per block, got "
-            f"{A} (the wide bodies for A = 20 / 61: ROADMAP.md Queue 2 K9)")
+            f"the CUDA {what} take A <= {MAX_A} states per block, got {A} "
+            f"({item})")
     if not 1 <= G <= MAX_G:
         raise NotImplementedError(
             f"the CUDA rank kernels take at most {MAX_G} rate-category "

@@ -19,11 +19,12 @@ Messages are states-major (A, S) and per-site rescaled.  The rank loop is
 a Python loop (n_active is static per rank; nothing syncs with the
 host).  With ``fused_rank`` each non-twist rank is one call of kernel K1
 (pruning.kernels.fused_rank_update, in place; K10, its blocked form, for
-a rate mixture).  Otherwise, and always under twist (as in the JAX
-package, where K1 is off under twist), the children are gathered
-explicitly and merged by K8 (pruning.kernels.fused_merge_loglik), which
-autograd differentiates through K2 -- or, for a rate mixture's blocked
-merge, by plain torch ops, as JAX's blocked merge runs no kernel.
+a rate mixture; K9, the wide form, for dense A > 8 such as codons).
+Otherwise, and always under twist (as in the JAX package, where K1 is
+off under twist), the children are gathered explicitly and merged by K8
+(pruning.kernels.fused_merge_loglik), which autograd differentiates
+through K2 -- or, for a rate mixture's blocked merge and for A > 8, by
+plain torch ops, as JAX's merge kernel is off there.
 
 The reference quirks stay default-on (``q_raw_subtraction``,
 ``right_multiplier_bug``), see ``SweepConfig``.
@@ -156,6 +157,17 @@ def _check_supported(config, leaves, model):
             "twist with a rate mixture is not ported to the card: the twist "
             "enumerates dense (G*A)-state transitions and K7/K8 take A <= 8 "
             "(ROADMAP.md Queue 3: twist with a rate mixture)")
+    A = leaves.shape[-1]
+    if leaves.is_cuda and config.twist is not None and A > _kernels.MAX_A:
+        raise NotImplementedError(
+            f"twist with A = {A} > {_kernels.MAX_A} states is not ported to "
+            "the card: K7/K8 take A <= 8 (K7/K8 wide, ROADMAP.md Queue 3)")
+    blocks = getattr(model, "blocks", None)
+    if leaves.is_cuda and blocks is not None and blocks[1] > _kernels.MAX_A:
+        raise NotImplementedError(
+            f"a rate mixture over A = {blocks[1]} > {_kernels.MAX_A} states "
+            "per category has no CUDA rank kernel (K9 blocked, ROADMAP.md "
+            "Queue 2)")
 
 
 def sample_phylogenies(generator, leaves, model, params, config, *,
@@ -445,13 +457,15 @@ def _sample_body(generator, leaves, model, params, config, *,
                     site_weights=site_weights, blocks=blocks)
                 rootll_raw = root_log_likelihood_sm(
                     merged, stationary, site_weights=site_weights) + d_lsc
-            elif config.rescale:
+            elif config.rescale and A <= _kernels.MAX_A:
                 merged, rootll_raw, d_lsc = fused_merge_loglik(
                     m1, m2, P_l_r.contiguous(), P_r_r.contiguous(),
                     stationary, w_vec)
             else:
+                # no rescaling, or a wide alphabet (K8, like JAX's merge
+                # kernel, takes A <= 8): plain torch ops
                 merged, d_lsc = merge_messages_sm(
-                    m1, m2, P_l_r, P_r_r, rescale=False,
+                    m1, m2, P_l_r, P_r_r, rescale=config.rescale,
                     site_weights=site_weights)
                 rootll_raw = root_log_likelihood_sm(
                     merged, stationary, site_weights=site_weights) + d_lsc

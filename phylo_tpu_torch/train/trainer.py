@@ -39,8 +39,9 @@ INITIAL_EVAL_STEP = 2 ** 31 - 1
 class TrainConfig:
     """Training configuration; field names mirror the JAX package's
     TrainConfig (reference runner.py:12-58).  Options of later slices
-    (empirical models, codons, mesh, checkpoints) are not fields yet: the
-    runner rejects their flags."""
+    (PAML empirical models, mesh, checkpoints) are not fields yet: the
+    runner rejects their flags.  A gy94 model takes the dataset's F61
+    codon frequencies."""
 
     n_particles: int = 128
     batch_size: int = 256            # sites per SGD step
@@ -128,7 +129,9 @@ def init_params(dataset, config, device=None):
     dtype = resolve_dtype(config.dtype, dev)
     name = config.substitution_model or (
         "jc69" if config.jcmodel else "reference")
-    model = _rate_mixture(get_model(name, A=dataset.A), config)
+    model = _resolve_codon_frequencies(get_model(name, A=dataset.A),
+                                       dataset)
+    model = _rate_mixture(model, config)
     params = {
         "model": model.init_params(dtype, dev),
         "branches": init_branch_params(
@@ -138,6 +141,34 @@ def init_params(dataset, config, device=None):
     for t in param_tensors(params):
         t.requires_grad_(True)
     return model, params
+
+
+def _resolve_codon_frequencies(model, dataset):
+    """GY94 from the spec parser carries uniform codon frequencies;
+    replace them with the alignment's empirical F61 counts (the standard
+    default), and refuse a dataset that is not codon-encoded."""
+    from phylo_tpu_torch.models.codon import GY94
+
+    base = getattr(model, "base", model)
+    if not isinstance(base, GY94):
+        return model
+    if dataset.A != GY94.A:
+        raise ValueError(
+            f"GY94 needs a codon-encoded dataset (A={GY94.A}); this "
+            f"dataset has A={dataset.A} -- pass --codons (or "
+            "dataio.codons.codon_dataset)")
+    from phylo_tpu_torch.dataio.codons import empirical_codon_frequencies
+
+    freqs = empirical_codon_frequencies(dataset.genome)
+    new_base = GY94(freqs, plus_f=base.plus_f, normalize=base.normalize,
+                    spectral=base.spectral)
+    if base is model:
+        return new_base
+    import copy
+
+    wrapped = copy.copy(model)
+    wrapped.base = new_base
+    return wrapped
 
 
 def _rate_mixture(model, config):

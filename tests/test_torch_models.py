@@ -130,8 +130,8 @@ def test_spec_parser(spec, kind):
 
 
 @pytest.mark.parametrize("spec,err", [
-    ("lg.dat", NotImplementedError), ("gy94", NotImplementedError),
-    ("codon+g4", NotImplementedError), ("gtr+f", NotImplementedError),
+    ("lg.dat", NotImplementedError), ("lg.dat+f", NotImplementedError),
+    ("gtr+f", ValueError), ("jc69+g4+f", ValueError),
     ("gtr+g4+r3", ValueError), ("gtr+x", ValueError), ("k80", KeyError),
 ])
 def test_spec_parser_refuses(spec, err):

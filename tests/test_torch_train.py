@@ -91,11 +91,9 @@ def test_train_is_reproducible_on_cpu():
 
 
 @pytest.mark.parametrize("flag", [
-    "--codons=true", "--plus_f=true",
-    "--paml_dat=lg.dat", "--model=lg.dat", "--model=gy94",
+    "--plus_f=true", "--paml_dat=lg.dat", "--model=lg.dat",
     "--mesh=4", "--num_processes=2", "--checkpoint_every=1",
-    "--resume_from=ckpt", "--dtype=bfloat16", "--model=gtr+f",
-    "--model=codon+g4",
+    "--resume_from=ckpt", "--dtype=bfloat16", "--model=lg.dat+f",
 ])
 def test_flags_outside_the_slice_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
