@@ -14,7 +14,9 @@ script exits non-zero without printing a result:
    A=4, S=256 and 1949, and G=5 (+I); K4 on primate's 45,056 matrices
    and DS1 GTR+G4's 425,984 a step; GY94 codons: K9 at K=128, A=61,
    S=256 and 1086, and A=100, A=20 at a small shape, the all-planes-tied
-   case included), with the tolerances printed, and
+   case included; protein+G4: K9 blocked at K=256, G=4 blocks of A=20,
+   S=256 and 500, K9bs blocked at K=64, and G=5 (+I) and all planes
+   tied), with the tolerances printed, and
    timed beside the plain version, the least time the card could take
    (bound) and, where one exists, a single PyTorch library call; and the
    saved-children route (K10 saving + K10's backward) against the
@@ -29,12 +31,17 @@ script exits non-zero without printing a result:
    saved-children backward; DS1 K=128 S=1949, over it: K3 blocked) and
    GY94 on betacorona1's codons (K=128; S=256 under the cap: K9bs; all
    1086 codons over it: K9b), after a probe of GY94's transitions from a
-   float32 eigh (why expm_reversible works in float64);
+   float32 eigh (why expm_reversible works in float64), and protein+G4
+   on the simulated 16 x 500 protein alignment (K=64, S=256: K9bs
+   blocked; K=256, all 500 sites: K9b blocked);
 4. the main paths: two epochs each of VCSMC training on primate (N=12,
    S=898) at K=2048, of VNCSMC (twisted) training at K=32, M=10, of
-   GTR+G4 VCSMC training on DS1 (N=27, S=1949) at K=2048 and of GY94
+   GTR+G4 VCSMC training on DS1 (N=27, S=1949) at K=2048, of GY94
    codon VCSMC training on betacorona1 (N=17, 1086 codons, A=61) at
-   K=128, site batch 256, through phylo_tpu_torch.cli.runner, with every
+   K=128, of protein+G4 training (ReferenceQ(A=20) under GammaSites G=4)
+   at K=256 and of an empirical .dat+F+G4 protein model at K=64 on a
+   16 x 500 protein alignment that the script simulates from seed 0,
+   site batch 256, through phylo_tpu_torch.cli.runner, with every
    kernel's launch counter set to 0 before each path and read after;
 5. where the time of one epoch of each path goes, under torch.profiler.
 
@@ -64,6 +71,14 @@ N_DS1, S_DS1, G_GAMMA = 27, 1949, 4   # DS1 (hohna_data_1), GTR+G4
 # betacorona1 as 61 sense codons under GY94 (BENCH_DETAILS.json
 # codon_gy94_step: 17 x 1086, K=128)
 K_CODON, N_CODON, S_CODON, A_CODON = 128, 17, 1086, 61
+# protein + Gamma4 (bench.py protein_gamma_step: "simulated protein
+# 16x500 A=20 GammaSites G=4 K=256"); K9bs blocked runs below the
+# SAVE_CHILDREN_CAP at K=64
+K_PROT, K_PROT_SAVED, N_PROT, S_PROT, A_PROT = 256, 64, 16, 500, 20
+PROT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "results", "chip_smoke")
+PROT_FASTA = os.path.join(PROT_DIR, "protein_16x500.fa")
+PROT_DAT = os.path.join(PROT_DIR, "protein_seed0.dat")
 SLEEP_CYCLES = 100_000_000         # ~50 ms at the H100's ~2 GHz clock
 
 
@@ -118,6 +133,39 @@ def max_abs(a, b):
 def require(ok, what):
     if not ok:
         raise AssertionError(what)
+
+
+def protein_files():
+    """The protein paths' inputs, written from seed 0 under results/: a
+    PAML .dat whose 190 exchangeabilities (lognormal) and 20 frequencies
+    come from the seed, and a FASTA of N_PROT x S_PROT residues that the
+    port's simulate_on_tree evolves under that EmpiricalProtein along a
+    seeded random rooted tree (branch lengths Exponential, mean 0.1)."""
+    from phylo_tpu_torch.dataio import PROTEIN_ALPHABET, simulate_on_tree
+    from phylo_tpu_torch.models.empirical import EmpiricalProtein
+
+    os.makedirs(PROT_DIR, exist_ok=True)
+    rng = np.random.default_rng(0)
+    rows = [" ".join(f"{x:.6f}" for x in rng.lognormal(0.0, 1.0, i))
+            for i in range(1, 20)]
+    f = rng.random(20) + 0.5
+    with open(PROT_DAT, "w") as fh:
+        fh.write("\n".join(rows + ["", " ".join(f"{x:.8f}" for x in
+                                                f / f.sum()), ""]))
+    active, merges = list(range(N_PROT)), []
+    for q in range(N_PROT - 1):
+        i, j = rng.choice(len(active), 2, replace=False)
+        merges.append((active[i], active[j]))
+        active = [x for x in active if x not in merges[-1]] + [N_PROT + q]
+    record = {"merges": np.asarray(merges),
+              "branches": rng.exponential(0.1, (N_PROT - 1, 2))}
+    ds = simulate_on_tree(record, EmpiricalProtein.from_paml(PROT_DAT),
+                          {"model": {}}, S_PROT, seed=0)
+    with open(PROT_FASTA, "w") as fh:
+        for n, g in enumerate(ds.genome):
+            fh.write(f">t{n}\n"
+                     + "".join(PROTEIN_ALPHABET[a] for a in g.argmax(-1))
+                     + "\n")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -381,64 +429,83 @@ def cap_trade(kern, gen, dev, inputs, label, fwd, bwd_saved, bwd):
 
 
 def wide_inputs(gen, dev, S, idx, Kd=K_CODON, Nd=N_CODON, A_=A_CODON,
-                ties=False):
-    """One rank's inputs on the codon path: Kd particles, Nd leaves, A_
-    states, dense (Kd, A_, A_) transitions, the child index `idx`.  ties:
-    every P column the same and pi uniform (JAX's
-    test_fused_rank_bwd_wide_handles_max_ties case), so all A_ planes
+                ties=False, G=1):
+    """One rank's inputs on a wide path: Kd particles, Nd leaves, G blocks
+    of A_ states, dense (Kd, A_, A_) transitions (G=1: the codon path) or
+    blocked (Kd, G, A_, A_) ones (protein+G4), the child index `idx`.
+    G=5 makes block 0 the identity (the +I rate-0 category).  ties: the
+    blocks of every message identical (as expanded leaves are), one P
+    column shared by every block and state and pi uniform (JAX's
+    test_fused_rank_bwd_wide_handles_max_ties case), so all G*A_ planes
     tie at every site's max."""
     f = dict(dtype=torch.float32, device=dev)
-    buf = torch.rand((Kd, Nd - 1, A_, S), generator=gen, **f) * 0.95 + 0.05
-    leaves = torch.rand((Nd, A_, S), generator=gen, **f) * 0.95 + 0.05
-    P_l = torch.rand((Kd, A_, A_), generator=gen, **f) * 0.95 + 0.05
-    P_r = torch.rand((Kd, A_, A_), generator=gen, **f) * 0.95 + 0.05
-    pi = torch.rand((A_,), generator=gen, **f) + 0.1
+    GA = G * A_
+    pshape = (Kd, A_, A_) if G == 1 else (Kd, G, A_, A_)
+    buf = torch.rand((Kd, Nd - 1, GA, S), generator=gen, **f) * 0.95 + 0.05
+    leaves = torch.rand((Nd, GA, S), generator=gen, **f) * 0.95 + 0.05
+    P_l = torch.rand(pshape, generator=gen, **f) * 0.95 + 0.05
+    P_r = torch.rand(pshape, generator=gen, **f) * 0.95 + 0.05
+    pi = torch.rand((GA,), generator=gen, **f) + 0.1
+    if G == 5:
+        P_l[:, 0] = torch.eye(A_, **f)
+        P_r[:, 0] = torch.eye(A_, **f)
     if ties:
-        col = torch.rand((Kd, A_, 1), generator=gen, **f) * 0.95 + 0.05
-        P_l = P_r = col.expand(Kd, A_, A_).contiguous()
-        pi = torch.ones((A_,), **f)
+        leaves = leaves[:, :A_].repeat(1, G, 1)
+        buf = buf[:, :, :A_].repeat(1, 1, G, 1)
+        col = torch.rand((Kd,) + (1,) * (len(pshape) - 3) + (A_, 1),
+                         generator=gen, **f) * 0.95 + 0.05
+        P_l = P_r = col.expand(pshape).contiguous()
+        pi = torch.ones((GA,), **f)
     pi = (pi / pi.sum()).contiguous()
     w = torch.ones((S,), **f)
     return leaves, buf, idx, P_l, P_r, pi, w
 
 
-def k9_bounds(kern, idx, A_, S, Nd, kind):
-    """(bound ms, by) of one K9 launch on these inputs.  kind: "fwd",
-    "fwd_save" (K9f), "bwd_saved" (K9bs), "bwd" (K9b).  Bytes: the child
-    slabs read once each (the distinct ones idx names, or the 2 Kd saved
-    copies for K9bs), the cotangent in and outputs out, transitions and
-    their cotangents, the partial rows.  FP32 operations per particle and
-    site: 4 A^2 + 4 A + 2 forward (u and v: 2 A^2 FMAs), 12 A^2 + 20 A + 4
-    backward (u, v, dm1, dm2, dP_l, dP_r)."""
+def k9_bounds(kern, idx, A_, S, Nd, kind, G=1):
+    """(bound ms, by) of one K9 launch on these inputs (G blocks of A_
+    states).  kind: "fwd", "fwd_save" (K9f), "bwd_saved" (K9bs), "bwd"
+    (K9b).  Bytes: the child slabs read once each (the distinct ones idx
+    names, or the 2 Kd saved copies for K9bs), the cotangent in and
+    outputs out, transitions and their cotangents, the partial rows.
+    FP32 operations per particle and site: 4 G A^2 + 4 G A + 2 forward (u
+    and v: 2 G A^2 FMAs), 12 G A^2 + 20 G A + 4 backward (u, v, dm1, dm2,
+    dP_l, dP_r)."""
     Kd = idx.shape[1]
-    slab = A_ * S * 4
+    GA = G * A_
+    slab = GA * S * 4
     n_leaf, n_int = k1_slabs_read(idx, Nd)
     child = (2 * Kd if kind == "bwd_saved" else n_leaf + n_int) * slab
-    small = 2 * Kd * A_ * A_ * 4 + S * 4 + A_ * 4
+    small = 2 * Kd * G * A_ * A_ * 4 + S * 4 + GA * 4
     if kind.startswith("fwd"):
         T = -(-S // kern.WIDE_TILE)
         nbytes = child + Kd * slab + small + 2 * Kd * T * 4 \
             + (2 * Kd * slab if kind == "fwd_save" else 0)
-        return bound(nbytes, Kd * S * (4 * A_ * A_ + 4 * A_ + 2))
+        return bound(nbytes, Kd * S * (4 * G * A_ * A_ + 4 * GA + 2))
     nbytes = child + 3 * Kd * slab + 2 * small + 2 * Kd * 4 \
-        + Kd * (A_ + S) * 4
-    return bound(nbytes, Kd * S * (12 * A_ * A_ + 20 * A_ + 4))
+        + Kd * (GA + S) * 4
+    return bound(nbytes, Kd * S * (12 * G * A_ * A_ + 20 * GA + 4))
 
 
-def check_k9(kern, gen, dev, idx, S, Nd=N_CODON, A_=A_CODON, timed=True):
+def check_k9(kern, gen, dev, idx, S, Nd=N_CODON, A_=A_CODON, timed=True,
+             G=1, line_save=True):
     """K9f (saving the children and not), K9bs and K9b against their plain
-    versions at the codon path's shapes (Kd = idx.shape[1] particles, Nd
-    leaves, A_ states; untimed for a side check at other shapes), the
-    all-planes-tied case included; timed beside the plain versions and,
-    as a yardstick for a later design, the two torch.bmm contractions
-    u = P_l^T m1, v = P_r^T m2 alone.  Returns the kernels line's
-    entries {name: dict} when timed."""
+    versions at a wide path's shapes (Kd = idx.shape[1] particles, Nd
+    leaves, G blocks of A_ states: dense for G=1, K9 blocked above;
+    untimed for a side check at other shapes), the all-planes-tied case
+    included; timed beside the plain versions and, as a
+    yardstick for a later design, the two contractions u = P_l^T m1,
+    v = P_r^T m2 alone as torch.bmm.  Returns the kernels line's entries
+    {name: dict} when timed (K9f's from the variant with save_children
+    == line_save, the one the main path runs)."""
     Kd = idx.shape[1]
+    GA = G * A_
+    sfx = "_blocked" if G > 1 else ""
     out = {}
     leaves, buf, idx, P_l, P_r, pi, w = wide_inputs(gen, dev, S, idx, Kd,
-                                                    Nd, A_)
+                                                    Nd, A_, G=G)
     outc = buf.shape[1] - 1
-    tag = f"K={Kd} A={A_} S={S}"
+    tag = f"K={Kd} G={G} A={A_} S={S}" if G > 1 else f"K={Kd} A={A_} S={S}"
+    fname = "K9f" + (" blocked" if G > 1 else "")
     for save in (True, False):
         b_k, b_p = buf.clone(), buf.clone()
         got = kern.fused_rank_update(leaves, b_k, idx, outc, P_l, P_r, pi, w,
@@ -453,10 +520,11 @@ def check_k9(kern, gen, dev, idx, S, Nd=N_CODON, A_=A_CODON, timed=True):
             errs["children"] = max(max_abs(got[2], want[2]),
                                    max_abs(got[3], want[3]))
         tol = {"buf": 1e-5, "rootll": 1e-5, "logscale": 1e-5, "children": 0.0}
-        log(f"  K9f fused_rank_update_wide {tag} save={save}: " + ", ".join(
-            f"{k} err {v:.3e} (tol {tol[k]:g})" for k, v in errs.items()))
+        log(f"  {fname} fused_rank_update_wide{sfx} {tag} save={save}: "
+            + ", ".join(f"{k} err {v:.3e} (tol {tol[k]:g})"
+                        for k, v in errs.items()))
         for k, v in errs.items():
-            require(v <= tol[k], f"K9f {k} error {v} > {tol[k]}")
+            require(v <= tol[k], f"{fname} {k} error {v} > {tol[k]}")
         if not timed:
             continue
         ms = time_ms(lambda: kern.fused_rank_update(
@@ -465,44 +533,48 @@ def check_k9(kern, gen, dev, idx, S, Nd=N_CODON, A_=A_CODON, timed=True):
             leaves, b_p, idx, outc, P_l, P_r, pi, w, save_children=save),
             iters=3)
         b_ms, b_by = k9_bounds(kern, idx, A_, S, Nd,
-                               "fwd_save" if save else "fwd")
-        log(f"  K9f {tag} save={save}: kernel {ms:.4f} ms, plain "
+                               "fwd_save" if save else "fwd", G)
+        log(f"  {fname} {tag} save={save}: kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); library: null "
             "(no single PyTorch call gathers, merges, rescales and reduces)")
-        if save:
-            out["fused_rank_update_wide"] = dict(
+        if save == line_save:
+            out["fused_rank_update_wide" + sfx] = dict(
                 max_abs_err=max(errs.values()), ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
     m1, m2 = kern.gather_children(leaves, buf, idx)
     m1, m2 = m1.contiguous(), m2.contiguous()
     if timed:
-        Plt = P_l.transpose(1, 2).contiguous()
-        Prt = P_r.transpose(1, 2).contiguous()
-        mm = time_ms(lambda: (torch.bmm(Plt, m1), torch.bmm(Prt, m2)))
+        Plt = P_l.reshape(Kd * G, A_, A_).transpose(1, 2).contiguous()
+        Prt = P_r.reshape(Kd * G, A_, A_).transpose(1, 2).contiguous()
+        mb1 = m1.reshape(Kd * G, A_, S)
+        mb2 = m2.reshape(Kd * G, A_, S)
+        mm = time_ms(lambda: (torch.bmm(Plt, mb1), torch.bmm(Prt, mb2)))
         log(f"  K9 yardstick {tag}: the two contractions alone as torch.bmm "
             f"(full float32) {mm:.4f} ms")
-    for ties in (False, True):
-        if ties:
+    for tied in (False, True):
+        if tied:
             leaves, buf, idx, P_l, P_r, pi, w = wide_inputs(
-                gen, dev, S, idx, Kd, Nd, A_, ties=True)
+                gen, dev, S, idx, Kd, Nd, A_, ties=True, G=G)
             m1, m2 = kern.gather_children(leaves, buf, idx)
             m1, m2 = m1.contiguous(), m2.contiguous()
-        cts = (*bwd_cotangents(gen, dev, Kd, A_, S), P_l, P_r, pi, w)
+        cts = (*bwd_cotangents(gen, dev, Kd, GA, S), P_l, P_r, pi, w)
         for name, kind, fn, ref, args in (
-                ("fused_rank_bwd_saved_wide", "bwd_saved",
+                ("fused_rank_bwd_saved_wide" + sfx, "bwd_saved",
                  kern.fused_rank_bwd_saved, kern._fused_rank_bwd_saved_ref,
                  (m1, m2, *cts)),
-                ("fused_rank_bwd_wide", "bwd", kern.fused_rank_bwd,
+                ("fused_rank_bwd_wide" + sfx, "bwd", kern.fused_rank_bwd,
                  kern._fused_rank_bwd_ref, (leaves, buf, idx, *cts))):
-            label = ("K9bs " if kind == "bwd_saved" else "K9b ") + name
-            err = compare_bwd(f"{label} {tag}" + (" ties" if ties else ""),
+            label = ("K9bs" if kind == "bwd_saved" else "K9b") + (
+                " blocked" if G > 1 else "")
+            err = compare_bwd(f"{label} {name} {tag}"
+                              + (" ties" if tied else ""),
                               fn(*args), ref(*args))
-            if not timed or ties:
+            if not timed or tied:
                 continue
             ms = time_ms(lambda: fn(*args))
             plain = time_ms(lambda: ref(*args), iters=3)
-            b_ms, b_by = k9_bounds(kern, idx, A_, S, Nd, kind)
-            log(f"  {label.split()[0]} {tag}: kernel {ms:.4f} ms, plain "
+            b_ms, b_by = k9_bounds(kern, idx, A_, S, Nd, kind, G)
+            log(f"  {label} {tag}: kernel {ms:.4f} ms, plain "
                 f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); library: "
                 "null (no single PyTorch call computes this backward)")
             out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
@@ -864,7 +936,8 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
         dec = make_decisions(rng, ds.N, Kd, *rates)
         cfg = SweepConfig(K=Kd)
         label = (f"primate VCSMC K={Kd} S={genome.shape[1]}" if spec is None
-                 else f"{dataset} {spec} K={Kd} S={genome.shape[1]}")
+                 else f"{os.path.basename(dataset)} {spec} K={Kd} "
+                 f"S={genome.shape[1]}")
     out = {}
     for name, device, dtype in (("cuda f32", dev, torch.float32),
                                 ("cpu f64", "cpu", torch.float64)):
@@ -983,6 +1056,36 @@ PATHS = {
             S_CODON // S_BATCH + 1)),
                "fused_rank_bwd_saved_wide": (N_CODON - 1) * 2 * (
             S_CODON // S_BATCH)}),
+    # protein + Gamma4 (80 planes) on the simulated 16 x 500 alignment: an
+    # epoch is 1 SGD step of 256 sites (K=256: the children would take
+    # 629 MB, over SAVE_CHILDREN_CAP, so K9b blocked) + the 500-site eval
+    # sweep, 15 ranks each; transitions by expm_poisson (A = 20 > 8: no
+    # expm kernel).  The .dat+F+G4 path at K=64 saves its children (157
+    # MB): K9bs blocked, spectral transitions.  Bands from a CPU run of
+    # the port (K=32, b256, seed 0): -12823.1 at init, -12950.3 after 2
+    # epochs (protein_g4); -12342.8, -12411.7 (.dat+F+G4)
+    "protein_g4": dict(
+        dataset=PROT_FASTA, band=(-16000.0, -9000.0),
+        train=dict(n_particles=K_PROT, gamma_categories=4),
+        argv=["--gamma_categories=4", f"--n_particles={K_PROT}"],
+        kernels=("fused_rank_update_wide_blocked",
+                 "fused_rank_bwd_wide_blocked", "categorical"),
+        exact={"fused_rank_update_wide_blocked": (N_PROT - 1) * (1 + 2 * (
+            S_PROT // S_BATCH + 1)),
+               "fused_rank_bwd_wide_blocked": (N_PROT - 1) * 2 * (
+            S_PROT // S_BATCH)}),
+    "protein_dat_f_g4": dict(
+        dataset=PROT_FASTA, band=(-16000.0, -9000.0), profile=False,
+        train=dict(n_particles=K_PROT_SAVED, gamma_categories=4,
+                   paml_dat=PROT_DAT, plus_f=True),
+        argv=[f"--paml_dat={PROT_DAT}", "--plus_f=True",
+              "--gamma_categories=4", f"--n_particles={K_PROT_SAVED}"],
+        kernels=("fused_rank_update_wide_blocked",
+                 "fused_rank_bwd_saved_wide_blocked", "categorical"),
+        exact={"fused_rank_update_wide_blocked": (N_PROT - 1) * (1 + 2 * (
+            S_PROT // S_BATCH + 1)),
+               "fused_rank_bwd_saved_wide_blocked": (N_PROT - 1) * 2 * (
+            S_PROT // S_BATCH)}),
 }
 
 
@@ -1091,6 +1194,9 @@ def main(argv):
         "); "
         f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
+    protein_files()
+    log(f"phase 1 wrote the protein path's inputs from seed 0: {PROT_FASTA} "
+        f"({N_PROT} x {S_PROT}), {PROT_DAT}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     log("phase 2 kernels against their plain versions on the card:")
@@ -1142,6 +1248,26 @@ def main(argv):
     check_k9(kernels, gen, dev, small_idx(gen, dev, 8, 6, 5), 70, Nd=6,
              A_=100, timed=False)
     torch.cuda.empty_cache()
+    # K9 blocked on protein+G4 (G=4 x A=20): the real child index of the
+    # last rank of a protein sweep per shape; the kernels line carries the
+    # main paths' shapes: K9f and K9b at K=256, S=256 (the SGD step; no
+    # saved children over the cap), K9bs at K=64, S=256
+    k9_blk = {}
+    for Kd, S in ((K_PROT, S_BATCH), (K_PROT, S_PROT),
+                  (K_PROT_SAVED, S_BATCH)):
+        idx_p = last_rank_idx(gen, dev, S, PROT_FASTA, "reference+g4", Kd)
+        got = check_k9(kernels, gen, dev, idx_p, S, Nd=N_PROT, A_=A_PROT,
+                       G=G_GAMMA, line_save=False)
+        if S == S_BATCH:
+            keep = (("fused_rank_bwd_saved_wide_blocked",) if Kd ==
+                    K_PROT_SAVED else ("fused_rank_update_wide_blocked",
+                                       "fused_rank_bwd_wide_blocked"))
+            k9_blk.update({k: got[k] for k in keep})
+        if Kd == K_PROT and S == S_BATCH:
+            # +I: block 0 the identity (its planes are the children's own)
+            check_k9(kernels, gen, dev, idx_p, S, Nd=N_PROT, A_=A_PROT,
+                     G=G_GAMMA + 1, timed=False)
+    torch.cuda.empty_cache()
 
     log(f"phase 2 done at {time.time() - t0:.1f} s")
     # primate VCSMC: at the main path's site batch, under the cap (K2), and
@@ -1161,6 +1287,12 @@ def main(argv):
                          route="fused_rank_bwd_saved_wide")
     fixed_decision_check(dev, spec="gy94", dataset="betacorona1", codons=True,
                          Kd=K_CODON, route="fused_rank_bwd_wide")
+    # protein+G4: under the cap (K9bs blocked), over it (K9b blocked)
+    fixed_decision_check(dev, spec="reference+g4", dataset=PROT_FASTA,
+                         Kd=K_PROT_SAVED, S=S_BATCH,
+                         route="fused_rank_bwd_saved_wide_blocked")
+    fixed_decision_check(dev, spec="reference+g4", dataset=PROT_FASTA,
+                         Kd=K_PROT, route="fused_rank_bwd_wide_blocked")
     torch.cuda.empty_cache()
     log(f"phase 3 done at {time.time() - t0:.1f} s")
     by_path = {name: main_path(_ext, name) for name in PATHS}
@@ -1168,7 +1300,8 @@ def main(argv):
                 for k in set().union(*by_path.values())}
     log(f"phase 4 done at {time.time() - t0:.1f} s")
     for name in PATHS:
-        profile_epoch(name)
+        if PATHS[name].get("profile", True):
+            profile_epoch(name)
     log(f"phase 5 done at {time.time() - t0:.1f} s")
 
     rows = [
@@ -1202,7 +1335,11 @@ def main(argv):
          k9["fused_rank_bwd_saved_wide"]),
         ("fused_rank_bwd_wide", "phylo_tpu_torch/csrc/wide_kernels.cu",
          "phylo_tpu/pruning/kernels.py:1949", k9["fused_rank_bwd_wide"]),
-    ]
+    ] + [(name, "phylo_tpu_torch/csrc/wide_kernels.cu",
+          f"phylo_tpu/pruning/kernels.py:{site}", k9_blk[name])
+         for name, site in (("fused_rank_update_wide_blocked", 1646),
+                            ("fused_rank_bwd_saved_wide_blocked", 2071),
+                            ("fused_rank_bwd_wide_blocked", 1949))]
     table = [dict(name=name, route="cuda", source=src, replaces=rep,
                   launches=int(launches.get(name, 0)), **m)
              for name, src, rep, m in rows]

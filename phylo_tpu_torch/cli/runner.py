@@ -13,6 +13,10 @@ Usage (on a GPU):
         --model=gtr+g4 --n_particles=2048 --batch_size=256
     python -m phylo_tpu_torch.cli.runner --dataset=betacorona1 \
         --codons=True --n_particles=128 --batch_size=256
+    python -m phylo_tpu_torch.cli.runner --dataset=<protein FASTA> \
+        --gamma_categories=4 --n_particles=256 --batch_size=256
+    python -m phylo_tpu_torch.cli.runner --dataset=<protein FASTA> \
+        --paml_dat=lg.dat --plus_f=True --gamma_categories=4
 """
 
 from __future__ import annotations
@@ -44,14 +48,18 @@ def parse_args(argv=None):
     p.add_argument("--jcmodel", type=_boolish, default=False)
     p.add_argument("--model", default=None,
                    help="substitution model spec: jc69|reference|gtr|hky|"
-                   "gy94, optionally +gN, +i or +rN (e.g. gtr+g4+i), "
-                   "+f for gy94")
+                   "gy94|<paml.dat>, optionally +gN, +i or +rN (e.g. "
+                   "gtr+g4+i), +f for gy94 and .dat bases (lg.dat+f+g4)")
     p.add_argument("--codons", type=_boolish, default=False,
                    help="convert the DNA alignment to the 61 sense codons "
                    "(model defaults to gy94)")
     p.add_argument("--gamma_categories", type=int, default=0)
-    p.add_argument("--paml_dat", default=None)
-    p.add_argument("--plus_f", type=_boolish, default=False)
+    p.add_argument("--paml_dat", default=None,
+                   help="empirical amino-acid model from a PAML .dat file "
+                   "(LG/WAG/JTT...); overrides --model")
+    p.add_argument("--plus_f", type=_boolish, default=False,
+                   help="+F: learn the stationary frequencies (initialized "
+                   "at the --paml_dat file's values)")
     p.add_argument("--invariant_sites", type=_boolish, default=False)
     p.add_argument("--free_rates", type=_boolish, default=False)
     p.add_argument("--memory_optimization", default="on",
@@ -86,8 +94,6 @@ def _check_flags(args):
             f"{flag} is not ported to phylo_tpu_torch yet "
             f"(ROADMAP.md {item})")
 
-    if args.paml_dat or args.plus_f:
-        no("--paml_dat/--plus_f", "Queue 1 item 11b, protein half")
     if args.mesh:
         no("--mesh", "Queue 1 item 16")
     if args.coordinator or args.num_processes or args.process_id \
@@ -129,6 +135,8 @@ def run(argv=None):
         branch_prior=args.branch_prior,
         jcmodel=args.jcmodel,
         substitution_model=args.model,
+        paml_dat=args.paml_dat,
+        plus_f=args.plus_f,
         gamma_categories=args.gamma_categories,
         invariant_sites=args.invariant_sites,
         free_rates=args.free_rates,

@@ -21,3 +21,4 @@ from phylo_tpu_torch.dataio.datasets import (  # noqa: F401
     load_dataset,
     simulate_dna,
 )
+from phylo_tpu_torch.dataio.simulate import simulate_on_tree  # noqa: F401

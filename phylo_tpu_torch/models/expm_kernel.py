@@ -110,7 +110,8 @@ def _check_cuda(R, b, A):
     if A > MAX_A or A < 1:
         raise NotImplementedError(
             f"the CUDA expm kernel takes A <= {MAX_A} states, got {A} "
-            "(wide alphabets: ROADMAP.md Queue 1 item 11b)")
+            "(models.expm.expm_ctmc sends wider generators to "
+            "expm_poisson)")
     _ext.require(R, "expm R", torch.float32)
     _ext.require(b, "expm b", torch.float32, ndim=1)
 

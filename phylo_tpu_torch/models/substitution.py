@@ -1,7 +1,8 @@
 """Substitution models (port of phylo_tpu/models/substitution.py: JC69,
 ReferenceQ, FixedQ, GTR, HKY, the across-site rate mixtures GammaSites
 (+G, +I) and FreeRates (+R), and the spec parser, which also resolves
-the codon model GY94 of models/codon.py).
+the codon model GY94 of models/codon.py and the empirical protein models
+of models/empirical.py from PAML .dat files).
 
 Models are stateless objects over parameter dicts of tensors (nested for
 the mixtures: {"base": {...}, "log_alpha": ...}).  Transition matrices
@@ -351,16 +352,13 @@ class FreeRates(_SiteMixture):
         return raw / torch.sum(self.weights(params) * raw)
 
 
-def _not_ported(spec):
-    return NotImplementedError(
-        f"substitution model {spec!r} is not ported yet (ROADMAP.md Queue 1 "
-        "item 11b, protein half: PAML .dat empirical protein models)")
-
-
 def _get_base_model(name, A):
     lowered = name.lower()
     if lowered.endswith(".dat"):
-        raise _not_ported(name)
+        # a PAML empirical amino-acid file; the path keeps its case
+        from phylo_tpu_torch.models.empirical import EmpiricalProtein
+
+        return EmpiricalProtein.from_paml(name)
     if lowered in ("gy94", "codon"):
         # uniform-frequency GY94; the trainer swaps in the alignment's
         # empirical F61 frequencies
@@ -380,12 +378,12 @@ def _get_base_model(name, A):
 
 def get_model(name, A=4):
     """Resolve a substitution-model spec: a base name (jc69, reference,
-    gtr, hky, gy94/codon) optionally followed by '+'-separated modifiers
-    -- ``+gN`` discrete Gamma with N categories (``+g`` = ``+g4``),
-    ``+i`` invariant sites, ``+rN`` FreeRates, ``+f`` learnable
-    stationary frequencies (gy94 bases only here) -- as in PhyML/RAxML/
-    IQ-TREE model strings (``gtr+g4+i``, ``jc69+r3``, ``gy94+f``).  PAML
-    ``.dat`` bases raise NotImplementedError."""
+    gtr, hky, gy94/codon, or a PAML ``.dat`` path: an empirical protein
+    model) optionally followed by '+'-separated modifiers -- ``+gN``
+    discrete Gamma with N categories (``+g`` = ``+g4``), ``+i``
+    invariant sites, ``+rN`` FreeRates, ``+f`` learnable stationary
+    frequencies (.dat and gy94 bases) -- as in PhyML/RAxML/IQ-TREE model
+    strings (``gtr+g4+i``, ``jc69+r3``, ``gy94+f``, ``lg.dat+f+g4``)."""
     parts = str(name).split("+")
     base = _get_base_model(parts[0], A)
     gamma = None
@@ -399,11 +397,16 @@ def get_model(name, A=4):
             invariant = True
         elif m == "f":
             from phylo_tpu_torch.models.codon import GY94
+            from phylo_tpu_torch.models.empirical import EmpiricalProtein
 
             if isinstance(base, GY94):
                 base = GY94(base._freqs, plus_f=True,
                             normalize=base.normalize,
                             spectral=base.spectral)
+            elif isinstance(base, EmpiricalProtein):
+                base = EmpiricalProtein(
+                    base._exch, base._freqs, name=base.name, plus_f=True,
+                    normalize=base.normalize, spectral=base.spectral)
             else:
                 raise ValueError(
                     f"'+f' requires a PAML .dat or gy94 base model "

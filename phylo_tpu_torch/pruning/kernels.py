@@ -27,12 +27,14 @@ K2, while 2 R K GA S itemsize <= SAVE_CHILDREN_CAP (JAX's value and
 rule), and K3 above it.
 
 CUDA tensors launch csrc/rank_kernels.cu, or csrc/wide_kernels.cu for
-dense messages of 8 < A <= 128 states (K9, the wide bodies: JAX's
-`wide_rank_kernel` rule, G A^2 > 64, for G = 1; codon GY94 has A = 61);
-CPU tensors run the plain versions `_fused_rank_ref` /
-`_fused_rank_bwd_saved_ref` / `_fused_rank_bwd_ref` below, at any A.  A
-blocked model takes A <= 8 states per block and G <= 32 blocks on the
-card (K9's blocked wide form is not ported).  K1, K2, K3 and K9 have no
+messages of 8 < A states per block and G*A <= 128 planes (K9, the wide
+bodies: JAX's `wide_rank_kernel` rule, G A^2 > 64; dense, G = 1, for
+codon GY94's A = 61, blocked, "K9 blocked", for a rate mixture over a
+wide base such as protein + Gamma4, G = 4 x A = 20); CPU tensors run
+the plain versions `_fused_rank_ref` / `_fused_rank_bwd_saved_ref` /
+`_fused_rank_bwd_ref` below, at any A.  A blocked model with A <= 8
+states per block runs on K10 (G <= 32 blocks); above 128 planes (GY94 +
+Gamma4: 244) the card has no rank kernel.  K1, K2, K3 and K9 have no
 autograd rule: only the manual whole-sweep VJP (smc.sweep_vjp) and the
 no-grad sweep call them.  K7 and K8 live in csrc/twist_kernels.cu, take
 A <= 8 and carry torch.autograd.Functions (`fused_merge_loglik`,
@@ -48,7 +50,7 @@ from phylo_tpu_torch.models.expm import exact_matmul
 
 MAX_A = 8                       # states per block of K1-K3, K7, K8, K10
 MAX_G = 32                      # rate-category blocks on the card
-MAX_WIDE_A = 128                # dense states of the wide kernels K9
+MAX_WIDE_PLANES = 128           # G*A planes of the wide kernels K9
 WIDE_TILE = 32                  # K9f: sites per CUDA block (partial rows)
 BWD_PARTICLES_PER_BLOCK = 8     # K2/K3: particles per CUDA block (dpi/dw
                                 # partials come back one row per block)
@@ -151,21 +153,32 @@ def _blocks(P_l, GA):
     return G, A
 
 
-def wide_rank(P_l, GA):
-    """True when a rank on the card takes the wide kernels K9: dense
-    transitions with A^2 > 64 (JAX's `wide_rank_kernel` rule at G = 1).
-    Raises where the card has no kernel (blocked A > 8, dense A > 128)."""
-    G, A = _blocks(P_l, GA)
-    if P_l.ndim == 4:
-        _check_a(A, G, blocked=True)
+def wide_planes(G, A, blocked):
+    """True when a rank of G blocks of A states takes the wide kernels K9
+    on the card: A > 8, dense (G = 1) or blocked (K9 blocked), in at most
+    128 planes.  JAX's `wide_rank_kernel` rule (G A^2 > 64) agrees for
+    dense transitions and for blocked ones with A > 8; a blocked model
+    with A <= 8 runs on K10 (JAX's wide bodies take those with G A^2 >
+    64, such as GTR+G4+I).
+    Raises where the card has no kernel."""
+    if A <= MAX_A:
+        if blocked:
+            _check_a(A, G)
         return False
-    if A * A <= 64:
-        return False
-    if A > MAX_WIDE_A:
+    if G * A > MAX_WIDE_PLANES:
         raise NotImplementedError(
-            f"the wide CUDA rank kernels take A <= {MAX_WIDE_A} states, "
-            f"got {A}")
+            f"the wide CUDA rank kernels (K9, K9 blocked) take G*A <= "
+            f"{MAX_WIDE_PLANES} planes (dense: A <= {MAX_WIDE_PLANES} "
+            f"states), got G={G} x A={A} (ROADMAP.md Queue 2: rate "
+            "mixtures over more than 128 planes, e.g. GY94 + Gamma4)")
     return True
+
+
+def wide_rank(P_l, GA):
+    """`wide_planes` for transitions P_l (K, A, A) or (K, G, A, A) of a
+    rank with GA message planes."""
+    G, A = _blocks(P_l, GA)
+    return wide_planes(G, A, P_l.ndim == 4)
 
 
 def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
@@ -178,7 +191,8 @@ def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
     rank, never among the children read); P_l, P_r (K, A, A), or
     (K, G, A, A) blocked (K10); pi (GA,); weights (S,).  Returns (rootll
     (K,), logscale (K,)) and, with save_children, the gathered children
-    (K, GA, S) twice."""
+    (K, GA, S) twice.  On the card: K1, K10 (blocked, A <= 8), K9f (A > 8)
+    or K9f blocked (A > 8, G > 1)."""
     if not buf.is_cuda:
         return _fused_rank_ref(leaves, buf, idx, outc, P_l, P_r, pi,
                                weights, save_children)
@@ -214,10 +228,10 @@ def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
             weights.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(), p1,
             p2)
     if wide:
-        fn = _ext.bind("wide_kernels", "launch_wide_rank", 11, 6)
-        name = "fused_rank_update_wide"
+        fn = _ext.bind("wide_kernels", "launch_wide_rank", 11, 7)
+        name = "fused_rank_update_wide" + ("_blocked" if blocked else "")
         _ext.LAUNCHES[name] += 1
-        code = fn(*ptrs, K, R, N, A, S, outc, _ext.stream_ptr(dev))
+        code = fn(*ptrs, K, R, N, G, A, S, outc, _ext.stream_ptr(dev))
     elif blocked:
         fn = _ext.bind("rank_kernels", "launch_fused_rank_blocked", 11, 7)
         name = "fused_rank_update_blocked"
@@ -301,13 +315,14 @@ def _bwd_outputs(K, GA, S, P_shape, dev):
             torch.empty((nb, GA), **f), torch.empty((nb, S), **f))
 
 
-def _wide_bwd_outputs(K, A, S, dev):
-    """K9bs / K9b: one CUDA block per particle, so dpi / dw come back as
-    (K, A) / (K, S) partial rows."""
+def _wide_bwd_outputs(K, GA, S, P_shape, dev):
+    """K9bs / K9b: dP shaped as the transitions ((K, A, A), or (K, G, A,
+    A) blocked); one CUDA block per particle, so dpi / dw come back as
+    (K, GA) / (K, S) partial rows."""
     f = dict(dtype=torch.float32, device=dev)
-    return (torch.empty((K, A, S), **f), torch.empty((K, A, S), **f),
-            torch.empty((K, A, A), **f), torch.empty((K, A, A), **f),
-            torch.empty((K, A), **f), torch.empty((K, S), **f))
+    return (torch.empty((K, GA, S), **f), torch.empty((K, GA, S), **f),
+            torch.empty(P_shape, **f), torch.empty(P_shape, **f),
+            torch.empty((K, GA), **f), torch.empty((K, S), **f))
 
 
 def _check_bwd_args(gm, gr, gl, P_l, P_r, pi, weights, K, GA, S):
@@ -341,16 +356,17 @@ def fused_rank_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights):
     _ext.require(m2, "m2", torch.float32, shape=(K, GA, S))
     dev = m1.device
     tkb = BWD_PARTICLES_PER_BLOCK
-    outs = (_wide_bwd_outputs(K, A, S, dev) if wide
-            else _bwd_outputs(K, GA, S, P_l.shape, dev))
+    outs = (_wide_bwd_outputs if wide else _bwd_outputs)(K, GA, S,
+                                                         P_l.shape, dev)
     ins = [t.data_ptr() for t in (m1, m2, gm, gr, gl, P_l, P_r, pi,
                                   weights)]
     out_p = [t.data_ptr() for t in outs]
     if wide:
-        fn = _ext.bind("wide_kernels", "launch_wide_rank_bwd_saved", 15, 3)
-        name = "fused_rank_bwd_saved_wide"
+        fn = _ext.bind("wide_kernels", "launch_wide_rank_bwd_saved", 15, 4)
+        name = "fused_rank_bwd_saved_wide" + (
+            "_blocked" if P_l.ndim == 4 else "")
         _ext.LAUNCHES[name] += 1
-        code = fn(*ins, *out_p, K, A, S, _ext.stream_ptr(dev))
+        code = fn(*ins, *out_p, K, G, A, S, _ext.stream_ptr(dev))
     elif P_l.ndim == 4:
         scratch = torch.empty((outs[4].shape[0], 5, S), dtype=torch.float32,
                               device=dev)
@@ -386,16 +402,16 @@ def fused_rank_bwd(leaves, buf, idx, gm, gr, gl, P_l, P_r, pi, weights):
     _ext.require(idx, "idx", torch.int32, shape=(4, K))
     dev = buf.device
     tkb = BWD_PARTICLES_PER_BLOCK
-    outs = (_wide_bwd_outputs(K, A, S, dev) if wide
-            else _bwd_outputs(K, GA, S, P_l.shape, dev))
+    outs = (_wide_bwd_outputs if wide else _bwd_outputs)(K, GA, S,
+                                                         P_l.shape, dev)
     ins = [t.data_ptr() for t in (leaves, buf, idx, gm, gr, gl, P_l, P_r,
                                   pi, weights)]
     out_p = [t.data_ptr() for t in outs]
     if wide:
-        fn = _ext.bind("wide_kernels", "launch_wide_rank_bwd", 16, 5)
-        name = "fused_rank_bwd_wide"
+        fn = _ext.bind("wide_kernels", "launch_wide_rank_bwd", 16, 6)
+        name = "fused_rank_bwd_wide" + ("_blocked" if P_l.ndim == 4 else "")
         _ext.LAUNCHES[name] += 1
-        code = fn(*ins, *out_p, K, R, N, A, S, _ext.stream_ptr(dev))
+        code = fn(*ins, *out_p, K, R, N, G, A, S, _ext.stream_ptr(dev))
     elif P_l.ndim == 4:
         scratch = torch.empty((outs[4].shape[0], 5, S), dtype=torch.float32,
                               device=dev)
@@ -567,17 +583,14 @@ def pair_loglik(m1, m2, P_l, P_r, pi, weights):
     return _PairLoglik.apply(m1, m2, P_l, P_r, pi, weights)
 
 
-def _check_a(A, G=1, blocked=False):
-    """The card's limits of the narrow kernels: A <= 8 states per block,
-    G <= 32 blocks (`blocked`: a rate mixture's K10)."""
+def _check_a(A, G=1):
+    """The card's limits of the narrow kernels: A <= 8 states (K7, K8;
+    K10's blocks, which `wide_planes` sends to K9 blocked above it),
+    G <= 32 blocks (K10)."""
     if not 1 <= A <= MAX_A:
-        what, item = (("blocked rank kernels", "K9 blocked, ROADMAP.md "
-                       "Queue 2") if blocked else
-                      ("merge and twist kernels K7/K8", "K7/K8 wide, "
-                       "ROADMAP.md Queue 3"))
         raise NotImplementedError(
-            f"the CUDA {what} take A <= {MAX_A} states per block, got {A} "
-            f"({item})")
+            f"the CUDA merge and twist kernels K7/K8 take A <= {MAX_A} "
+            f"states, got {A} (K7/K8 wide, ROADMAP.md Queue 3)")
     if not 1 <= G <= MAX_G:
         raise NotImplementedError(
             f"the CUDA rank kernels take at most {MAX_G} rate-category "

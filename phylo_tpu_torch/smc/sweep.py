@@ -19,7 +19,8 @@ Messages are states-major (A, S) and per-site rescaled.  The rank loop is
 a Python loop (n_active is static per rank; nothing syncs with the
 host).  With ``fused_rank`` each non-twist rank is one call of kernel K1
 (pruning.kernels.fused_rank_update, in place; K10, its blocked form, for
-a rate mixture; K9, the wide form, for dense A > 8 such as codons).
+a rate mixture; K9, the wide form, for A > 8 such as codons, blocked for
+a rate mixture over a wide base such as protein + Gamma4).
 Otherwise, and always under twist (as in the JAX package, where K1 is
 off under twist), the children are gathered explicitly and merged by K8
 (pruning.kernels.fused_merge_loglik), which autograd differentiates
@@ -86,7 +87,8 @@ class SweepConfig:
 
     A rate-mixture model (one with `blocks`, e.g. GammaSites) merges with
     per-category (G, A, A) transitions instead of the dense (GA, GA)
-    block-diagonal ones (K10 on the card), except under twist, which
+    block-diagonal ones (K10 on the card; K9 blocked for more than 8
+    states per category), except under twist, which
     enumerates with dense transitions.
     """
 
@@ -163,11 +165,10 @@ def _check_supported(config, leaves, model):
             f"twist with A = {A} > {_kernels.MAX_A} states is not ported to "
             "the card: K7/K8 take A <= 8 (K7/K8 wide, ROADMAP.md Queue 3)")
     blocks = getattr(model, "blocks", None)
-    if leaves.is_cuda and blocks is not None and blocks[1] > _kernels.MAX_A:
-        raise NotImplementedError(
-            f"a rate mixture over A = {blocks[1]} > {_kernels.MAX_A} states "
-            "per category has no CUDA rank kernel (K9 blocked, ROADMAP.md "
-            "Queue 2)")
+    if leaves.is_cuda and blocks is not None:
+        # K10 for A <= 8 per category, K9 blocked up to 128 planes; raises
+        # above (GY94 + Gamma4)
+        _kernels.wide_planes(*blocks, blocked=True)
 
 
 def sample_phylogenies(generator, leaves, model, params, config, *,

@@ -39,9 +39,8 @@ INITIAL_EVAL_STEP = 2 ** 31 - 1
 class TrainConfig:
     """Training configuration; field names mirror the JAX package's
     TrainConfig (reference runner.py:12-58).  Options of later slices
-    (PAML empirical models, mesh, checkpoints) are not fields yet: the
-    runner rejects their flags.  A gy94 model takes the dataset's F61
-    codon frequencies."""
+    (mesh, checkpoints) are not fields yet: the runner rejects their
+    flags.  A gy94 model takes the dataset's F61 codon frequencies."""
 
     n_particles: int = 128
     batch_size: int = 256            # sites per SGD step
@@ -53,6 +52,11 @@ class TrainConfig:
     branch_prior: float = float(np.log(10.0))
     jcmodel: bool = False
     substitution_model: Optional[str] = None
+    # empirical amino-acid model from a PAML .dat file (LG/WAG/JTT...):
+    # overrides substitution_model; plus_f makes the stationary
+    # frequencies learnable (+F), initialized at the file's values
+    paml_dat: Optional[str] = None
+    plus_f: bool = False
     # across-site rate mixtures (the spec's +g/+i/+r as flags):
     # discrete Gamma with this many categories (0/1 = off), a learnable
     # proportion of invariant sites, or FreeRates with gamma_categories
@@ -127,10 +131,20 @@ def init_params(dataset, config, device=None):
     tensors that require grad."""
     dev = resolve_device(config.device if device is None else device)
     dtype = resolve_dtype(config.dtype, dev)
-    name = config.substitution_model or (
-        "jc69" if config.jcmodel else "reference")
-    model = _resolve_codon_frequencies(get_model(name, A=dataset.A),
-                                       dataset)
+    if config.paml_dat:
+        from phylo_tpu_torch.models.empirical import EmpiricalProtein
+
+        model = EmpiricalProtein.from_paml(config.paml_dat,
+                                           plus_f=config.plus_f)
+        if model.A != dataset.A:
+            raise ValueError(
+                f"empirical protein model has A={model.A} states but the "
+                f"dataset has A={dataset.A}")
+    else:
+        name = config.substitution_model or (
+            "jc69" if config.jcmodel else "reference")
+        model = _resolve_codon_frequencies(get_model(name, A=dataset.A),
+                                           dataset)
     model = _rate_mixture(model, config)
     params = {
         "model": model.init_params(dtype, dev),

@@ -119,7 +119,7 @@ def test_spec_parser_resolves_gy94_and_plus_f():
     assert isinstance(g.base, tcodon.GY94) and g.blocks == (4, 61)
     with pytest.raises(ValueError, match=r"'\+f' requires"):
         get_model("gtr+f")
-    with pytest.raises(NotImplementedError, match="protein half"):
+    with pytest.raises(FileNotFoundError, match="PAML .dat file not found"):
         get_model("lg.dat+f")
 
 

@@ -130,7 +130,7 @@ def test_spec_parser(spec, kind):
 
 
 @pytest.mark.parametrize("spec,err", [
-    ("lg.dat", NotImplementedError), ("lg.dat+f", NotImplementedError),
+    ("lg.dat", FileNotFoundError), ("lg.dat+f", FileNotFoundError),
     ("gtr+f", ValueError), ("jc69+g4+f", ValueError),
     ("gtr+g4+r3", ValueError), ("gtr+x", ValueError), ("k80", KeyError),
 ])

@@ -90,13 +90,23 @@ def test_train_is_reproducible_on_cpu():
     assert a.history["elbo"] == b.history["elbo"]
 
 
-@pytest.mark.parametrize("flag", [
-    "--plus_f=true", "--paml_dat=lg.dat", "--model=lg.dat",
-    "--mesh=4", "--num_processes=2", "--checkpoint_every=1",
-    "--resume_from=ckpt", "--dtype=bfloat16", "--model=lg.dat+f",
+@pytest.mark.parametrize("flag,err,match", [
+    ("--model=gtr+f", ValueError, "requires a PAML .dat or gy94"),
+    ("--paml_dat=lg.dat", FileNotFoundError, "PAML .dat file not found"),
+    ("--model=lg.dat", FileNotFoundError, "PAML .dat file not found"),
+    ("--mesh=4", NotImplementedError, "ROADMAP.md"),
+    ("--num_processes=2", NotImplementedError, "ROADMAP.md"),
+    ("--checkpoint_every=1", NotImplementedError, "ROADMAP.md"),
+    ("--resume_from=ckpt", NotImplementedError, "ROADMAP.md"),
+    ("--dtype=bfloat16", NotImplementedError, "ROADMAP.md"),
+    ("--model=lg.dat+f", FileNotFoundError, "PAML .dat file not found"),
 ])
-def test_flags_outside_the_slice_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_flags_outside_the_slice_raise(flag, err, match):
+    """Flags of later slices raise NotImplementedError naming the
+    ROADMAP; the PAML flags and specs of the protein slice raise JAX's
+    errors on a missing .dat file and on '+f' over a base without
+    frequencies to learn."""
+    with pytest.raises(err, match=match):
         runner.main(["--dataset=load_strings", "--n_particles=4",
                      "--num_epoch=1", "--no_artifacts", "--device=cpu",
                      flag])
