@@ -16,7 +16,11 @@ script exits non-zero without printing a result:
    S=256 and 1086, and A=100, A=20 at a small shape, the all-planes-tied
    case included; protein+G4: K9 blocked at K=256, G=4 blocks of A=20,
    S=256 and 500, K9bs blocked at K=64, and G=5 (+I) and all planes
-   tied), with the tolerances printed, and
+   tied; VNCSMC's pair log-likelihoods at rank 0: K11b at primate
+   (A=4, KC=2,112) and DS1 GTR+G4 (16 dense states, KC=11,232) in an
+   A/B against the plain forward, K7 wide and K11c at DS1 KC=896 and
+   timed at KC=11,232, A=20 and 61 small; K11a at A=4 and 16), with the
+   tolerances printed, and
    timed beside the plain version, the least time the card could take
    (bound) and, where one exists, a single PyTorch library call; and the
    saved-children route (K10 saving + K10's backward) against the
@@ -33,14 +37,19 @@ script exits non-zero without printing a result:
    1086 codons over it: K9b), after a probe of GY94's transitions from a
    float32 eigh (why expm_reversible works in float64), and protein+G4
    on the simulated 16 x 500 protein alignment (K=64, S=256: K9bs
-   blocked; K=256, all 500 sites: K9b blocked);
+   blocked; K=256, all 500 sites: K9b blocked), and VNCSMC K=32, M=10
+   (primate with the defaults: K11b, K7, K11a; with the plain forward;
+   with the T-field backward K11c; GTR+G4 on DS1's first 10 taxa at
+   S=256: K11b, K7 wide, K11a at 16 dense states);
 4. the main paths: two epochs each of VCSMC training on primate (N=12,
    S=898) at K=2048, of VNCSMC (twisted) training at K=32, M=10, of
    GTR+G4 VCSMC training on DS1 (N=27, S=1949) at K=2048, of GY94
    codon VCSMC training on betacorona1 (N=17, 1086 codons, A=61) at
    K=128, of protein+G4 training (ReferenceQ(A=20) under GammaSites G=4)
    at K=256 and of an empirical .dat+F+G4 protein model at K=64 on a
-   16 x 500 protein alignment that the script simulates from seed 0,
+   16 x 500 protein alignment that the script simulates from seed 0, of
+   VNCSMC GTR+G4 on DS1 at K=32, M=10 (K11b, K7 wide, K11a), and of
+   primate VNCSMC again with the T-field backward K11c,
    site batch 256, through phylo_tpu_torch.cli.runner, with every
    kernel's launch counter set to 0 before each path and read after;
 5. where the time of one epoch of each path goes, under torch.profiler.
@@ -822,6 +831,193 @@ def check_k7(kern, gen, dev):
                 library_ms=None)
 
 
+def twist_inputs(gen, dev, dataset, spec, C, S, A_=None, Kt=K_TWIST):
+    """The twist's pair-loglik inputs at rank 0 of `dataset` under model
+    `spec` (ReferenceQ for None): the first C prefix-ordered candidate
+    pairs (leaves, shared by the Kt particles) over the first S sites,
+    and the transitions of pool branch lengths b = eps / 10 (the initial
+    rates) at the model's initial parameters, M_TWIST subsamples; KC =
+    Kt * C rows in the sweep's K-major order.  With A_, random inputs of
+    A_ states instead (a small shape)."""
+    from phylo_tpu_torch.smc import twist as tw
+    from phylo_tpu_torch.train.trainer import TrainConfig, init_params
+
+    f = dict(dtype=torch.float32, device=dev)
+    KC = Kt * C
+    if A_ is not None:
+        m_l, m_r = (torch.rand((KC, A_, S), generator=gen, **f) * 0.95 + 0.05
+                    for _ in range(2))
+        P_l, P_r = (torch.rand((M_TWIST, KC, A_, A_), generator=gen, **f)
+                    * 0.95 + 0.05 for _ in range(2))
+        pi = torch.rand((A_,), generator=gen, **f) + 0.1
+        return m_l, m_r, P_l, P_r, (pi / pi.sum()).contiguous(), \
+            torch.ones((S,), **f)
+    ds = load(dataset)
+    model, params = init_params(ds, TrainConfig(
+        n_particles=Kt, device=dev, substitution_model=spec))
+    genome = ds.genome[:, :S]
+    if hasattr(model, "expand_leaves"):
+        genome = model.expand_leaves(genome)
+    leaves = torch.tensor(genome, **f).transpose(1, 2).contiguous()
+    pairs = tw._tables(ds.N, dev)[0][:C]
+    As = leaves.shape[1]
+    m_l, m_r = (leaves[pairs[:, j]][None].expand(Kt, C, As, S)
+                .reshape(KC, As, S).contiguous() for j in range(2))
+    eps = torch.empty((2 * C, M_TWIST, Kt), **f).exponential_(generator=gen)
+    with torch.no_grad():
+        P = model.transition(params["model"], eps / 10.0).float()
+        pi = model.stationary(params["model"], **f).float()
+    P_l, P_r = (x.permute(1, 2, 0, 3, 4).reshape(M_TWIST, KC, As, As)
+                .contiguous() for x in (P[:C], P[C:]))
+    return m_l, m_r, P_l, P_r, pi.contiguous(), torch.ones((S,), **f)
+
+
+def twist_bound(ins, kind):
+    """Bound of one twist call on inputs `ins`: the forward K11b, the
+    backward K7 / K7 wide, or the T-field backward K11c with its dP
+    products.  Operations per (m, row, site): u, v (4 A^2, an FMA counts
+    2), the site sum and its log (3 A + 2); the backwards add gsite (2),
+    du, dv (4 A) and dm, dP (8 A^2), or pi u, pi v, vbar, ubar and T (6
+    A^2 + 4 A) and per (m, row) the two A x A products (4 A^3)."""
+    m1, _, P_l, _, _, w = ins
+    M_, KC, A_, _ = P_l.shape
+    S = w.shape[0]
+    slab = KC * A_ * S * 4
+    pbytes = M_ * KC * A_ * A_ * 4
+    if kind == "fwd":
+        nbytes = 2 * slab + 2 * pbytes + M_ * KC * 4 + S * 4 + A_ * 4
+        nops = M_ * KC * S * (4 * A_ * A_ + 3 * A_ + 2)
+    else:
+        nbytes = 4 * slab + 4 * pbytes + M_ * KC * 4 + S * 4 + 2 * A_ * 4
+        per = (12 * A_ * A_ + 7 * A_ + 2 if kind == "bwd"
+               else 10 * A_ * A_ + 7 * A_ + 2)
+        nops = M_ * KC * S * per + (4 * M_ * KC * A_ ** 3
+                                    if kind == "bwd_t" else 0)
+    return bound(nbytes, nops)
+
+
+def ab_ms(fa, fb, iters_a=20, iters_b=20):
+    """Times of fa and fb in turns a, b, b, a (one card, one call)."""
+    a1 = time_ms(fa, iters=iters_a)
+    b1 = time_ms(fb, iters=iters_b)
+    b2 = time_ms(fb, iters=iters_b)
+    a2 = time_ms(fa, iters=iters_a)
+    return (a1, a2), (b1, b2)
+
+
+def check_k11b(kern, ins, label, timed=True):
+    """K11b (the pair-loglik forward) against its plain version; timed,
+    the A/B against the plain forward in turns plain, kernel, kernel,
+    plain."""
+    got = kern.pair_ll_fwd(*ins)
+    want = kern._pair_ll_ref(*ins)
+    torch.cuda.synchronize()
+    err = max_rel(got, want)
+    M_, KC, A_, _ = ins[2].shape
+    tol = 1e-4   # f32 sums over S sites of logs, in another order
+    log(f"  K11b pair_loglik_fwd {label} M={M_} KC={KC} A={A_} "
+        f"S={ins[0].shape[-1]}: rel err {err:.3e} (tol {tol:g})")
+    require(err <= tol, f"K11b {label} relative error {err} > {tol}")
+    if not timed:
+        return None
+    with torch.no_grad():
+        (p1, p2), (k1_, k2_) = ab_ms(lambda: kern._pair_ll_ref(*ins),
+                                     lambda: kern.pair_ll_fwd(*ins),
+                                     iters_a=5)
+    b_ms, b_by = twist_bound(ins, "fwd")
+    log(f"  K11b {label} A/B (plain, kernel, kernel, plain): {p1:.4f}, "
+        f"{k1_:.4f}, {k2_:.4f}, {p2:.4f} ms; bound {b_ms:.4f} ms ({b_by}); "
+        "library: null (no single PyTorch call computes it)")
+    return dict(max_abs_err=max_abs(got, want), ms=(k1_ + k2_) / 2,
+                plain_ms=(p1 + p2) / 2, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def check_twist_bwd(kern, gen, ins, label, t_field, timed=True,
+                    full=None):
+    """K7 wide (t_field False) or K11c (the T-field backward, with its
+    dP products) against its plain version; timed at these inputs, and
+    the kernel alone at the `full` rank-0 inputs."""
+    M_, KC, A_, _ = ins[2].shape
+    f = dict(dtype=torch.float32, device=ins[0].device)
+    g = torch.randn((M_, KC), generator=gen, **f)
+    kind = "bwd_t" if t_field else "bwd"
+    plain = kern._pair_ll_bwd_t_ref if t_field else kern._pair_ll_bwd_plain
+    old = kern.TWIST_BWD_V2
+    kern.TWIST_BWD_V2 = t_field
+    try:
+        got = kern.pair_ll_bwd(*ins, g, want_dw=False)[:5]
+        want = plain(*ins, g)[:5]
+        torch.cuda.synchronize()
+        names = ["dm1", "dm2", "dP_l", "dP_r", "dpi"]
+        errs = {n: max_rel(a, b) for n, a, b in zip(names, got, want)}
+        tol = 1e-4   # f32 sums over M (dm) and S (dP, dpi) in another order
+        log(f"  {label} M={M_} KC={KC} A={A_} S={ins[0].shape[-1]}: "
+            + ", ".join(f"{n} rel err {v:.3e}" for n, v in errs.items())
+            + f" (tol {tol:g})")
+        for n, v in errs.items():
+            require(v <= tol, f"{label} {n} relative error {v} > {tol}")
+        if not timed:
+            return None
+        ms = time_ms(lambda: kern.pair_ll_bwd(*ins, g, want_dw=False))
+        plain_ms = time_ms(lambda: plain(*ins, g), iters=3)
+        b_ms, b_by = twist_bound(ins, kind)
+        log(f"  {label} KC={KC}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by}); library: null (no single "
+            "PyTorch call computes this vector-Jacobian product)")
+        if full is not None:
+            gf = torch.randn(full[2].shape[:2], generator=gen, **f)
+            ms_f = time_ms(lambda: kern.pair_ll_bwd(*full, gf,
+                                                    want_dw=False))
+            bf, bfy = twist_bound(full, kind)
+            log(f"  {label} at rank 0's KC={full[2].shape[1]}: kernel "
+                f"{ms_f:.4f} ms, bound {bf:.4f} ms ({bfy})")
+    finally:
+        kern.TWIST_BWD_V2 = old
+    return dict(max_abs_err=max(max_abs(a, b) for a, b in zip(got, want)),
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def check_k11a(kern, gen, dev, A_, S=S_BATCH, Kt=K_TWIST):
+    """K11a (the merge backward on explicit children) at the VNCSMC
+    path's chosen merges: K=32 particles, S=256 sites, A_ dense states
+    (K2's body for A <= 8, K9bs dense above)."""
+    f = dict(dtype=torch.float32, device=dev)
+    m1, m2 = (torch.rand((Kt, A_, S), generator=gen, **f) * 0.95 + 0.05
+              for _ in range(2))
+    P_l, P_r = (torch.rand((Kt, A_, A_), generator=gen, **f) * 0.95 + 0.05
+                for _ in range(2))
+    pi = torch.rand((A_,), generator=gen, **f) + 0.1
+    pi = (pi / pi.sum()).contiguous()
+    w = torch.ones((S,), **f)
+    args = (m1, m2, P_l, P_r, pi, w) + bwd_cotangents(gen, dev, Kt, A_, S)
+    got = kern.merge_bwd(*args)
+    want = kern._merge_bwd_ref(*args)
+    torch.cuda.synchronize()
+    names = ["dm1", "dm2", "dP_l", "dP_r", "dpi", "dw"]
+    errs = {n: max_rel(a, b) for n, a, b in zip(names, got, want)}
+    tol = 1e-4
+    log(f"  K11a merge_bwd K={Kt} A={A_} S={S}: " + ", ".join(
+        f"{n} rel err {v:.3e}" for n, v in errs.items()) + f" (tol {tol:g})")
+    for n, v in errs.items():
+        require(v <= tol, f"K11a {n} relative error {v} > {tol}")
+    ms = time_ms(lambda: kern.merge_bwd(*args))
+    plain = time_ms(lambda: kern._merge_bwd_ref(*args))
+    slab = Kt * A_ * S * 4
+    nbytes = 5 * slab + 4 * Kt * A_ * A_ * 4 + 2 * Kt * 4 + 2 * (S + A_) * 4
+    # u, v (4 A^2), dm and dP (8 A^2), the per-site scalars and the max
+    # (about 10 A); an FMA counts 2
+    nops = Kt * S * (12 * A_ * A_ + 10 * A_)
+    b_ms, b_by = bound(nbytes, nops)
+    log(f"  K11a A={A_}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}); library: null (no single PyTorch call "
+        "computes this vector-Jacobian product)")
+    return dict(max_abs_err=max(max_abs(a, b) for a, b in zip(got, want)),
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
 def pooled_chi2(counts, p, n, min_expected=5.0):
     """Pearson chi-square of category counts against probabilities p,
     with the categories expected fewer than `min_expected` times pooled
@@ -893,16 +1089,20 @@ def mixture_tree(model, rng, Nd):
 
 
 def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
-                         Kd=K, S=None, route=None, codons=False):
+                         Kd=K, S=None, route=(), codons=False, Nd=None,
+                         use_pallas_ll=True, bwd_v2=False):
     """The sweep with numpy-made decisions, float32 on the card against
     float64 on the CPU: VCSMC at K=2048, VNCSMC at K=32, M=10, or model
     `spec` (a rate mixture, or GY94 on `dataset` as codons, with the
-    alignment's F61 frequencies) on the first S sites of `dataset` at Kd
-    particles; `route` names the reverse-pass kernel the card must have
-    launched."""
+    alignment's F61 frequencies) on the first S sites (and the first Nd
+    taxa) of `dataset` at Kd particles; under twist with the pair
+    log-likelihoods' forward on K11b (`use_pallas_ll`) or plain, and the
+    T-field backward K11c (`bwd_v2`, both devices).  `route` names the
+    kernels the card must have launched in the gradient."""
     from phylo_tpu_torch import _ext
     from phylo_tpu_torch.models.substitution import ReferenceQ, get_model
     from phylo_tpu_torch.params import params_from_numpy
+    from phylo_tpu_torch.pruning import kernels
     from phylo_tpu_torch.smc.sweep import SweepConfig, sample_phylogenies
     from phylo_tpu_torch.smc.twist import TwistConfig
     from phylo_tpu_torch.train.trainer import (
@@ -911,7 +1111,7 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
 
     ds = load(dataset, codons)
     rng = np.random.default_rng(11)
-    genome = ds.genome[:, :S] if S else ds.genome
+    genome = ds.genome[:Nd, :S]
     if spec is None:
         model = ReferenceQ(A)
         tree = {"model": {"y_q": (np.full((A, A), 0.25) * (1 - np.eye(A))
@@ -922,23 +1122,29 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
                     size=R)}}
     else:
         model = _resolve_codon_frequencies(get_model(spec, A=ds.A), ds)
-        tree = mixture_tree(model, rng, ds.N)
+        tree = mixture_tree(model, rng, genome.shape[0])
         if hasattr(model, "expand_leaves"):
             genome = model.expand_leaves(genome)
     rates = (np.exp(tree["branches"]["log_rates_l"]),
              np.exp(tree["branches"]["log_rates_r"]))
+    Nd = genome.shape[0]
     if twist:
         Kd = K_TWIST
-        dec = make_twist_decisions(rng, ds.N, Kd, M_TWIST, *rates)
-        cfg = SweepConfig(K=Kd, twist=TwistConfig(M=M_TWIST))
-        label = f"primate VNCSMC K={Kd} M={M_TWIST}"
+        dec = make_twist_decisions(rng, Nd, Kd, M_TWIST, *rates)
+        cfg = SweepConfig(K=Kd, twist=TwistConfig(
+            M=M_TWIST, use_pallas_ll=use_pallas_ll))
+        label = (f"{os.path.basename(dataset)} {spec or 'reference'} "
+                 f"VNCSMC N={Nd} K={Kd} M={M_TWIST} S={genome.shape[1]}"
+                 f"{'' if use_pallas_ll else ', plain forward'}"
+                 f"{', T-field backward' if bwd_v2 else ''}")
     else:
-        dec = make_decisions(rng, ds.N, Kd, *rates)
+        dec = make_decisions(rng, Nd, Kd, *rates)
         cfg = SweepConfig(K=Kd)
         label = (f"primate VCSMC K={Kd} S={genome.shape[1]}" if spec is None
                  else f"{os.path.basename(dataset)} {spec} K={Kd} "
                  f"S={genome.shape[1]}")
     out = {}
+    kernels.TWIST_BWD_V2 = bwd_v2
     for name, device, dtype in (("cuda f32", dev, torch.float32),
                                 ("cpu f64", "cpu", torch.float64)):
         params = params_from_numpy(tree, dtype=dtype, device=device)
@@ -948,9 +1154,13 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
         res = sample_phylogenies(None, leaves, model, params, cfg,
                                  decisions=d)
         res.elbo.backward()
-        if device != "cpu" and route is not None:
-            require(_ext.LAUNCHES[route] > 0, f"{route} did not run in the "
-                    f"{label} gradient")
+        if device != "cpu":
+            for kname in (route,) if isinstance(route, str) else route:
+                require(_ext.LAUNCHES[kname] > 0, f"{kname} did not run in "
+                        f"the {label} gradient")
+            if twist and not use_pallas_ll:
+                require(_ext.LAUNCHES["pair_loglik_fwd"] == 0,
+                        "K11b ran with use_pallas_ll=False")
         grads = [t.grad.detach().cpu().double() for t in param_tensors(params)]
         named = {k: params["model"][k].grad.detach().cpu().double()
                  for k in ("log_alpha", "log_kappa", "log_omega")
@@ -962,6 +1172,7 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
                      res.log_likelihood_R.detach().cpu().double(), grads,
                      named)
         del res, params, leaves
+    kernels.TWIST_BWD_V2 = False
     (e32, llr32, g32, n32), (e64, llr64, g64, n64) = (out["cuda f32"],
                                                       out["cpu f64"])
     rel = abs(e32 - e64) / abs(e64)
@@ -976,7 +1187,9 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
                      for k in n64 if n64[k].numel() == 1)
     extra = "".join(f"; {k} rel err {v:.3e} (tol 1e-2)"
                     for k, v in rel_named.items())
-    via = f" (reverse pass through {route})" if route else ""
+    via = (f" (reverse pass through "
+           f"{route if isinstance(route, str) else ', '.join(route)})"
+           if route else "")
     log(f"phase 3 fixed-decision ELBO {label}{via}: cuda f32 {e32:.6f} vs "
         f"cpu f64 {e64:.6f}, rel err {rel:.3e} (tol 1e-3); "
         f"log_likelihood_R max rel err {rel_llr:.3e}; manual-VJP gradient "
@@ -1020,7 +1233,10 @@ def spectral_float32_probe(dev):
 # ---------------------------------------------------------------- phase 4
 # ELBO bands: primate from the port's card runs (-6512 at init, about
 # -6457 / -6292 after 2 epochs); DS1 GTR+G4 from a CPU run of the port
-# (K=32, b256, seed 0: -9102.1 at init, -8406.5 after 2 epochs)
+# (K=32, b256, seed 0: -9102.1 at init, -8406.5 after 2 epochs); DS1
+# VNCSMC GTR+G4 from a CPU run of the port (K=4, M=2, b256, seed 0:
+# -8038.8 at init, -7723.7 / -7735.2 after epochs 1 / 2)
+VNCSMC_DS1_BAND = (-10500.0, -6500.0)
 PATHS = {
     "vcsmc": dict(
         dataset="primate_data", band=(-8000.0, -5500.0),
@@ -1033,15 +1249,41 @@ PATHS = {
         train=dict(nested=True, M=M_TWIST, n_particles=K_TWIST),
         argv=["--nested=True", f"--M={M_TWIST}",
               f"--n_particles={K_TWIST}"],
-        kernels=("fused_merge_loglik", "pair_ll_bwd",
-                 "fused_rank_bwd_saved", "expm_fwd", "expm_bwd",
-                 "categorical")),
+        kernels=("fused_merge_loglik", "pair_loglik_fwd", "pair_ll_bwd",
+                 "merge_bwd", "expm_fwd", "expm_bwd", "categorical")),
     "gtr_g4_ds1": dict(
         dataset="hohna_data_1", band=(-10500.0, -7000.0),
         train=dict(n_particles=K, substitution_model="gtr+g4"),
         argv=["--model=gtr+g4", f"--n_particles={K}"],
         kernels=("fused_rank_update_blocked", "fused_rank_bwd_blocked",
                  "expm_fwd", "expm_bwd", "categorical")),
+    # VNCSMC with GTR+G4 on DS1 (the twist enumerates 16 dense states):
+    # 7 SGD steps of 256 sites + the 1949-site eval sweep, 26 ranks each,
+    # one pair chunk per rank; K11b in every sweep and in the reverse
+    # pass's re-evaluation, K7 wide and K11a in each step's reverse pass
+    "vncsmc_gtr_g4_ds1": dict(
+        dataset="hohna_data_1", band=VNCSMC_DS1_BAND,
+        train=dict(nested=True, M=M_TWIST, n_particles=K_TWIST,
+                   substitution_model="gtr+g4"),
+        argv=["--model=gtr+g4", "--nested=True", f"--M={M_TWIST}",
+              f"--n_particles={K_TWIST}"],
+        kernels=("pair_loglik_fwd", "pair_ll_bwd_wide", "merge_bwd",
+                 "expm_fwd", "expm_bwd", "categorical"),
+        exact={"pair_ll_bwd_wide": (N_DS1 - 1) * 2 * (S_DS1 // S_BATCH),
+               "merge_bwd": (N_DS1 - 1) * 2 * (S_DS1 // S_BATCH),
+               "pair_loglik_fwd": (N_DS1 - 1) * (
+                   1 + 2 * (S_DS1 // S_BATCH + 1) + 2 * (S_DS1 // S_BATCH))}),
+    # primate VNCSMC again with the T-field backward K11c
+    # (PHYLO_TWIST_BWD_V2=1) in place of K7: 3 SGD steps an epoch, 11
+    # ranks each
+    "vncsmc_t_field": dict(
+        dataset="primate_data", band=(-8000.0, -5500.0), profile=False,
+        bwd_v2=True, train=dict(nested=True, M=M_TWIST, n_particles=K_TWIST),
+        argv=["--nested=True", f"--M={M_TWIST}",
+              f"--n_particles={K_TWIST}"],
+        kernels=("pair_loglik_fwd", "pair_ll_bwd_t", "merge_bwd"),
+        exact={"pair_ll_bwd_t": R * 2 * (S_FULL // S_BATCH),
+               "pair_ll_bwd": 0}),
     # GY94 on betacorona1's codons: 4 SGD steps of 256 codons (saved
     # children: K9bs) + the 1086-codon eval sweep, 16 ranks each; the
     # transitions are spectral (no expm kernel); exact launch counts of
@@ -1093,16 +1335,19 @@ def main_path(ext, name):
     """Two training epochs of one path through the runner, with the
     launch counters set to 0 just before and read just after."""
     from phylo_tpu_torch.cli import runner
+    from phylo_tpu_torch.pruning import kernels
     from phylo_tpu_torch.train.trainer import param_tensors
 
     path = PATHS[name]
     argv = [f"--dataset={path['dataset']}", f"--batch_size={S_BATCH}"] \
         + path["argv"] + ["--num_epoch=2", "--no_artifacts", "--device=cuda"]
+    kernels.TWIST_BWD_V2 = path.get("bwd_v2", False)
     torch.cuda.synchronize()
     ext.reset_launches()
     res = runner.run(argv)
     torch.cuda.synchronize()
     launches = dict(ext.LAUNCHES)
+    kernels.TWIST_BWD_V2 = False
     log(f"phase 4 {name} main path launches: {json.dumps(launches)}")
     for kname in path["kernels"]:
         require(launches.get(kname, 0) > 0, f"{kname} never launched")
@@ -1136,7 +1381,9 @@ def profile_epoch(name):
     holds train()'s set-up, its initial eval sweep and one epoch (the
     SGD steps + the eval sweep).  Prints its host wall time, the summed
     device time and count of all kernel launches, the device's busy
-    share, and the kernels with the most device time."""
+    share, and the kernels with the most device time.  Only the device
+    is traced: the profiler's summary of host operator events took
+    minutes at VNCSMC DS1's half a million launches an epoch."""
     from torch.profiler import ProfilerActivity, profile
 
     from phylo_tpu_torch.train import TrainConfig, train
@@ -1146,12 +1393,12 @@ def profile_epoch(name):
     cfg = TrainConfig(batch_size=S_BATCH, num_epoch=1, save_artifacts=False,
                       log_every=0, device="cuda", **path["train"])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         train(ds, cfg)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
     rows = []
     for e in prof.key_averages():
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
@@ -1169,6 +1416,7 @@ def profile_epoch(name):
         "wall_ms": wall_ms, "device_kernel_ms": device_ms,
         "device_busy_share": device_ms / wall_ms,
         "kernel_launches": sum(r[2] for r in rows),
+        "summary_s": time.perf_counter() - t1,
         "top_kernels": [{"name": k, "device_ms": ms, "launches": n}
                         for k, ms, n in rows[:10]]}))
 
@@ -1231,6 +1479,38 @@ def main(argv):
     k7 = check_k7(kernels, gen, dev)
     k8 = check_k8(kernels, gen, dev, S_BATCH)
     check_k8(kernels, gen, dev, S_FULL)
+    # VNCSMC's pair log-likelihoods at rank 0 (all candidate pairs):
+    # K11b on primate (A=4, KC = 32 x 66) and on DS1 GTR+G4 (16 dense
+    # states, KC = 32 x 351), A/B against the plain forward; K7 wide and
+    # K11c on the first KC = 896 rows of DS1's rank-0 inputs (32 x 28,
+    # the row count of rank 19), where the plain autograd VJP fits, and
+    # the kernels alone at rank 0's KC; A = 20 (+I) and 61 (codons) small
+    twist_p = twist_inputs(gen, dev, "primate", None, N * (N - 1) // 2,
+                           S_BATCH)
+    check_k11b(kernels, twist_p, "primate")
+    del twist_p
+    twist_d = twist_inputs(gen, dev, "hohna_data_1", "gtr+g4",
+                           N_DS1 * (N_DS1 - 1) // 2, S_BATCH)
+    k11b = check_k11b(kernels, twist_d, "DS1 gtr+g4")
+    twist_c = tuple(x[:, :K_TWIST * 28] if x.ndim == 4 else
+                    x[:K_TWIST * 28] if x.ndim == 3 else x
+                    for x in twist_d)
+    twist_c = tuple(x.contiguous() for x in twist_c)
+    k7w = check_twist_bwd(kernels, gen, twist_c, "K7 wide pair_ll_bwd_wide",
+                          False, full=twist_d)
+    k11c = check_twist_bwd(kernels, gen, twist_c, "K11c pair_ll_bwd_t",
+                           True, full=twist_d)
+    del twist_c, twist_d
+    for A_ in (20, 61):
+        small = twist_inputs(gen, dev, None, None, 5, 70, A_=A_, Kt=3)
+        check_k11b(kernels, small, "small", timed=False)
+        check_twist_bwd(kernels, gen, small, "K7 wide small", False,
+                        timed=False)
+        check_twist_bwd(kernels, gen, small, "K11c small", True,
+                        timed=False)
+    check_k11a(kernels, gen, dev, A)
+    k11a = check_k11a(kernels, gen, dev, 4 * G_GAMMA)
+    torch.cuda.empty_cache()
     # K9 on GY94 codons (K=128, A=61): one real child index per site
     # count; the kernels line carries S=256 (the SGD steps) for K9f and
     # K9bs and S=1086 (the re-gather route's shape) for K9b
@@ -1274,7 +1554,20 @@ def main(argv):
     # at all 898 sites, over it (K3)
     fixed_decision_check(dev, S=S_BATCH, route="fused_rank_bwd_saved")
     fixed_decision_check(dev, route="fused_rank_bwd")
-    fixed_decision_check(dev, twist=True)
+    # VNCSMC: primate with the defaults (K11b, K7, K11a), with the plain
+    # forward and with the T-field backward (K11c); GTR+G4 on DS1's
+    # first 10 taxa (K11b, K7 wide, K11a at 16 dense states; the CPU's
+    # plain float64 enumeration over all 27 taxa would take many minutes)
+    fixed_decision_check(dev, twist=True, route=(
+        "pair_loglik_fwd", "pair_ll_bwd", "merge_bwd"))
+    fixed_decision_check(dev, twist=True, S=S_BATCH, use_pallas_ll=False,
+                         route=("pair_ll_bwd", "merge_bwd"))
+    fixed_decision_check(dev, twist=True, S=S_BATCH, bwd_v2=True,
+                         route=("pair_loglik_fwd", "pair_ll_bwd_t"))
+    fixed_decision_check(dev, twist=True, spec="gtr+g4",
+                         dataset="hohna_data_1", S=S_BATCH, Nd=10,
+                         route=("pair_loglik_fwd", "pair_ll_bwd_wide",
+                                "merge_bwd"))
     # GTR+G4: under the cap (K10's saved-children backward), over it (K3)
     fixed_decision_check(dev, spec="gtr+g4", Kd=512, S=S_BATCH,
                          route="fused_rank_bwd_saved_blocked")
@@ -1328,6 +1621,14 @@ def main(argv):
          "phylo_tpu/pruning/kernels.py:1059", k7),
         ("fused_merge_loglik", "phylo_tpu_torch/csrc/twist_kernels.cu",
          "phylo_tpu/pruning/kernels.py:159", k8),
+        ("pair_ll_bwd_wide", "phylo_tpu_torch/csrc/twist_wide_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:1059", k7w),
+        ("pair_loglik_fwd", "phylo_tpu_torch/csrc/twist_wide_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:588", k11b),
+        ("pair_ll_bwd_t", "phylo_tpu_torch/csrc/twist_wide_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:1037", k11c),
+        ("merge_bwd", "phylo_tpu_torch/csrc/wide_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:395", k11a),
         ("fused_rank_update_wide", "phylo_tpu_torch/csrc/wide_kernels.cu",
          "phylo_tpu/pruning/kernels.py:1646", k9["fused_rank_update_wide"]),
         ("fused_rank_bwd_saved_wide", "phylo_tpu_torch/csrc/wide_kernels.cu",

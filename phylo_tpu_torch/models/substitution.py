@@ -256,12 +256,30 @@ class _SiteMixture(_Model):
         transitions from `transition_blocks` when a model has this."""
         return (self.n_cat, self.base.A)
 
+    def _category_rates(self, params):
+        """`rates(params)`, reused while no gradient is taken and the
+        mixture's own parameters are the same tensors, unchanged: the
+        twist asks for transitions at every rank and pair chunk, and a
+        discrete Gamma's 25 Newton steps are some hundreds of small
+        kernel launches each time."""
+        own = [t for k, t in sorted(params.items()) if k != "base"]
+        key = [(t, t._version) for t in own]
+        if torch.is_grad_enabled() and any(t.requires_grad for t in own):
+            return self.rates(params)
+        memo = getattr(self, "_rates_memo", None)
+        if memo is not None and len(memo[0]) == len(key) and all(
+                t is u and v == w for (t, v), (u, w) in zip(key, memo[0])):
+            return memo[1]
+        r = self.rates(params)
+        self._rates_memo = (key, r)
+        return r
+
     def transition_blocks(self, params, b):
         """Per-category transitions (..., C, A, A): the expm of a block-
         diagonal generator is the block-diagonal of the blocks' expms, so
         one batched base transition over b (x) r replaces a dense (CA)^3
         series (JC69 keeps its closed form)."""
-        r = self.rates(params)
+        r = self._category_rates(params)
         return self.base.transition(params["base"],
                                     b[..., None] * r.to(b.dtype))
 

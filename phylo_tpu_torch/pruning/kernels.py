@@ -2,9 +2,11 @@
 saved children and its backward that re-gathers the children (port of
 phylo_tpu/pruning/kernels.py::fused_rank_update, ::fused_rank_bwd_saved
 and ::fused_rank_bwd), dense and blocked (K10, rate mixtures: G > 1);
-K8, the same merge on explicit children (::fused_merge_loglik), and K7,
-the VNCSMC pair-loglik backward (::pair_loglik's `_pair_ll_bwd_pallas`),
-further down.
+further down K8, the same merge on explicit children
+(::fused_merge_loglik), and K11a, its backward (::_merge_bwd_pallas);
+the VNCSMC pair log-likelihoods' forward K11b (::fused_pair_loglik) and
+backwards K7 / K7 wide and K11c (::pair_loglik's `_pair_ll_bwd_pallas`,
+its T-field form under PHYLO_TWIST_BWD_V2).
 
 One rank of the sweep, per particle k:
 
@@ -36,12 +38,16 @@ the plain versions `_fused_rank_ref` / `_fused_rank_bwd_saved_ref` /
 states per block runs on K10 (G <= 32 blocks); above 128 planes (GY94 +
 Gamma4: 244) the card has no rank kernel.  K1, K2, K3 and K9 have no
 autograd rule: only the manual whole-sweep VJP (smc.sweep_vjp) and the
-no-grad sweep call them.  K7 and K8 live in csrc/twist_kernels.cu, take
-A <= 8 and carry torch.autograd.Functions (`fused_merge_loglik`,
-`pair_loglik`).
+no-grad sweep call them.  K7 (A <= 8) and K8 live in
+csrc/twist_kernels.cu, K7 wide (8 < A <= 64), K11b and K11c (A <= 64) in
+csrc/twist_wide_kernels.cu; K11a is a named entry over K2's body (A <= 8)
+and K9bs dense (A <= 128).  `fused_merge_loglik`, `pair_loglik` and
+`fused_pair_loglik` carry torch.autograd.Functions.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -49,6 +55,8 @@ from phylo_tpu_torch import _ext
 from phylo_tpu_torch.models.expm import exact_matmul
 
 MAX_A = 8                       # states per block of K1-K3, K7, K8, K10
+MAX_TWIST_A = 64                # dense states of K7 wide, K11b, K11c
+PAIR_FWD_TILE = 128             # K11b: sites per CUDA block (partials)
 MAX_G = 32                      # rate-category blocks on the card
 MAX_WIDE_PLANES = 128           # G*A planes of the wide kernels K9
 WIDE_TILE = 32                  # K9f: sites per CUDA block (partial rows)
@@ -57,6 +65,9 @@ BWD_PARTICLES_PER_BLOCK = 8     # K2/K3: particles per CUDA block (dpi/dw
 # bytes of the (R, K, 2, G*A, S) child residuals the manual-VJP forward
 # may save for K2; above it the reverse pass re-gathers through K3
 SAVE_CHILDREN_CAP = 2 ** 28
+# the T-field twist backward K11c in place of K7 / K7 wide (the JAX
+# package's PHYLO_TWIST_BWD_V2 knob and default)
+TWIST_BWD_V2 = os.environ.get("PHYLO_TWIST_BWD_V2", "0") == "1"
 
 
 def save_children_ok(R, K, GA, S, itemsize):
@@ -349,6 +360,13 @@ def fused_rank_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights):
     if not m1.is_cuda:
         return _fused_rank_bwd_saved_ref(m1, m2, gm, gr, gl, P_l, P_r,
                                          pi, weights)
+    return _launch_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights)
+
+
+def _launch_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights,
+                      counter=None):
+    """K2 / K10's backward / K9bs on the card, counted under `counter`
+    (default: the route's own name)."""
     K, GA, S = m1.shape
     G, A, wide = _check_bwd_args(gm, gr, gl, P_l, P_r, pi, weights, K, GA,
                                  S)
@@ -365,7 +383,7 @@ def fused_rank_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights):
         fn = _ext.bind("wide_kernels", "launch_wide_rank_bwd_saved", 15, 4)
         name = "fused_rank_bwd_saved_wide" + (
             "_blocked" if P_l.ndim == 4 else "")
-        _ext.LAUNCHES[name] += 1
+        _ext.LAUNCHES[counter or name] += 1
         code = fn(*ins, *out_p, K, G, A, S, _ext.stream_ptr(dev))
     elif P_l.ndim == 4:
         scratch = torch.empty((outs[4].shape[0], 5, S), dtype=torch.float32,
@@ -373,15 +391,15 @@ def fused_rank_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights):
         fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_saved_blocked",
                        16, 5)
         name = "fused_rank_bwd_saved_blocked"
-        _ext.LAUNCHES[name] += 1
+        _ext.LAUNCHES[counter or name] += 1
         code = fn(*ins, *out_p, scratch.data_ptr(), K, G, A, S, tkb,
                   _ext.stream_ptr(dev))
     else:
         fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_saved", 15, 4)
         name = "fused_rank_bwd_saved"
-        _ext.LAUNCHES[name] += 1
+        _ext.LAUNCHES[counter or name] += 1
         code = fn(*ins, *out_p, K, A, S, tkb, _ext.stream_ptr(dev))
-    _ext.check(code, name)
+    _ext.check(code, counter or name)
     return outs
 
 
@@ -436,7 +454,7 @@ def merge_loglik(m1, m2, P_l, P_r, pi, weights):
     if not m1.is_cuda:
         return _ref_impl(m1, m2, P_l, P_r, pi, weights)
     K, A, S = m1.shape
-    _check_a(A)
+    check_states(A, MAX_A, "K8 (fused_merge_loglik)")
     f32 = torch.float32
     _ext.require(m1, "m1", f32, shape=(K, A, S))
     _ext.require(m2, "m2", f32, shape=(K, A, S))
@@ -458,6 +476,30 @@ def merge_loglik(m1, m2, P_l, P_r, pi, weights):
     return merged, rootll, logscale
 
 
+def _merge_bwd_ref(m1, m2, P_l, P_r, pi, weights, gm, gr, gl):
+    """Plain version of K11a: K2's plain math with its dpi / dw partial
+    rows summed."""
+    out = _fused_rank_bwd_saved_ref(m1, m2, gm, gr, gl, P_l, P_r, pi,
+                                    weights)
+    return out[:4] + (out[4].sum(0), out[5].sum(0))
+
+
+def merge_bwd(m1, m2, P_l, P_r, pi, weights, gm, gr, gl):
+    """K11a: exact cotangents of `_ref_impl` (merge + rescale + root
+    log-lik) on explicit dense children (the JAX package's
+    `_merge_bwd_pallas`, same signature).  m1, m2 (K, A, S); P_l, P_r
+    (K, A, A); gm (K, A, S), gr, gl (K,).  Returns (dm1, dm2, dP_l,
+    dP_r, dpi (A,), dw (S,)).  On the card it runs K2's body (A <= 8) or
+    K9bs dense (8 < A <= 128), which compute exactly these cotangents,
+    counted as `merge_bwd`."""
+    if not m1.is_cuda:
+        return _merge_bwd_ref(m1, m2, P_l, P_r, pi, weights, gm, gr, gl)
+    check_states(m1.shape[1], MAX_WIDE_PLANES, "K11a (merge_bwd)")
+    out = _launch_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights,
+                            counter="merge_bwd")
+    return out[:4] + (out[4].sum(0), out[5].sum(0))
+
+
 class _FusedMergeLoglik(torch.autograd.Function):
     @staticmethod
     def forward(ctx, m1, m2, P_l, P_r, pi, weights):
@@ -466,24 +508,13 @@ class _FusedMergeLoglik(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gm, gr, gl):
-        saved = ctx.saved_tensors
-        if saved[0].is_cuda:
-            # K2 computes exactly these cotangents from explicit children
-            m1, m2, P_l, P_r, pi, w = saved
-            dm1, dm2, dPl, dPr, dpi, dw = fused_rank_bwd_saved(
-                m1, m2, gm.contiguous(), gr.contiguous(), gl.contiguous(),
-                P_l, P_r, pi, w)
-            return dm1, dm2, dPl, dPr, dpi.sum(0), dw.sum(0)
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(True) for t in saved]
-            outs = _ref_impl(*ins)
-            return torch.autograd.grad(outs, ins, (gm, gr, gl))
+        return merge_bwd(*ctx.saved_tensors, gm.contiguous(),
+                         gr.contiguous(), gl.contiguous())
 
 
 def fused_merge_loglik(m1, m2, P_l, P_r, pi, weights):
     """Differentiable K8 (forward: the kernel on the card, `_ref_impl` on
-    the CPU; backward: K2 on the card, the autograd VJP of `_ref_impl`
-    on the CPU, as the JAX package's default `_bwd`)."""
+    the CPU; backward: K11a, `merge_bwd`)."""
     return _FusedMergeLoglik.apply(m1, m2, P_l, P_r, pi, weights)
 
 
@@ -506,7 +537,8 @@ def _pair_site_lik(m1, m2, P_l, P_r, pi):
 
 def _pair_ll_ref(m1, m2, P_l, P_r, pi, weights):
     """Data log-likelihoods (M, K) of M candidate merges per particle:
-    m1, m2 (K, A, S) shared across M; P_l, P_r (M, K, A, A)."""
+    m1, m2 (K, A, S) shared across M; P_l, P_r (M, K, A, A).  The plain
+    version of K11b."""
     site_lik = _pair_site_lik(m1, m2, P_l, P_r, pi)
     return torch.sum(torch.log(site_lik) * weights[None, None, :], dim=-1)
 
@@ -517,24 +549,12 @@ def _dw_ref(m1, m2, P_l, P_r, pi, g):
     return torch.sum(g[:, :, None] * torch.log(site_lik), dim=(0, 1))
 
 
-def _pair_ll_bwd_plain(m1, m2, P_l, P_r, pi, weights, g):
-    """Plain version of K7: the autograd VJP of `_pair_ll_ref`.  Returns
-    (dm1, dm2, dP_l, dP_r, dpi, dw)."""
-    with torch.enable_grad():
-        ins = [t.detach().requires_grad_(True)
-               for t in (m1, m2, P_l, P_r, pi, weights)]
-        return torch.autograd.grad(_pair_ll_ref(*ins), ins, g)
-
-
-def pair_ll_bwd(m1, m2, P_l, P_r, pi, weights, g, want_dw=True):
-    """K7: cotangents of `_pair_ll_ref` for the output cotangent g (M, K).
-    Returns (dm1, dm2 (K, A, S), dP_l, dP_r (M, K, A, A), dpi (A,), dw (S,)
-    or None without want_dw)."""
-    if not m1.is_cuda:
-        return _pair_ll_bwd_plain(m1, m2, P_l, P_r, pi, weights, g)
+def _twist_args(m1, m2, P_l, P_r, pi, weights, g=None):
+    """Validates a twist kernel's inputs on the card; returns (M, K, A,
+    S)."""
     M, K, A, _ = P_l.shape
     S = m1.shape[-1]
-    _check_a(A)
+    check_states(A, MAX_TWIST_A, "the twist kernels K7, K11b, K11c")
     f32 = torch.float32
     _ext.require(m1, "m1", f32, shape=(K, A, S))
     _ext.require(m2, "m2", f32, shape=(K, A, S))
@@ -542,20 +562,103 @@ def pair_ll_bwd(m1, m2, P_l, P_r, pi, weights, g, want_dw=True):
     _ext.require(P_r, "P_r", f32, shape=(M, K, A, A))
     _ext.require(pi, "pi", f32, shape=(A,))
     _ext.require(weights, "weights", f32, shape=(S,))
-    _ext.require(g, "g", f32, shape=(M, K))
+    if g is not None:
+        _ext.require(g, "g", f32, shape=(M, K))
+    return M, K, A, S
+
+
+def pair_ll_fwd(m1, m2, P_l, P_r, pi, weights):
+    """K11b: the (M, K) data log-likelihoods `_pair_ll_ref` computes,
+    one kernel launch (M looped inside) plus a fixed-order sum of its
+    per-128-site partials; no autograd."""
+    if not m1.is_cuda:
+        return _pair_ll_ref(m1, m2, P_l, P_r, pi, weights)
+    M, K, A, S = _twist_args(m1, m2, P_l, P_r, pi, weights)
+    dev = m1.device
+    part = torch.empty((M, K, -(-S // PAIR_FWD_TILE)), dtype=torch.float32,
+                       device=dev)
+    fn = _ext.bind("twist_wide_kernels", "launch_pair_ll_fwd", 7, 4)
+    _ext.LAUNCHES["pair_loglik_fwd"] += 1
+    _ext.check(fn(m1.data_ptr(), m2.data_ptr(), P_l.data_ptr(),
+                  P_r.data_ptr(), pi.data_ptr(), weights.data_ptr(),
+                  part.data_ptr(), K, M, A, S, _ext.stream_ptr(dev)),
+               "pair_loglik_fwd")
+    return torch.sum(part, dim=-1)
+
+
+def _pair_ll_bwd_plain(m1, m2, P_l, P_r, pi, weights, g):
+    """Plain version of K7 and K7 wide: the autograd VJP of
+    `_pair_ll_ref`.  Returns (dm1, dm2, dP_l, dP_r, dpi, dw)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True)
+               for t in (m1, m2, P_l, P_r, pi, weights)]
+        return torch.autograd.grad(_pair_ll_ref(*ins), ins, g)
+
+
+def _dp_from_t(T, P_l, P_r, pi):
+    """dP_l[a, b] = pi_b sum_a' T[a, a'] P_r[a', b] and dP_r[a', b] =
+    pi_b sum_a T[a, a'] P_l[a, b] (per (m, k) A x A products, full
+    float32 on the card, as the JAX package forms them outside its
+    kernel)."""
+    return (exact_matmul(T, P_r) * pi,
+            exact_matmul(T.transpose(-1, -2), P_l) * pi)
+
+
+def _pair_ll_bwd_t_ref(m1, m2, P_l, P_r, pi, weights, g):
+    """Plain version of K11c, term for term `_kernel_ll_bwd2`'s math:
+    gsite = g w / site; T[a, a'] = sum_s gsite m1[a] m2[a']; dm1[a] =
+    sum_m gsite vbar_a, vbar_a = sum_b P_l[a, b] pi_b v_b (dm2 mirrored);
+    dP from T.  Returns (dm1, dm2, dP_l, dP_r, dpi, dw)."""
+    u = _apply_t(m1[None], P_l)                       # (M, K, A, S)
+    v = _apply_t(m2[None], P_r)
+    pu = u * pi[:, None]
+    pv = v * pi[:, None]
+    site = torch.sum(u * pv, dim=-2)                  # (M, K, S)
+    gsite = (g[:, :, None] * weights) / site
+    T = exact_matmul(gsite[:, :, None, :] * m1[None],
+                     m2[None].transpose(-1, -2))      # (M, K, A, A)
+    dm1 = torch.sum(gsite[:, :, None, :] * exact_matmul(P_l, pv), dim=0)
+    dm2 = torch.sum(gsite[:, :, None, :] * exact_matmul(P_r, pu), dim=0)
+    dPl, dPr = _dp_from_t(T, P_l, P_r, pi)
+    dpi = torch.sum(dPl * P_l, dim=(0, 1, 2)) / pi
+    return dm1, dm2, dPl, dPr, dpi, _dw_ref(m1, m2, P_l, P_r, pi, g)
+
+
+def pair_ll_bwd(m1, m2, P_l, P_r, pi, weights, g, want_dw=True):
+    """Cotangents of `_pair_ll_ref` for the output cotangent g (M, K):
+    K7 (A <= 8), K7 wide (8 < A <= 64), or K11c, the T-field form, when
+    TWIST_BWD_V2 is set (PHYLO_TWIST_BWD_V2=1, the JAX package's knob).
+    Returns (dm1, dm2 (K, A, S), dP_l, dP_r (M, K, A, A), dpi (A,),
+    dw (S,) or None without want_dw)."""
+    if not m1.is_cuda:
+        plain = _pair_ll_bwd_t_ref if TWIST_BWD_V2 else _pair_ll_bwd_plain
+        return plain(m1, m2, P_l, P_r, pi, weights, g)
+    M, K, A, S = _twist_args(m1, m2, P_l, P_r, pi, weights, g)
+    f32 = torch.float32
     dev = m1.device
     dm1 = torch.empty((K, A, S), dtype=f32, device=dev)
     dm2 = torch.empty((K, A, S), dtype=f32, device=dev)
     dPl = torch.empty((M, K, A, A), dtype=f32, device=dev)
-    dPr = torch.empty((M, K, A, A), dtype=f32, device=dev)
-    fn = _ext.bind("twist_kernels", "launch_pair_ll_bwd", 11, 4)
-    _ext.LAUNCHES["pair_ll_bwd"] += 1
-    _ext.check(fn(m1.data_ptr(), m2.data_ptr(), P_l.data_ptr(),
-                  P_r.data_ptr(), pi.data_ptr(), weights.data_ptr(),
-                  g.data_ptr(), dm1.data_ptr(), dm2.data_ptr(),
-                  dPl.data_ptr(), dPr.data_ptr(), K, M, A, S,
-                  _ext.stream_ptr(dev)),
-               "pair_ll_bwd")
+    ins = [t.data_ptr() for t in (m1, m2, P_l, P_r, pi, weights, g, dm1,
+                                  dm2, dPl)]
+    if TWIST_BWD_V2:
+        # dPl holds T; dP_l, dP_r follow from it outside the kernel
+        fn = _ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_t", 10, 4)
+        name = "pair_ll_bwd_t"
+        _ext.LAUNCHES[name] += 1
+        code = fn(*ins, K, M, A, S, _ext.stream_ptr(dev))
+    else:
+        dPr = torch.empty((M, K, A, A), dtype=f32, device=dev)
+        wide = A > MAX_A
+        fn = (_ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_wide", 11,
+                        4) if wide else
+              _ext.bind("twist_kernels", "launch_pair_ll_bwd", 11, 4))
+        name = "pair_ll_bwd_wide" if wide else "pair_ll_bwd"
+        _ext.LAUNCHES[name] += 1
+        code = fn(*ins, dPr.data_ptr(), K, M, A, S, _ext.stream_ptr(dev))
+    _ext.check(code, name)
+    if TWIST_BWD_V2:
+        dPl, dPr = _dp_from_t(dPl, P_l, P_r, pi)
     # dpi_b = sum_{m,k,a} dP_l[m,k,a,b] P_l[m,k,a,b] / pi_b: P does not
     # depend on the site, so it factors out of dP_l's site sum
     dpi = torch.sum(dPl * P_l, dim=(0, 1, 2)) / pi
@@ -565,32 +668,44 @@ def pair_ll_bwd(m1, m2, P_l, P_r, pi, weights, g, want_dw=True):
 
 class _PairLoglik(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, m1, m2, P_l, P_r, pi, weights):
+    def forward(ctx, fwd, m1, m2, P_l, P_r, pi, weights):
         ctx.save_for_backward(m1, m2, P_l, P_r, pi, weights)
-        return _pair_ll_ref(m1, m2, P_l, P_r, pi, weights)
+        return fwd(m1, m2, P_l, P_r, pi, weights)
 
     @staticmethod
     def backward(ctx, g):
-        return pair_ll_bwd(*ctx.saved_tensors, g.contiguous(),
-                           want_dw=ctx.needs_input_grad[5])
+        grads = pair_ll_bwd(*ctx.saved_tensors, g.contiguous(),
+                            want_dw=ctx.needs_input_grad[6])
+        return (None,) + tuple(grads)
 
 
 def pair_loglik(m1, m2, P_l, P_r, pi, weights):
     """Data log-likelihoods of M candidate merges per particle, (M, K),
     differentiable: the forward is the plain multiply-add expression
     (an XLA fusion in the JAX package, not a Pallas kernel), the
-    backward is K7 on the card and the plain VJP on the CPU."""
-    return _PairLoglik.apply(m1, m2, P_l, P_r, pi, weights)
+    backward `pair_ll_bwd` (K7, K7 wide or K11c on the card, the plain
+    VJP on the CPU)."""
+    return _PairLoglik.apply(_pair_ll_ref, m1, m2, P_l, P_r, pi, weights)
+
+
+def fused_pair_loglik(m1, m2, P_l, P_r, pi, weights):
+    """`pair_loglik` with the forward as K11b, `pair_ll_fwd` (the JAX
+    package's `fused_pair_loglik`); the same backward."""
+    return _PairLoglik.apply(pair_ll_fwd, m1, m2, P_l, P_r, pi, weights)
+
+
+def check_states(A, limit, kernel):
+    """Raises where the card has no kernel for A states."""
+    if not 1 <= A <= limit:
+        raise NotImplementedError(
+            f"{kernel} take(s) A <= {limit} states on the card, got {A} "
+            "(ROADMAP.md Queue 3: paths the card refuses)")
 
 
 def _check_a(A, G=1):
-    """The card's limits of the narrow kernels: A <= 8 states (K7, K8;
-    K10's blocks, which `wide_planes` sends to K9 blocked above it),
-    G <= 32 blocks (K10)."""
-    if not 1 <= A <= MAX_A:
-        raise NotImplementedError(
-            f"the CUDA merge and twist kernels K7/K8 take A <= {MAX_A} "
-            f"states, got {A} (K7/K8 wide, ROADMAP.md Queue 3)")
+    """The card's limits of K10's blocks: A <= 8 states (`wide_planes`
+    sends wider blocks to K9 blocked), G <= 32 blocks."""
+    check_states(A, MAX_A, "the blocked rank kernels K10")
     if not 1 <= G <= MAX_G:
         raise NotImplementedError(
             f"the CUDA rank kernels take at most {MAX_G} rate-category "

@@ -24,8 +24,10 @@ a rate mixture over a wide base such as protein + Gamma4).
 Otherwise, and always under twist (as in the JAX package, where K1 is
 off under twist), the children are gathered explicitly and merged by K8
 (pruning.kernels.fused_merge_loglik), which autograd differentiates
-through K2 -- or, for a rate mixture's blocked merge and for A > 8, by
-plain torch ops, as JAX's merge kernel is off there.
+through K11a -- or, for a rate mixture's blocked merge and for A > 8, by
+plain torch ops, as JAX's merge kernel is off there.  Under twist the
+candidate pairs' log-likelihoods run on K11b forward and K7 / K7 wide /
+K11c backward (smc.twist) for up to 64 dense states.
 
 The reference quirks stay default-on (``q_raw_subtraction``,
 ``right_multiplier_bug``), see ``SweepConfig``.
@@ -78,10 +80,11 @@ class SweepConfig:
     ess_threshold: resample only when ESS/K drops below this fraction.
     carried_weights: carried-accumulated-weights estimator of log Z.
     manual_vjp: True differentiates through the manual whole-sweep
-        VJP (smc.sweep_vjp: K1 or K8 forward, K2/K3 and K7 reverse);
-        False runs plain torch autograd through the sweep (K8 forward, K2
-        backward; K7 for the twist's pair log-liks; plain torch for a
-        blocked merge).
+        VJP (smc.sweep_vjp: K1 or K8 forward, K2/K3 reverse; under
+        twist K11a for the chosen merges and K7 / K7 wide / K11c for the
+        pair log-liks); False runs plain torch autograd through the sweep
+        (K8 forward, K11a backward; the twist's pair log-liks through
+        their autograd rule; plain torch for a blocked merge).
     twist: optional smc.twist.TwistConfig enabling VNCSMC look-ahead
         proposals.
 
@@ -153,17 +156,11 @@ def _check_supported(config, leaves, model):
     if leaves.is_cuda and not config.rescale:
         raise NotImplementedError(
             "rescale=False has no CUDA kernel (K1 always rescales)")
-    if leaves.is_cuda and config.twist is not None and hasattr(
-            model, "blocks"):
-        raise NotImplementedError(
-            "twist with a rate mixture is not ported to the card: the twist "
-            "enumerates dense (G*A)-state transitions and K7/K8 take A <= 8 "
-            "(ROADMAP.md Queue 3: twist with a rate mixture)")
-    A = leaves.shape[-1]
-    if leaves.is_cuda and config.twist is not None and A > _kernels.MAX_A:
-        raise NotImplementedError(
-            f"twist with A = {A} > {_kernels.MAX_A} states is not ported to "
-            "the card: K7/K8 take A <= 8 (K7/K8 wide, ROADMAP.md Queue 3)")
+    if leaves.is_cuda and config.twist is not None:
+        # the twist enumerates dense (G*A)-state transitions (a rate
+        # mixture's too): K7 / K7 wide, K11b, K11c take up to 64 states
+        _kernels.check_states(leaves.shape[-1], _kernels.MAX_TWIST_A,
+                               "the twist kernels K7, K11b, K11c")
     blocks = getattr(model, "blocks", None)
     if leaves.is_cuda and blocks is not None:
         # K10 for A <= 8 per category, K9 blocked up to 128 planes; raises
@@ -446,7 +443,7 @@ def _sample_body(generator, leaves, model, params, config, *,
             if save_children:
                 child_l, child_r = res[2], res[3]
         else:
-            # ---- 4. explicit children + K8 merge (autograd through K2) --
+            # ---- 4. explicit children + K8 merge (autograd: K11a) ----
             msgs = gather_messages(leaves_sm, buf, nodes, rows_n, q_n,
                                    is_leaf_n)             # (K, 2, A, S)
             m1, m2 = msgs[:, 0].contiguous(), msgs[:, 1].contiguous()
@@ -573,7 +570,7 @@ def _sample_body(generator, leaves, model, params, config, *,
         d_lsc=torch.stack(outs["d_lsc"]),
         child_l=outs["child_l"], child_r=outs["child_r"],
         buf=None if save_children else buf, leaves_sm=leaves_sm,
-        blocks=blocks,
+        blocks=blocks, explicit_children=not (fused_rank and twist is None),
     )
     if twist is not None:
         # the twist reverse pass re-gathers every candidate pair from the

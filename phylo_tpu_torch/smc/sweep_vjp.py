@@ -15,14 +15,16 @@ scalars, the ancestors, pairs (or twist choices) and branch draws
 injected, differentiated by autograd (no message tensors at all); (b)
 under twist, `_twist_messages_bwd`: per rank, the candidate children
 re-gathered from the final buffer, their transitions rebuilt under
-autograd (K4) and the pair log-liks pulled back through K7, with the
-child cotangents scattered into a pending-cotangent buffer; (c) the
-*prologue* (rates -> branches -> transitions (K4) and the stationary
-vector) re-linearized once, per-category blocks for a blocked merge; and
+autograd (K4) and the pair log-liks pulled back through K7 / K7 wide /
+K11c, with the child cotangents scattered into a pending-cotangent
+buffer; (c) the *prologue* (rates -> branches -> transitions (K4) and
+the stationary vector) re-linearized once, per-category blocks for a
+blocked merge; and
 (d) `_messages_bwd`, a reverse loop over ranks that runs kernel K2 on the
 saved children -- or K3, which re-gathers them from the final buffer,
-when the residuals would exceed SAVE_CHILDREN_CAP -- and carries the
-pending buffer for the internal nodes.
+when the residuals would exceed SAVE_CHILDREN_CAP; K11a on the twist's
+explicit children -- and carries the pending buffer for the internal
+nodes.
 
 Gradient semantics are the reference's biased VSMC gradient: resampling,
 topology and twist-choice indices are constants, gathered values carry
@@ -37,7 +39,11 @@ import torch
 
 from phylo_tpu_torch.params import flatten as _flatten
 from phylo_tpu_torch.params import unflatten as _unflatten
-from phylo_tpu_torch.pruning.kernels import fused_rank_bwd, fused_rank_bwd_saved
+from phylo_tpu_torch.pruning.kernels import (
+    fused_rank_bwd,
+    fused_rank_bwd_saved,
+    merge_bwd,
+)
 
 _DIFF_FIELDS = ("elbo", "log_weights", "log_likelihood", "log_likelihood_R",
                 "left_branches", "right_branches", "q_proposal")
@@ -146,7 +152,7 @@ def _manual_bwd(spec, aux, tensors, cts):
         pi = model.stationary(params["model"], dtype=dtype,
                               device=leaves.device).to(dtype)
 
-        # (d) reverse pass over the message DAG (kernel K2 per rank)
+        # (d) reverse pass over the message DAG (K2, K3 or K11a per rank)
         with torch.no_grad():
             dP_all, dpi = _messages_bwd(aux, P_all.detach(), pi.detach(),
                                         g_rootll, g_dlsc, N, pending)
@@ -167,9 +173,10 @@ def _twist_messages_bwd(spec, aux, tensors, g_llm):
     buffer with the pre-rank tables saved by the forward (slot_t,
     rows_t), rebuild the candidate transitions from the saved pools under
     autograd (K4 forward and backward on the card), pull g_llm back
-    through `pair_loglik` (K7 on the card), and scatter-add the child
-    cotangents into the pending buffer (leaf children into its spare
-    column R).  Returns (pending (R+1, K, A, S), parameter cotangents).
+    through the pair log-liks' autograd rule (K7 / K7 wide / K11c on the
+    card), and scatter-add the child cotangents into the pending buffer
+    (leaf children into its spare column R).  Returns (pending (R+1, K,
+    A, S), parameter cotangents).
     """
     from phylo_tpu_torch.models.branches import branch_rates
     from phylo_tpu_torch.smc import twist as tw
@@ -215,8 +222,8 @@ def _twist_messages_bwd(spec, aux, tensors, g_llm):
                 rates_l, rates_r = branch_rates(params["branches"])
                 bl = eps_l[r, sl] / rates_l[r].to(dtype)
                 br = eps_r[r, sl] / rates_r[r].to(dtype)
-            ll = tw.chunk_loglik(model, params["model"], pi, w_vec, m_l,
-                                 m_r, bl, br)
+            ll = tw.chunk_loglik(config.twist, model, params["model"], pi,
+                                 w_vec, m_l, m_r, bl, br)
             dm_l, dm_r, *dp = _grad([ll], [m_l, m_r] + p_leaf,
                                     [g_llm[r][sl]])
             dparams = [a + b for a, b in zip(dparams, dp)]
@@ -238,14 +245,15 @@ def _messages_bwd(aux, P_all, pi, g_rootll, g_dlsc, N, pending=None):
     internal node's scaled message in the absolute buffer frame: node
     q = r of particle row k at pending[r, k].  Column r is written at
     rank r and read only at ranks > r, so by the time reverse step r
-    consumes pending[r], every contribution is in.  Per rank: K2 on the
-    saved children, or K3 re-gathering them from the leaves and the
-    final buffer when the forward did not save them (the sweep's
-    SAVE_CHILDREN_CAP gate), with cotangents (pending[r], g_rootll[r],
-    g_dlsc[r]); then the internal-child cotangents are scatter-added
-    into pending.  Leaf children are routed to the spare slot pending[R]
-    explicitly (index_put_ has no drop mode, and a -1 index would
-    silently hit the last column).  `pending` may arrive pre-filled (the
+    consumes pending[r], every contribution is in.  Per rank: K11a on
+    the twist's explicit children, K2 on the saved children, or K3
+    re-gathering them from the leaves and the final buffer when the
+    forward did not save them (the sweep's SAVE_CHILDREN_CAP gate), with
+    cotangents (pending[r], g_rootll[r], g_dlsc[r]); then the
+    internal-child cotangents are scatter-added into pending.  Leaf
+    children are routed to the spare slot pending[R] explicitly
+    (index_put_ has no drop mode, and a -1 index would silently hit the
+    last column).  `pending` may arrive pre-filled (the
     twist reverse pass's contributions).
 
     Returns (dP_all (R, 2K, A, A) or (R, 2K, G, A, A), dpi (GA,)).
@@ -274,7 +282,12 @@ def _messages_bwd(aux, P_all, pi, g_rootll, g_dlsc, N, pending=None):
         ids, rows = ids_all[r], rows_all[r]
         cts = (pending[r], g_rootll[r].contiguous(), g_dlsc[r].contiguous(),
                P_l_all[r].contiguous(), P_r_all[r].contiguous(), pi, w_vec)
-        if child_l[r] is not None:
+        if aux["explicit_children"]:
+            # the twist's merges ran on explicit dense children: K11a
+            dm1, dm2, dPl, dPr, dpi_p, _ = merge_bwd(
+                child_l[r], child_r[r], *cts[3:], *cts[:3])
+            dpi_p = dpi_p[None]
+        elif child_l[r] is not None:
             dm1, dm2, dPl, dPr, dpi_p, _dw_p = fused_rank_bwd_saved(
                 child_l[r], child_r[r], *cts)
         else:

@@ -34,7 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from phylo_tpu_torch.pruning.kernels import pair_loglik
+from phylo_tpu_torch.pruning.kernels import fused_pair_loglik, pair_loglik
 from phylo_tpu_torch.smc.sweep import (
     gather_messages,
     lookup_nodes,
@@ -48,10 +48,18 @@ class TwistConfig:
     """M: subparticle branch samples per candidate pair (reference
     runner.py:42-45).  pair_chunk: pairs evaluated in one batch (memory
     knob for the (M, K * pair_chunk, S) intermediates); None evaluates a
-    rank's whole table at once."""
+    rank's whole table at once.  use_pallas_ll: on the card, the pair
+    log-likelihoods' forward is kernel K11b (`fused_pair_loglik`, the
+    JAX package's field of the same name); False runs the plain
+    multiply-add expression there.  The CPU always runs the plain
+    expression, and both give the same values and gradients.  The
+    default differs from JAX's (False, from TPU timings): on the H100
+    K11b beat the plain forward (PERF.md, ROADMAP.md "Deliberate
+    divergences")."""
 
     M: int = 10
     pair_chunk: Optional[int] = None
+    use_pallas_ll: bool = True
 
 
 def upper_tri_pairs(N):
@@ -119,20 +127,25 @@ def pair_positions(pairs, K):
     return pairs.T.reshape(-1)[None].expand(K, -1)
 
 
-def chunk_loglik(model, model_params, stationary, weights, m_l, m_r, bl, br):
+def chunk_loglik(twist, model, model_params, stationary, weights, m_l, m_r,
+                 bl, br):
     """Pair-merge data log-likelihoods of one chunk, (C, M, K).
 
     m_l, m_r (K * C, A, S) in K-major flat order (k * C + c); bl, br
     (C, M, K) branch lengths.  One batched transition call (2C, M, K)
-    and one `pair_loglik` (K7 backward on the card)."""
+    and one pair log-likelihood call: K11b forward on the card with
+    `twist.use_pallas_ll`, else the plain expression; the backward is
+    K7 / K7 wide / K11c on the card (pruning.kernels.pair_ll_bwd)."""
     C, M, K = bl.shape
     A = m_l.shape[1]
     P_lr = model.transition(model_params, torch.cat([bl, br])).to(
         m_l.dtype)                                     # (2C, M, K, A, A)
     P_l = P_lr[:C].permute(1, 2, 0, 3, 4).reshape(M, K * C, A, A)
     P_r = P_lr[C:].permute(1, 2, 0, 3, 4).reshape(M, K * C, A, A)
-    ll = pair_loglik(m_l.contiguous(), m_r.contiguous(), P_l.contiguous(),
-                     P_r.contiguous(), stationary, weights)   # (M, K * C)
+    fn = (fused_pair_loglik if twist.use_pallas_ll and m_l.is_cuda
+          else pair_loglik)
+    ll = fn(m_l.contiguous(), m_r.contiguous(), P_l.contiguous(),
+            P_r.contiguous(), stationary, weights)            # (M, K * C)
     return ll.reshape(M, K, C).permute(2, 0, 1)
 
 
@@ -190,7 +203,7 @@ def twisted_extend(generator, twist, model, model_params, stationary,
             msgs = gather_messages(leaves_sm, buf, *looked_up)
             A, S = msgs.shape[-2:]
             parts.append(chunk_loglik(
-                model, model_params, stationary, weights,
+                twist, model, model_params, stationary, weights,
                 msgs[:, :Cc].reshape(K * Cc, A, S),
                 msgs[:, Cc:].reshape(K * Cc, A, S),
                 pool_l[c0:c0 + Cc], pool_r[c0:c0 + Cc]))
