@@ -17,9 +17,13 @@ script exits non-zero without printing a result:
    case included; protein+G4: K9 blocked at K=256, G=4 blocks of A=20,
    S=256 and 500, K9bs blocked at K=64, and G=5 (+I) and all planes
    tied; VNCSMC's pair log-likelihoods at rank 0: K11b at primate
-   (A=4, KC=2,112) and DS1 GTR+G4 (16 dense states, KC=11,232) in an
-   A/B against the plain forward, K7 wide and K11c at DS1 KC=896 and
-   timed at KC=11,232, A=20 and 61 small; K11a at A=4 and 16), with the
+   (A=4, KC=2,112) and at DS1 GTR+G4 (KC=11,232) blocked (G=4 blocks of
+   4, as the twist takes a rate mixture) and dense (the same
+   transitions as 16 block-diagonal states), each in an A/B against the
+   plain forward, K7 wide blocked and dense and K11c at DS1 KC=896 and
+   timed at KC=11,232, the blocked forms against the dense ones (1e-6)
+   with their A/B, dense A=20 and 61 and blocked 5 x 4, 2 x 20, 3 x 7
+   and 4 x 4 over two site chunks small; K11a at A=4 and 16), with the
    tolerances printed, and
    timed beside the plain version, the least time the card could take
    (bound) and, where one exists, a single PyTorch library call; and the
@@ -40,7 +44,7 @@ script exits non-zero without printing a result:
    blocked; K=256, all 500 sites: K9b blocked), and VNCSMC K=32, M=10
    (primate with the defaults: K11b, K7, K11a; with the plain forward;
    with the T-field backward K11c; GTR+G4 on DS1's first 10 taxa at
-   S=256: K11b, K7 wide, K11a at 16 dense states);
+   S=256: K11b and K7 wide blocked, K11a at 16 dense states);
 4. the main paths: two epochs each of VCSMC training on primate (N=12,
    S=898) at K=2048, of VNCSMC (twisted) training at K=32, M=10, of
    GTR+G4 VCSMC training on DS1 (N=27, S=1949) at K=2048, of GY94
@@ -48,11 +52,14 @@ script exits non-zero without printing a result:
    K=128, of protein+G4 training (ReferenceQ(A=20) under GammaSites G=4)
    at K=256 and of an empirical .dat+F+G4 protein model at K=64 on a
    16 x 500 protein alignment that the script simulates from seed 0, of
-   VNCSMC GTR+G4 on DS1 at K=32, M=10 (K11b, K7 wide, K11a), and of
+   VNCSMC GTR+G4 on DS1 at K=32, M=10 (K11b and K7 wide blocked, K11a;
+   the ELBOs and seconds per epoch beside PR 6's), and of
    primate VNCSMC again with the T-field backward K11c,
    site batch 256, through phylo_tpu_torch.cli.runner, with every
    kernel's launch counter set to 0 before each path and read after;
-5. where the time of one epoch of each path goes, under torch.profiler.
+5. where the time of one epoch of each path goes, under torch.profiler
+   (for VNCSMC GTR+G4 on DS1, K11b's and K7 wide's device time beside
+   PR 6's).
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -831,25 +838,29 @@ def check_k7(kern, gen, dev):
                 library_ms=None)
 
 
-def twist_inputs(gen, dev, dataset, spec, C, S, A_=None, Kt=K_TWIST):
+def twist_inputs(gen, dev, dataset, spec, C, S, A_=None, Kt=K_TWIST,
+                 G_=None, blocked=False):
     """The twist's pair-loglik inputs at rank 0 of `dataset` under model
     `spec` (ReferenceQ for None): the first C prefix-ordered candidate
     pairs (leaves, shared by the Kt particles) over the first S sites,
     and the transitions of pool branch lengths b = eps / 10 (the initial
     rates) at the model's initial parameters, M_TWIST subsamples; KC =
-    Kt * C rows in the sweep's K-major order.  With A_, random inputs of
-    A_ states instead (a small shape)."""
+    Kt * C rows in the sweep's K-major order.  `blocked`: a rate
+    mixture's per-category transitions (M, KC, G, A_b, A_b), as the
+    twist takes them.  With A_, random inputs of A_ states instead (a
+    small shape), or of G_ blocks of A_ states with G_."""
     from phylo_tpu_torch.smc import twist as tw
     from phylo_tpu_torch.train.trainer import TrainConfig, init_params
 
     f = dict(dtype=torch.float32, device=dev)
     KC = Kt * C
     if A_ is not None:
-        m_l, m_r = (torch.rand((KC, A_, S), generator=gen, **f) * 0.95 + 0.05
+        GA, tail = (A_, (A_, A_)) if G_ is None else (G_ * A_, (G_, A_, A_))
+        m_l, m_r = (torch.rand((KC, GA, S), generator=gen, **f) * 0.95 + 0.05
                     for _ in range(2))
-        P_l, P_r = (torch.rand((M_TWIST, KC, A_, A_), generator=gen, **f)
+        P_l, P_r = (torch.rand((M_TWIST, KC) + tail, generator=gen, **f)
                     * 0.95 + 0.05 for _ in range(2))
-        pi = torch.rand((A_,), generator=gen, **f) + 0.1
+        pi = torch.rand((GA,), generator=gen, **f) + 0.1
         return m_l, m_r, P_l, P_r, (pi / pi.sum()).contiguous(), \
             torch.ones((S,), **f)
     ds = load(dataset)
@@ -865,32 +876,52 @@ def twist_inputs(gen, dev, dataset, spec, C, S, A_=None, Kt=K_TWIST):
                 .reshape(KC, As, S).contiguous() for j in range(2))
     eps = torch.empty((2 * C, M_TWIST, Kt), **f).exponential_(generator=gen)
     with torch.no_grad():
-        P = model.transition(params["model"], eps / 10.0).float()
+        fn = model.transition_blocks if blocked else model.transition
+        P = fn(params["model"], eps / 10.0).float()
         pi = model.stationary(params["model"], **f).float()
-    P_l, P_r = (x.permute(1, 2, 0, 3, 4).reshape(M_TWIST, KC, As, As)
-                .contiguous() for x in (P[:C], P[C:]))
+    P_l, P_r = (x.permute((1, 2, 0) + tuple(range(3, P.ndim)))
+                .reshape((M_TWIST, KC) + P.shape[3:]).contiguous()
+                for x in (P[:C], P[C:]))
     return m_l, m_r, P_l, P_r, pi.contiguous(), torch.ones((S,), **f)
+
+
+def dense_inputs(kern, ins):
+    """Blocked twist inputs with P as its dense block-diagonal form."""
+    return ins[:2] + tuple(kern.blockdiag_dense(P).contiguous()
+                           for P in ins[2:4]) + ins[4:]
+
+
+def first_rows(ins, n):
+    """The first n rows (KC) of twist inputs."""
+    return tuple((x[:, :n] if x.ndim >= 4 else x[:n] if x.ndim == 3 else x)
+                 .contiguous() for x in ins)
 
 
 def twist_bound(ins, kind):
     """Bound of one twist call on inputs `ins`: the forward K11b, the
     backward K7 / K7 wide, or the T-field backward K11c with its dP
-    products.  Operations per (m, row, site): u, v (4 A^2, an FMA counts
-    2), the site sum and its log (3 A + 2); the backwards add gsite (2),
-    du, dv (4 A) and dm, dP (8 A^2), or pi u, pi v, vbar, ubar and T (6
-    A^2 + 4 A) and per (m, row) the two A x A products (4 A^3)."""
+    products; P dense (G = 1) or blocked, G blocks of A_b states, A = G
+    A_b planes.  Operations per (m, row, site): u, v (4 A^2 / G, an FMA
+    counts 2), the site sum and its log (3 A + 2); the backwards add
+    gsite (2), du, dv (4 A) and dm, dP (8 A^2 / G), or pi u, pi v, vbar,
+    ubar and T (6 A^2 + 4 A) and per (m, row) the two A x A products (4
+    A^3).  Bytes: each input read once (P: G A_b^2 floats a matrix),
+    each output written once."""
     m1, _, P_l, _, _, w = ins
-    M_, KC, A_, _ = P_l.shape
+    M_, KC = P_l.shape[:2]
+    G = P_l.shape[2] if P_l.ndim == 5 else 1
+    A_ = m1.shape[1]
+    AA = A_ * A_ // G
     S = w.shape[0]
     slab = KC * A_ * S * 4
-    pbytes = M_ * KC * A_ * A_ * 4
+    pbytes = M_ * KC * AA * 4
     if kind == "fwd":
         nbytes = 2 * slab + 2 * pbytes + M_ * KC * 4 + S * 4 + A_ * 4
-        nops = M_ * KC * S * (4 * A_ * A_ + 3 * A_ + 2)
+        nops = M_ * KC * S * (4 * AA + 3 * A_ + 2)
     else:
         nbytes = 4 * slab + 4 * pbytes + M_ * KC * 4 + S * 4 + 2 * A_ * 4
-        per = (12 * A_ * A_ + 7 * A_ + 2 if kind == "bwd"
-               else 10 * A_ * A_ + 7 * A_ + 2)
+        per = (12 * AA + 7 * A_ + 2 if kind == "bwd"
+               else 10 * AA + 7 * A_ + 2)
         nops = M_ * KC * S * per + (4 * M_ * KC * A_ ** 3
                                     if kind == "bwd_t" else 0)
     return bound(nbytes, nops)
@@ -913,9 +944,9 @@ def check_k11b(kern, ins, label, timed=True):
     want = kern._pair_ll_ref(*ins)
     torch.cuda.synchronize()
     err = max_rel(got, want)
-    M_, KC, A_, _ = ins[2].shape
+    M_, KC = ins[2].shape[:2]
     tol = 1e-4   # f32 sums over S sites of logs, in another order
-    log(f"  K11b pair_loglik_fwd {label} M={M_} KC={KC} A={A_} "
+    log(f"  K11b {label} M={M_} KC={KC} P {tuple(ins[2].shape[2:])} "
         f"S={ins[0].shape[-1]}: rel err {err:.3e} (tol {tol:g})")
     require(err <= tol, f"K11b {label} relative error {err} > {tol}")
     if not timed:
@@ -935,10 +966,10 @@ def check_k11b(kern, ins, label, timed=True):
 
 def check_twist_bwd(kern, gen, ins, label, t_field, timed=True,
                     full=None):
-    """K7 wide (t_field False) or K11c (the T-field backward, with its
-    dP products) against its plain version; timed at these inputs, and
-    the kernel alone at the `full` rank-0 inputs."""
-    M_, KC, A_, _ = ins[2].shape
+    """K7 wide, dense or blocked (t_field False), or K11c (the T-field
+    backward, with its dP products) against its plain version; timed at
+    these inputs, and the kernel alone at the `full` rank-0 inputs."""
+    M_, KC = ins[2].shape[:2]
     f = dict(dtype=torch.float32, device=ins[0].device)
     g = torch.randn((M_, KC), generator=gen, **f)
     kind = "bwd_t" if t_field else "bwd"
@@ -952,7 +983,8 @@ def check_twist_bwd(kern, gen, ins, label, t_field, timed=True,
         names = ["dm1", "dm2", "dP_l", "dP_r", "dpi"]
         errs = {n: max_rel(a, b) for n, a, b in zip(names, got, want)}
         tol = 1e-4   # f32 sums over M (dm) and S (dP, dpi) in another order
-        log(f"  {label} M={M_} KC={KC} A={A_} S={ins[0].shape[-1]}: "
+        log(f"  {label} M={M_} KC={KC} P {tuple(ins[2].shape[2:])} "
+            f"S={ins[0].shape[-1]}: "
             + ", ".join(f"{n} rel err {v:.3e}" for n, v in errs.items())
             + f" (tol {tol:g})")
         for n, v in errs.items():
@@ -977,6 +1009,102 @@ def check_twist_bwd(kern, gen, ins, label, t_field, timed=True,
     return dict(max_abs_err=max(max_abs(a, b) for a, b in zip(got, want)),
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
+
+
+def check_forms(kern, gen, ins, label, timed=True):
+    """The blocked forms of K11b and K7 wide against their dense forms on
+    the same inputs, P as its block-diagonal dense form (within 1e-6: the
+    same chains, the dense form's off-block terms exact zeros; dP over
+    the diagonal blocks, summed over the sites in another split); timed,
+    their A/B in one call, in turns dense, blocked, blocked, dense."""
+    dense = dense_inputs(kern, ins)
+    M_, KC, G = ins[2].shape[:3]
+    Ab = ins[2].shape[-1]
+    g = torch.randn((M_, KC), generator=gen, dtype=torch.float32,
+                    device=ins[0].device)
+    fwd_b, fwd_d = kern.pair_ll_fwd(*ins), kern.pair_ll_fwd(*dense)
+    bwd_b = kern.pair_ll_bwd(*ins, g, want_dw=False)[:5]
+    bwd_d = list(kern.pair_ll_bwd(*dense, g, want_dw=False)[:5])
+    for i in (2, 3):
+        bwd_d[i] = torch.stack([bwd_d[i][:, :, j * Ab:(j + 1) * Ab,
+                                         j * Ab:(j + 1) * Ab]
+                                for j in range(G)], dim=2)
+    torch.cuda.synchronize()
+    errs = {"ll": max_rel(fwd_b, fwd_d)}
+    errs.update({n: max_rel(a, b) for n, a, b in zip(
+        ("dm1", "dm2", "dP_l", "dP_r", "dpi"), bwd_b, bwd_d)})
+    # 1e-6 for the kernels' outputs; dpi is the wrapper's float32 torch.sum
+    # of dP P over M KC A_b terms of both signs (g is random), reduced in
+    # another order in each form: 1e-5
+    tols = {n: 1e-5 if n == "dpi" else 1e-6 for n in errs}
+    log(f"  {label} blocked vs dense forms, KC={KC} G={G} A_b={Ab}: "
+        + ", ".join(f"{n} rel err {v:.3e} (tol {tols[n]:g})"
+                    for n, v in errs.items()))
+    for n, v in errs.items():
+        require(v <= tols[n], f"{label} blocked vs dense {n}: {v} > "
+                f"{tols[n]}")
+    if not timed:
+        return
+    with torch.no_grad():
+        (d1, d2), (b1, b2) = ab_ms(lambda: kern.pair_ll_fwd(*dense),
+                                   lambda: kern.pair_ll_fwd(*ins))
+    log(f"  {label} K11b A/B (dense, blocked, blocked, dense): {d1:.4f}, "
+        f"{b1:.4f}, {b2:.4f}, {d2:.4f} ms")
+    (d1, d2), (b1, b2) = ab_ms(
+        lambda: kern.pair_ll_bwd(*dense, g, want_dw=False),
+        lambda: kern.pair_ll_bwd(*ins, g, want_dw=False))
+    log(f"  {label} K7 wide A/B (dense, blocked, blocked, dense): "
+        f"{d1:.4f}, {b1:.4f}, {b2:.4f}, {d2:.4f} ms")
+
+
+def check_twist_kernels(kernels, gen, dev):
+    """Phase 2's pair-loglik kernels (K11b, K7 wide, K11c), dense and
+    blocked; returns the kernels line's entries (K11b dense, K11b
+    blocked, K7 wide dense, K7 wide blocked, K11c)."""
+    # VNCSMC's pair log-likelihoods at rank 0 (all candidate pairs):
+    # K11b dense on primate (A=4, KC = 32 x 66); on DS1 GTR+G4 (KC = 32 x
+    # 351) blocked, as the twist takes a rate mixture (G=4 blocks of 4),
+    # and dense on the same block-diagonal transitions (PR 6's 16 dense
+    # states), each in an A/B against the plain forward; K7 wide blocked
+    # and dense and K11c on the first KC = 896 rows (32 x 28, the row
+    # count of rank 19), where the plain autograd VJP fits, and the
+    # kernels alone at rank 0's KC; the blocked forms against the dense
+    # ones; A = 20 (+I) and 61 (codons) dense, and blocked G=5 x 4 (+I),
+    # 2 x 20, 3 x 7 and 4 x 4 over two site chunks, small
+    twist_p = twist_inputs(gen, dev, "primate", None, N * (N - 1) // 2,
+                           S_BATCH)
+    check_k11b(kernels, twist_p, "primate")
+    del twist_p
+    twist_b = twist_inputs(gen, dev, "hohna_data_1", "gtr+g4",
+                           N_DS1 * (N_DS1 - 1) // 2, S_BATCH, blocked=True)
+    twist_d = dense_inputs(kernels, twist_b)
+    k11b_blk = check_k11b(kernels, twist_b, "DS1 gtr+g4 blocked")
+    k11b = check_k11b(kernels, twist_d, "DS1 gtr+g4 dense")
+    rows_b = first_rows(twist_b, K_TWIST * 28)
+    rows_d = dense_inputs(kernels, rows_b)
+    k7wb = check_twist_bwd(kernels, gen, rows_b, "K7 wide blocked", False,
+                           full=twist_b)
+    k7w = check_twist_bwd(kernels, gen, rows_d, "K7 wide dense", False,
+                          full=twist_d)
+    k11c = check_twist_bwd(kernels, gen, rows_d, "K11c pair_ll_bwd_t", True,
+                           full=twist_d)
+    check_forms(kernels, gen, rows_b, "DS1 gtr+g4 KC=896")
+    check_forms(kernels, gen, twist_b, "DS1 gtr+g4 rank 0")
+    del twist_b, twist_d, rows_b, rows_d
+    for A_, S in ((20, 70), (61, 70), (20, 300)):
+        small = twist_inputs(gen, dev, None, None, 5, S, A_=A_, Kt=3)
+        check_k11b(kernels, small, "small dense", timed=False)
+        check_twist_bwd(kernels, gen, small, "K7 wide small dense", False,
+                        timed=False)
+        check_twist_bwd(kernels, gen, small, "K11c small", True,
+                        timed=False)
+    for G_, A_, S in ((5, 4, 70), (2, 20, 70), (3, 7, 70), (4, 4, 300)):
+        small = twist_inputs(gen, dev, None, None, 5, S, A_=A_, Kt=3, G_=G_)
+        check_k11b(kernels, small, "small blocked", timed=False)
+        check_twist_bwd(kernels, gen, small, "K7 wide small blocked", False,
+                        timed=False)
+        check_forms(kernels, gen, small, "small", timed=False)
+    return k11b, k11b_blk, k7w, k7wb, k11c
 
 
 def check_k11a(kern, gen, dev, A_, S=S_BATCH, Kt=K_TWIST):
@@ -1257,22 +1385,32 @@ PATHS = {
         argv=["--model=gtr+g4", f"--n_particles={K}"],
         kernels=("fused_rank_update_blocked", "fused_rank_bwd_blocked",
                  "expm_fwd", "expm_bwd", "categorical")),
-    # VNCSMC with GTR+G4 on DS1 (the twist enumerates 16 dense states):
-    # 7 SGD steps of 256 sites + the 1949-site eval sweep, 26 ranks each,
-    # one pair chunk per rank; K11b in every sweep and in the reverse
-    # pass's re-evaluation, K7 wide and K11a in each step's reverse pass
+    # VNCSMC with GTR+G4 on DS1 (the twist scores its candidates through
+    # G=4 blocks of 4 states): 7 SGD steps of 256 sites + the 1949-site
+    # eval sweep, 26 ranks each, one pair chunk per rank; K11b blocked in
+    # every sweep and in the reverse pass's re-evaluation, K7 wide blocked
+    # and K11a in each step's reverse pass; no dense twist kernel.  PR 6
+    # (dense 16-state twist, NVIDIA H100 80GB HBM3, 700 W): ELBO -7420.570
+    # and -7387.625 after epochs 1 and 2, 6.20-8.66 s per epoch; K7 wide
+    # 816 ms and K11b 454 ms of a profiled epoch's device time
     "vncsmc_gtr_g4_ds1": dict(
         dataset="hohna_data_1", band=VNCSMC_DS1_BAND,
         train=dict(nested=True, M=M_TWIST, n_particles=K_TWIST,
                    substitution_model="gtr+g4"),
         argv=["--model=gtr+g4", "--nested=True", f"--M={M_TWIST}",
               f"--n_particles={K_TWIST}"],
-        kernels=("pair_loglik_fwd", "pair_ll_bwd_wide", "merge_bwd",
-                 "expm_fwd", "expm_bwd", "categorical"),
-        exact={"pair_ll_bwd_wide": (N_DS1 - 1) * 2 * (S_DS1 // S_BATCH),
+        kernels=("pair_loglik_fwd_blocked", "pair_ll_bwd_wide_blocked",
+                 "merge_bwd", "expm_fwd", "expm_bwd", "categorical"),
+        exact={"pair_ll_bwd_wide_blocked": (N_DS1 - 1) * 2 * (
+            S_DS1 // S_BATCH),
                "merge_bwd": (N_DS1 - 1) * 2 * (S_DS1 // S_BATCH),
-               "pair_loglik_fwd": (N_DS1 - 1) * (
-                   1 + 2 * (S_DS1 // S_BATCH + 1) + 2 * (S_DS1 // S_BATCH))}),
+               "pair_loglik_fwd_blocked": (N_DS1 - 1) * (
+                   1 + 2 * (S_DS1 // S_BATCH + 1) + 2 * (S_DS1 // S_BATCH)),
+               "pair_loglik_fwd": 0, "pair_ll_bwd_wide": 0},
+        earlier="PR 6: ELBO -7420.570, -7387.625 after epochs 1, 2; "
+                "6.20-8.66 s per epoch",
+        twist_profile="PR 6: K11b 454 ms over 390 launches, K7 wide 816 ms "
+                      "over 182"),
     # primate VNCSMC again with the T-field backward K11c
     # (PHYLO_TWIST_BWD_V2=1) in place of K7: 3 SGD steps an epoch, 11
     # ranks each
@@ -1369,8 +1507,9 @@ def main_path(ext, name):
         + ", ".join(f"{grp}.{k}" for grp in ("model", "branches")
                     for k in sorted(res.params[grp])) + ")")
     secs = res.history["epoch_seconds"]
+    earlier = f" ({path['earlier']})" if "earlier" in path else ""
     log(f"phase 4 {name} ELBO {elbo:.3f}; seconds per epoch after warm-up "
-        f"{secs[-1]:.4f} (epoch 1 incl. warm-up {secs[0]:.4f})")
+        f"{secs[-1]:.4f} (epoch 1 incl. warm-up {secs[0]:.4f}){earlier}")
     return launches
 
 
@@ -1400,12 +1539,18 @@ def profile_epoch(name):
         wall_ms = (time.perf_counter() - t0) * 1e3
         t1 = time.perf_counter()
     rows = []
+    twist = {"K11b": [0.0, 0], "K7 wide": [0.0, 0]}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = getattr(e, "self_cuda_time_total", 0.0)
             rows.append((e.key[:70], float(us) / 1e3, int(e.count)))
+            for kname, fn in (("K11b", "pair_ll_fwd_kernel"),
+                              ("K7 wide", "pair_ll_bwd_wide_kernel")):
+                if fn in e.key:
+                    twist[kname][0] += float(us) / 1e3
+                    twist[kname][1] += int(e.count)
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     if not rows:
@@ -1419,6 +1564,12 @@ def profile_epoch(name):
         "summary_s": time.perf_counter() - t1,
         "top_kernels": [{"name": k, "device_ms": ms, "launches": n}
                         for k, ms, n in rows[:10]]}))
+    if "twist_profile" in path:
+        log(f"phase 5 {name} twist kernels: " + ", ".join(
+            f"{k} {ms:.1f} ms over {n} launches"
+            for k, (ms, n) in twist.items())
+            + f"; together {sum(v[0] for v in twist.values()):.1f} ms "
+            f"({path['twist_profile']})")
 
 
 def main(argv):
@@ -1479,35 +1630,8 @@ def main(argv):
     k7 = check_k7(kernels, gen, dev)
     k8 = check_k8(kernels, gen, dev, S_BATCH)
     check_k8(kernels, gen, dev, S_FULL)
-    # VNCSMC's pair log-likelihoods at rank 0 (all candidate pairs):
-    # K11b on primate (A=4, KC = 32 x 66) and on DS1 GTR+G4 (16 dense
-    # states, KC = 32 x 351), A/B against the plain forward; K7 wide and
-    # K11c on the first KC = 896 rows of DS1's rank-0 inputs (32 x 28,
-    # the row count of rank 19), where the plain autograd VJP fits, and
-    # the kernels alone at rank 0's KC; A = 20 (+I) and 61 (codons) small
-    twist_p = twist_inputs(gen, dev, "primate", None, N * (N - 1) // 2,
-                           S_BATCH)
-    check_k11b(kernels, twist_p, "primate")
-    del twist_p
-    twist_d = twist_inputs(gen, dev, "hohna_data_1", "gtr+g4",
-                           N_DS1 * (N_DS1 - 1) // 2, S_BATCH)
-    k11b = check_k11b(kernels, twist_d, "DS1 gtr+g4")
-    twist_c = tuple(x[:, :K_TWIST * 28] if x.ndim == 4 else
-                    x[:K_TWIST * 28] if x.ndim == 3 else x
-                    for x in twist_d)
-    twist_c = tuple(x.contiguous() for x in twist_c)
-    k7w = check_twist_bwd(kernels, gen, twist_c, "K7 wide pair_ll_bwd_wide",
-                          False, full=twist_d)
-    k11c = check_twist_bwd(kernels, gen, twist_c, "K11c pair_ll_bwd_t",
-                           True, full=twist_d)
-    del twist_c, twist_d
-    for A_ in (20, 61):
-        small = twist_inputs(gen, dev, None, None, 5, 70, A_=A_, Kt=3)
-        check_k11b(kernels, small, "small", timed=False)
-        check_twist_bwd(kernels, gen, small, "K7 wide small", False,
-                        timed=False)
-        check_twist_bwd(kernels, gen, small, "K11c small", True,
-                        timed=False)
+    k11b, k11b_blk, k7w, k7wb, k11c = check_twist_kernels(kernels, gen,
+                                                          dev)
     check_k11a(kernels, gen, dev, A)
     k11a = check_k11a(kernels, gen, dev, 4 * G_GAMMA)
     torch.cuda.empty_cache()
@@ -1556,8 +1680,9 @@ def main(argv):
     fixed_decision_check(dev, route="fused_rank_bwd")
     # VNCSMC: primate with the defaults (K11b, K7, K11a), with the plain
     # forward and with the T-field backward (K11c); GTR+G4 on DS1's
-    # first 10 taxa (K11b, K7 wide, K11a at 16 dense states; the CPU's
-    # plain float64 enumeration over all 27 taxa would take many minutes)
+    # first 10 taxa (K11b and K7 wide blocked, G=4 blocks of 4, K11a at
+    # 16 dense states for the chosen merges; the CPU's plain float64
+    # enumeration over all 27 taxa would take many minutes)
     fixed_decision_check(dev, twist=True, route=(
         "pair_loglik_fwd", "pair_ll_bwd", "merge_bwd"))
     fixed_decision_check(dev, twist=True, S=S_BATCH, use_pallas_ll=False,
@@ -1566,8 +1691,8 @@ def main(argv):
                          route=("pair_loglik_fwd", "pair_ll_bwd_t"))
     fixed_decision_check(dev, twist=True, spec="gtr+g4",
                          dataset="hohna_data_1", S=S_BATCH, Nd=10,
-                         route=("pair_loglik_fwd", "pair_ll_bwd_wide",
-                                "merge_bwd"))
+                         route=("pair_loglik_fwd_blocked",
+                                "pair_ll_bwd_wide_blocked", "merge_bwd"))
     # GTR+G4: under the cap (K10's saved-children backward), over it (K3)
     fixed_decision_check(dev, spec="gtr+g4", Kd=512, S=S_BATCH,
                          route="fused_rank_bwd_saved_blocked")
@@ -1623,8 +1748,14 @@ def main(argv):
          "phylo_tpu/pruning/kernels.py:159", k8),
         ("pair_ll_bwd_wide", "phylo_tpu_torch/csrc/twist_wide_kernels.cu",
          "phylo_tpu/pruning/kernels.py:1059", k7w),
+        ("pair_ll_bwd_wide_blocked",
+         "phylo_tpu_torch/csrc/twist_wide_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:1059", k7wb),
         ("pair_loglik_fwd", "phylo_tpu_torch/csrc/twist_wide_kernels.cu",
          "phylo_tpu/pruning/kernels.py:588", k11b),
+        ("pair_loglik_fwd_blocked",
+         "phylo_tpu_torch/csrc/twist_wide_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:588", k11b_blk),
         ("pair_ll_bwd_t", "phylo_tpu_torch/csrc/twist_wide_kernels.cu",
          "phylo_tpu/pruning/kernels.py:1037", k11c),
         ("merge_bwd", "phylo_tpu_torch/csrc/wide_kernels.cu",

@@ -38,10 +38,14 @@ the plain versions `_fused_rank_ref` / `_fused_rank_bwd_saved_ref` /
 states per block runs on K10 (G <= 32 blocks); above 128 planes (GY94 +
 Gamma4: 244) the card has no rank kernel.  K1, K2, K3 and K9 have no
 autograd rule: only the manual whole-sweep VJP (smc.sweep_vjp) and the
-no-grad sweep call them.  K7 (A <= 8) and K8 live in
-csrc/twist_kernels.cu, K7 wide (8 < A <= 64), K11b and K11c (A <= 64) in
+no-grad sweep call them.  K7 (dense A <= 8) and K8 live in
+csrc/twist_kernels.cu, K7 wide (dense 8 < A <= 64, and blocked), K11b
+(dense and blocked) and K11c (dense) for up to 64 planes in
 csrc/twist_wide_kernels.cu; K11a is a named entry over K2's body (A <= 8)
-and K9bs dense (A <= 128).  `fused_merge_loglik`, `pair_loglik` and
+and K9bs dense (A <= 128).  The twist's pair log-likelihoods take P dense
+(M, K, A, A) or, for a rate mixture (`twist_blocks`), blocked (M, K, G,
+A_b, A_b): the wrappers dispatch on P's rank, and the gradient comes back
+in P's own shape.  `fused_merge_loglik`, `pair_loglik` and
 `fused_pair_loglik` carry torch.autograd.Functions.
 """
 
@@ -55,8 +59,11 @@ from phylo_tpu_torch import _ext
 from phylo_tpu_torch.models.expm import exact_matmul
 
 MAX_A = 8                       # states per block of K1-K3, K7, K8, K10
-MAX_TWIST_A = 64                # dense states of K7 wide, K11b, K11c
-PAIR_FWD_TILE = 128             # K11b: sites per CUDA block (partials)
+MAX_TWIST_A = 64                # planes of K7 wide, K11b, K11c
+FWD_MAX_THREADS = 256           # K11b: threads per CUDA block
+BWD_MAX_THREADS = 512           # K7 wide: threads per CUDA block
+BWD_MAX_SC = 256                # K7 wide: sites per chunk
+SMEM_LIMIT = 232448             # shared-memory bytes of a block (H100)
 MAX_G = 32                      # rate-category blocks on the card
 MAX_WIDE_PLANES = 128           # G*A planes of the wide kernels K9
 WIDE_TILE = 32                  # K9f: sites per CUDA block (partial rows)
@@ -518,27 +525,104 @@ def fused_merge_loglik(m1, m2, P_l, P_r, pi, weights):
     return _FusedMergeLoglik.apply(m1, m2, P_l, P_r, pi, weights)
 
 
+def _pow2(x):
+    """The least power of two >= x."""
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def twist_blocks(model):
+    """(G, A_b) when the twist's pair log-likelihoods take a rate
+    mixture's per-category transitions (K11b blocked, K7 wide blocked):
+    the model has `blocks` with G >= 2 whose padded register tile (A_b
+    and G each up to a power of two) fits K11b's 64 planes.  None keeps
+    the dense (G*A_b)-state route: models without blocks, wider blocks
+    (such as protein + Gamma3, 60 planes), and the T-field backward
+    (TWIST_BWD_V2), whose kernel K11c is dense.  The same on every
+    device."""
+    blocks = getattr(model, "blocks", None)
+    if blocks is None or TWIST_BWD_V2:
+        return None
+    G, Ab = blocks
+    if G < 2 or G > MAX_G or _pow2(max(Ab, 4)) * _pow2(G) > MAX_TWIST_A:
+        return None
+    return G, Ab
+
+
+def twist_fwd_plan(G, Ab, S):
+    """K11b's launch: (sites a thread, threads a block, site tiles).  A
+    thread holds 2 x (padded planes) x SPT message values in registers:
+    SPT = 2 up to 32 padded planes, 1 up to 64 (at 16 planes SPT = 2 ran
+    6-7% quicker than 4 and 16-46% quicker than 1 on the H100:
+    tools/torch_twist_forms.py --spt); a block covers up to 256 threads'
+    sites (S = 256 at SPT = 2: one block of 128 threads per row)."""
+    NG = 1 if G == 1 else _pow2(G)
+    planes = _pow2(max(Ab, 4)) * NG
+    if planes > MAX_TWIST_A:
+        raise NotImplementedError(
+            f"K11b takes at most {MAX_TWIST_A} padded planes, got G={G} x "
+            f"A={Ab}")
+    spt = 2 if planes <= 32 else 1
+    threads = min(FWD_MAX_THREADS, max(32, _ceil(_ceil(S, spt), 32) * 32))
+    return spt, threads, _ceil(S, threads * spt)
+
+
+def twist_bwd_plan(G, Ab, S):
+    """K7 wide's launch: (SC sites a chunk, threads, shared-memory bytes).
+    A thread owns a (4 planes x 4 sites) tile, so a chunk needs NGT SC / 4
+    threads (NGT = G ceil(A_b / 4) plane groups, up to 512 threads); SC is
+    at most 256, a multiple of 32, and shrinks until the chunk's m1, m2,
+    pi v, pi u (pitch SC + 4), site partials, gsite and the double-
+    buffered P in both layouts fit a block's 227 KB."""
+    NPG = _ceil(Ab, 4)
+    NGT, GA = G * NPG, G * Ab
+
+    def smem(sc):
+        return 4 * ((4 * GA + NGT + 1) * (sc + 4) + 8 * GA * 4 * NPG
+                    + _ceil(GA, 4) * 4)
+
+    sc = min(BWD_MAX_SC, (4 * BWD_MAX_THREADS // NGT) // 32 * 32,
+             _ceil(S, 32) * 32)
+    while sc > 32 and smem(sc) > SMEM_LIMIT:
+        sc -= 32
+    return sc, _ceil(NGT * sc // 4, 32) * 32, smem(sc)
+
+
+def _as_blocks(P):
+    """Transitions as (M, K, G, A_b, A_b): a dense (M, K, A, A) is G = 1."""
+    return P[:, :, None] if P.ndim == 4 else P
+
+
 def _pair_site_lik(m1, m2, P_l, P_r, pi):
     """(M, K, S) site likelihoods of M candidate merges per particle, as
-    explicit multiply-adds in the JAX package's order."""
-    A = P_l.shape[-1]
+    explicit multiply-adds in the JAX package's order.  P dense (M, K, A,
+    A) or blocked (M, K, G, A_b, A_b): u_b runs over the a of b's block
+    (state g * A_b + a), the site sum over all planes in order, so on a
+    block-diagonal input the blocked form drops only exact zero terms and
+    equals the dense one."""
+    P_l, P_r = _as_blocks(P_l), _as_blocks(P_r)
+    G, Ab = P_l.shape[2], P_l.shape[-1]
     site_lik = None
-    for b in range(A):
-        u_b = v_b = None
-        for a in range(A):
-            tu = m1[None, :, a, :] * P_l[:, :, a, b, None]
-            tv = m2[None, :, a, :] * P_r[:, :, a, b, None]
-            u_b = tu if u_b is None else u_b + tu
-            v_b = tv if v_b is None else v_b + tv
-        term = (u_b * v_b) * pi[b]
-        site_lik = term if site_lik is None else site_lik + term
+    for g in range(G):
+        for b in range(Ab):
+            u_b = v_b = None
+            for a in range(Ab):
+                tu = m1[None, :, g * Ab + a, :] * P_l[:, :, g, a, b, None]
+                tv = m2[None, :, g * Ab + a, :] * P_r[:, :, g, a, b, None]
+                u_b = tu if u_b is None else u_b + tu
+                v_b = tv if v_b is None else v_b + tv
+            term = (u_b * v_b) * pi[g * Ab + b]
+            site_lik = term if site_lik is None else site_lik + term
     return site_lik
 
 
 def _pair_ll_ref(m1, m2, P_l, P_r, pi, weights):
     """Data log-likelihoods (M, K) of M candidate merges per particle:
-    m1, m2 (K, A, S) shared across M; P_l, P_r (M, K, A, A).  The plain
-    version of K11b."""
+    m1, m2 (K, A, S) shared across M; P_l, P_r (M, K, A, A), or blocked
+    (M, K, G, A_b, A_b) with A = G A_b.  The plain version of K11b."""
     site_lik = _pair_site_lik(m1, m2, P_l, P_r, pi)
     return torch.sum(torch.log(site_lik) * weights[None, None, :], dim=-1)
 
@@ -550,45 +634,50 @@ def _dw_ref(m1, m2, P_l, P_r, pi, g):
 
 
 def _twist_args(m1, m2, P_l, P_r, pi, weights, g=None):
-    """Validates a twist kernel's inputs on the card; returns (M, K, A,
-    S)."""
-    M, K, A, _ = P_l.shape
-    S = m1.shape[-1]
+    """Validates a twist kernel's inputs on the card; returns (M, K, G,
+    A_b, S) (G = 1, A_b = A for dense transitions)."""
+    M, K = P_l.shape[:2]
+    G = P_l.shape[2] if P_l.ndim == 5 else 1
+    Ab = P_l.shape[-1]
+    A, S = G * Ab, m1.shape[-1]
     check_states(A, MAX_TWIST_A, "the twist kernels K7, K11b, K11c")
     f32 = torch.float32
     _ext.require(m1, "m1", f32, shape=(K, A, S))
     _ext.require(m2, "m2", f32, shape=(K, A, S))
-    _ext.require(P_l, "P_l", f32, shape=(M, K, A, A))
-    _ext.require(P_r, "P_r", f32, shape=(M, K, A, A))
+    P_shape = (M, K) + (G,) * (P_l.ndim == 5) + (Ab, Ab)
+    _ext.require(P_l, "P_l", f32, shape=P_shape)
+    _ext.require(P_r, "P_r", f32, shape=P_shape)
     _ext.require(pi, "pi", f32, shape=(A,))
     _ext.require(weights, "weights", f32, shape=(S,))
     if g is not None:
         _ext.require(g, "g", f32, shape=(M, K))
-    return M, K, A, S
+    return M, K, G, Ab, S
 
 
 def pair_ll_fwd(m1, m2, P_l, P_r, pi, weights):
-    """K11b: the (M, K) data log-likelihoods `_pair_ll_ref` computes,
-    one kernel launch (M looped inside) plus a fixed-order sum of its
-    per-128-site partials; no autograd."""
+    """K11b: the (M, K) data log-likelihoods `_pair_ll_ref` computes, one
+    kernel launch (M looped inside) plus a fixed-order sum of its
+    per-tile partials; no autograd.  Blocked transitions (P of rank 5)
+    launch the blocked form, counted as `pair_loglik_fwd_blocked`."""
     if not m1.is_cuda:
         return _pair_ll_ref(m1, m2, P_l, P_r, pi, weights)
-    M, K, A, S = _twist_args(m1, m2, P_l, P_r, pi, weights)
-    dev = m1.device
-    part = torch.empty((M, K, -(-S // PAIR_FWD_TILE)), dtype=torch.float32,
-                       device=dev)
-    fn = _ext.bind("twist_wide_kernels", "launch_pair_ll_fwd", 7, 4)
-    _ext.LAUNCHES["pair_loglik_fwd"] += 1
+    M, K, G, Ab, S = _twist_args(m1, m2, P_l, P_r, pi, weights)
+    spt, threads, tiles = twist_fwd_plan(G, Ab, S)
+    part = torch.empty((M, K, tiles), dtype=torch.float32, device=m1.device)
+    fn = _ext.bind("twist_wide_kernels", "launch_pair_ll_fwd", 7, 8)
+    name = "pair_loglik_fwd_blocked" if P_l.ndim == 5 else "pair_loglik_fwd"
+    _ext.LAUNCHES[name] += 1
     _ext.check(fn(m1.data_ptr(), m2.data_ptr(), P_l.data_ptr(),
                   P_r.data_ptr(), pi.data_ptr(), weights.data_ptr(),
-                  part.data_ptr(), K, M, A, S, _ext.stream_ptr(dev)),
-               "pair_loglik_fwd")
+                  part.data_ptr(), K, M, G, Ab, S, spt, threads, tiles,
+                  _ext.stream_ptr(m1.device)), name)
     return torch.sum(part, dim=-1)
 
 
 def _pair_ll_bwd_plain(m1, m2, P_l, P_r, pi, weights, g):
-    """Plain version of K7 and K7 wide: the autograd VJP of
-    `_pair_ll_ref`.  Returns (dm1, dm2, dP_l, dP_r, dpi, dw)."""
+    """Plain version of K7 and K7 wide (dense and blocked): the autograd
+    VJP of `_pair_ll_ref`.  Returns (dm1, dm2, dP_l, dP_r, dpi, dw), dP
+    in P's own shape."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True)
                for t in (m1, m2, P_l, P_r, pi, weights)]
@@ -608,7 +697,8 @@ def _pair_ll_bwd_t_ref(m1, m2, P_l, P_r, pi, weights, g):
     """Plain version of K11c, term for term `_kernel_ll_bwd2`'s math:
     gsite = g w / site; T[a, a'] = sum_s gsite m1[a] m2[a']; dm1[a] =
     sum_m gsite vbar_a, vbar_a = sum_b P_l[a, b] pi_b v_b (dm2 mirrored);
-    dP from T.  Returns (dm1, dm2, dP_l, dP_r, dpi, dw)."""
+    dP from T.  Dense transitions only.  Returns (dm1, dm2, dP_l, dP_r,
+    dpi, dw)."""
     u = _apply_t(m1[None], P_l)                       # (M, K, A, S)
     v = _apply_t(m2[None], P_r)
     pu = u * pi[:, None]
@@ -626,42 +716,54 @@ def _pair_ll_bwd_t_ref(m1, m2, P_l, P_r, pi, weights, g):
 
 def pair_ll_bwd(m1, m2, P_l, P_r, pi, weights, g, want_dw=True):
     """Cotangents of `_pair_ll_ref` for the output cotangent g (M, K):
-    K7 (A <= 8), K7 wide (8 < A <= 64), or K11c, the T-field form, when
-    TWIST_BWD_V2 is set (PHYLO_TWIST_BWD_V2=1, the JAX package's knob).
-    Returns (dm1, dm2 (K, A, S), dP_l, dP_r (M, K, A, A), dpi (A,),
-    dw (S,) or None without want_dw)."""
+    dense K7 (A <= 8), K7 wide (8 < A <= 64, and every blocked P, counted
+    as `pair_ll_bwd_wide_blocked`), or K11c, the T-field form, for dense P
+    when TWIST_BWD_V2 is set (PHYLO_TWIST_BWD_V2=1, the JAX package's
+    knob).  Returns (dm1, dm2 (K, A, S), dP_l, dP_r in P's shape, dpi
+    (A,), dw (S,) or None without want_dw)."""
+    blocked = P_l.ndim == 5
+    t_field = TWIST_BWD_V2 and not blocked
     if not m1.is_cuda:
-        plain = _pair_ll_bwd_t_ref if TWIST_BWD_V2 else _pair_ll_bwd_plain
+        plain = _pair_ll_bwd_t_ref if t_field else _pair_ll_bwd_plain
         return plain(m1, m2, P_l, P_r, pi, weights, g)
-    M, K, A, S = _twist_args(m1, m2, P_l, P_r, pi, weights, g)
+    M, K, G, Ab, S = _twist_args(m1, m2, P_l, P_r, pi, weights, g)
+    A = G * Ab
     f32 = torch.float32
     dev = m1.device
     dm1 = torch.empty((K, A, S), dtype=f32, device=dev)
     dm2 = torch.empty((K, A, S), dtype=f32, device=dev)
-    dPl = torch.empty((M, K, A, A), dtype=f32, device=dev)
+    dPl = torch.empty(P_l.shape, dtype=f32, device=dev)
     ins = [t.data_ptr() for t in (m1, m2, P_l, P_r, pi, weights, g, dm1,
                                   dm2, dPl)]
-    if TWIST_BWD_V2:
+    stream = _ext.stream_ptr(dev)
+    if t_field:
         # dPl holds T; dP_l, dP_r follow from it outside the kernel
-        fn = _ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_t", 10, 4)
         name = "pair_ll_bwd_t"
+        fn = _ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_t", 10, 4)
         _ext.LAUNCHES[name] += 1
-        code = fn(*ins, K, M, A, S, _ext.stream_ptr(dev))
+        code = fn(*ins, K, M, A, S, stream)
     else:
-        dPr = torch.empty((M, K, A, A), dtype=f32, device=dev)
-        wide = A > MAX_A
-        fn = (_ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_wide", 11,
-                        4) if wide else
-              _ext.bind("twist_kernels", "launch_pair_ll_bwd", 11, 4))
-        name = "pair_ll_bwd_wide" if wide else "pair_ll_bwd"
-        _ext.LAUNCHES[name] += 1
-        code = fn(*ins, dPr.data_ptr(), K, M, A, S, _ext.stream_ptr(dev))
+        dPr = torch.empty(P_r.shape, dtype=f32, device=dev)
+        ins.append(dPr.data_ptr())
+        if blocked or A > MAX_A:
+            name = ("pair_ll_bwd_wide_blocked" if blocked
+                    else "pair_ll_bwd_wide")
+            fn = _ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_wide",
+                           11, 8)
+            _ext.LAUNCHES[name] += 1
+            code = fn(*ins, K, M, G, Ab, S, *twist_bwd_plan(G, Ab, S),
+                      stream)
+        else:
+            name = "pair_ll_bwd"
+            fn = _ext.bind("twist_kernels", "launch_pair_ll_bwd", 11, 4)
+            _ext.LAUNCHES[name] += 1
+            code = fn(*ins, K, M, A, S, stream)
     _ext.check(code, name)
-    if TWIST_BWD_V2:
+    if t_field:
         dPl, dPr = _dp_from_t(dPl, P_l, P_r, pi)
-    # dpi_b = sum_{m,k,a} dP_l[m,k,a,b] P_l[m,k,a,b] / pi_b: P does not
-    # depend on the site, so it factors out of dP_l's site sum
-    dpi = torch.sum(dPl * P_l, dim=(0, 1, 2)) / pi
+    # dpi_b = sum_{m,k,a} dP_l[m,k,a,b] P_l[m,k,a,b] / pi_b over b's block:
+    # P does not depend on the site, so it factors out of dP_l's site sum
+    dpi = torch.sum(_as_blocks(dPl * P_l), dim=(0, 1, 3)).reshape(A) / pi
     dw = _dw_ref(m1, m2, P_l, P_r, pi, g) if want_dw else None
     return dm1, dm2, dPl, dPr, dpi, dw
 
@@ -684,7 +786,8 @@ def pair_loglik(m1, m2, P_l, P_r, pi, weights):
     differentiable: the forward is the plain multiply-add expression
     (an XLA fusion in the JAX package, not a Pallas kernel), the
     backward `pair_ll_bwd` (K7, K7 wide or K11c on the card, the plain
-    VJP on the CPU)."""
+    VJP on the CPU).  P dense or blocked; the gradient comes back in P's
+    own shape."""
     return _PairLoglik.apply(_pair_ll_ref, m1, m2, P_l, P_r, pi, weights)
 
 

@@ -91,8 +91,9 @@ class SweepConfig:
     A rate-mixture model (one with `blocks`, e.g. GammaSites) merges with
     per-category (G, A, A) transitions instead of the dense (GA, GA)
     block-diagonal ones (K10 on the card; K9 blocked for more than 8
-    states per category), except under twist, which
-    enumerates with dense transitions.
+    states per category), except under twist, whose chosen merges take
+    the dense ones; its candidate pair log-likelihoods take the blocks
+    (smc.twist.chunk_loglik).
     """
 
     K: int
@@ -157,8 +158,10 @@ def _check_supported(config, leaves, model):
         raise NotImplementedError(
             "rescale=False has no CUDA kernel (K1 always rescales)")
     if leaves.is_cuda and config.twist is not None:
-        # the twist enumerates dense (G*A)-state transitions (a rate
-        # mixture's too): K7 / K7 wide, K11b, K11c take up to 64 states
+        # the twist enumerates up to 64 planes: a rate mixture's
+        # per-category blocks (kernels.twist_blocks: K11b and K7 wide
+        # blocked), else dense (G*A)-state transitions (K7 / K7 wide,
+        # K11b, and K11c, whose route stays dense)
         _kernels.check_states(leaves.shape[-1], _kernels.MAX_TWIST_A,
                                "the twist kernels K7, K11b, K11c")
     blocks = getattr(model, "blocks", None)

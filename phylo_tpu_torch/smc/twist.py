@@ -20,6 +20,13 @@ are prefix-flat (pair_prefix * M + m); injected decisions carry the
 JAX package's lexicographic flat index (pair_lex * M + m) and are mapped
 through `_prefix_order`'s inverse.  The proposal law is order-invariant.
 
+A rate mixture (GammaSites, +I, FreeRates) scores its candidates
+through its per-category transitions, (G, A_b, A_b) blocks, and the
+blocked forms of the pair-loglik kernels (`pruning.kernels.twist_blocks`
+says when), which skip the zero off-block terms of the dense (G A_b)-state
+transitions the JAX package enumerates: the same values.  Under
+PHYLO_TWIST_BWD_V2 the route stays dense.
+
 Branch pools are unit-rate exponential draws (R, P, M, K) made once per
 sweep in prefix order, divided by the rank's rate; the manual VJP keeps
 them instead of regenerating them.
@@ -34,7 +41,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from phylo_tpu_torch.pruning.kernels import fused_pair_loglik, pair_loglik
+from phylo_tpu_torch.pruning.kernels import (
+    fused_pair_loglik,
+    pair_loglik,
+    twist_blocks,
+)
 from phylo_tpu_torch.smc.sweep import (
     gather_messages,
     lookup_nodes,
@@ -132,16 +143,23 @@ def chunk_loglik(twist, model, model_params, stationary, weights, m_l, m_r,
     """Pair-merge data log-likelihoods of one chunk, (C, M, K).
 
     m_l, m_r (K * C, A, S) in K-major flat order (k * C + c); bl, br
-    (C, M, K) branch lengths.  One batched transition call (2C, M, K)
-    and one pair log-likelihood call: K11b forward on the card with
-    `twist.use_pallas_ll`, else the plain expression; the backward is
-    K7 / K7 wide / K11c on the card (pruning.kernels.pair_ll_bwd)."""
+    (C, M, K) branch lengths.  One batched transition call (2C, M, K) and
+    one pair log-likelihood call: K11b forward on the card with
+    `twist.use_pallas_ll`, else the plain expression; the backward is K7 /
+    K7 wide / K11c on the card (pruning.kernels.pair_ll_bwd).  A rate
+    mixture (`kernels.twist_blocks`) takes its per-category transitions
+    (`transition_blocks`, (2C, M, K, G, A_b, A_b)) and the blocked forms
+    of those kernels; other models, and every model under TWIST_BWD_V2,
+    the dense (G A_b)-state transitions."""
     C, M, K = bl.shape
-    A = m_l.shape[1]
-    P_lr = model.transition(model_params, torch.cat([bl, br])).to(
-        m_l.dtype)                                     # (2C, M, K, A, A)
-    P_l = P_lr[:C].permute(1, 2, 0, 3, 4).reshape(M, K * C, A, A)
-    P_r = P_lr[C:].permute(1, 2, 0, 3, 4).reshape(M, K * C, A, A)
+    b = torch.cat([bl, br])
+    fn = (model.transition_blocks if twist_blocks(model) is not None
+          else model.transition)
+    P_lr = fn(model_params, b).to(m_l.dtype)          # (2C, M, K, ...)
+    tail = P_lr.shape[3:]
+    order = (1, 2, 0) + tuple(range(3, P_lr.ndim))
+    P_l = P_lr[:C].permute(order).reshape(M, K * C, *tail)
+    P_r = P_lr[C:].permute(order).reshape(M, K * C, *tail)
     fn = (fused_pair_loglik if twist.use_pallas_ll and m_l.is_cuda
           else pair_loglik)
     ll = fn(m_l.contiguous(), m_r.contiguous(), P_l.contiguous(),
