@@ -11,13 +11,17 @@ script exits non-zero without printing a result:
    paths' shapes (VCSMC: K=2048 particles, S=256 and 898 sites, 45,056
    transition matrices; VNCSMC: K=32 chosen merges, M=10 subsamples of
    32 x 66 candidate pairs; GTR+G4 on DS1: K=2048, G=4 rate blocks of
-   A=4, S=256 and 1949, and G=5 (+I); K4 on primate's 45,056 matrices
-   and DS1 GTR+G4's 425,984 a step; GY94 codons: K9 at K=128, A=61,
-   S=256 and 1086, and A=100, A=20 at a small shape, the all-planes-tied
-   case included; protein+G4: K9 blocked at K=256, G=4 blocks of A=20,
-   S=256 and 500, K9bs blocked at K=64, and G=5 (+I) and all planes
-   tied; VNCSMC's pair log-likelihoods at rank 0: K11b at primate
-   (A=4, KC=2,112) and at DS1 GTR+G4 (KC=11,232) blocked (G=4 blocks of
+   A=4, S=256 and 1949, and G=5 (+I); K4 on primate's 45,056 matrices,
+   DS1 GTR+G4's 425,984 a step and the twist's DS1 rank-0 898,560 and
+   last-rank 7,680, each with every fourth branch past the clamp too,
+   and untimed at B = 1, 7, 255, 257, 4,099, at (order, squarings) =
+   (8, 6) and on GTR+G4+I, with two backward calls bit-identical and one
+   device kernel a wrapper call (torch.profiler); GY94 codons: K9 at
+   K=128, A=61, S=256 and 1086, and A=100, A=20 at a small shape, the
+   all-planes-tied case included; protein+G4: K9 blocked at K=256, G=4
+   blocks of A=20, S=256 and 500, K9bs blocked at K=64, and G=5 (+I)
+   and all planes tied; VNCSMC's pair log-likelihoods at rank 0: K11b at
+   primate (A=4, KC=2,112) and at DS1 GTR+G4 (KC=11,232) blocked (G=4 blocks of
    4, as the twist takes a rate mixture) and dense (the same
    transitions as 16 block-diagonal states), each in an A/B against the
    plain forward, K7 wide blocked and dense and K11c at DS1 KC=896 and
@@ -58,8 +62,9 @@ script exits non-zero without printing a result:
    site batch 256, through phylo_tpu_torch.cli.runner, with every
    kernel's launch counter set to 0 before each path and read after;
 5. where the time of one epoch of each path goes, under torch.profiler
-   (for VNCSMC GTR+G4 on DS1, K11b's and K7 wide's device time beside
-   PR 6's).
+   (K4f's and K4b's device time and launches on every path; for VNCSMC
+   GTR+G4 on DS1, K11b's, K7 wide's and K4's device time beside their
+   earlier designs').
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -607,7 +612,7 @@ def small_idx(gen, dev, Kd, Nd, R_):
         torch.int32).contiguous()
 
 
-def expm_inputs(gen, dev, spec=None):
+def expm_inputs(gen, dev, spec=None, pairs=None):
     """K4's generator and branch lengths on a main path.  Primate VCSMC
     (spec None): the reference model's Q, moved off its initial value,
     and R*2*K = 45,056 branch lengths b ~ Exponential(rate 10).  DS1 under
@@ -616,7 +621,10 @@ def expm_inputs(gen, dev, spec=None):
     and the per-step batch the sweep gives K4, the (R, 2K) branch lengths
     eps / rate at the initial branch rates times the G category rates:
     26*4096*4 = 425,984 matrices for gtr+g4, 5 categories for gtr+g4+i
-    (its rate-0 category makes b = 0)."""
+    (its rate-0 category makes b = 0).  With `pairs`, the twist's batch
+    for that many candidate pairs (smc/twist.py::chunk_loglik: (2C, M, K)
+    branch lengths times the G rates): 2 * 351 * 10 * 32 * 4 = 898,560
+    at DS1's rank 0, 7,680 at its last rank (3 pairs)."""
     from phylo_tpu_torch.dataio import load_dataset
     from phylo_tpu_torch.models.branches import branch_rates
     from phylo_tpu_torch.models.substitution import ReferenceQ
@@ -637,75 +645,163 @@ def expm_inputs(gen, dev, spec=None):
                 for k, v in params["model"]["base"].items()}
         Qt = model.base.Q(base).T.contiguous()
         rates_l, rates_r = branch_rates(params["branches"])
-        eps = torch.empty((2, ds.N - 1, K), **f).exponential_(generator=gen)
-        b = torch.cat([eps[0] / rates_l[:, None], eps[1] / rates_r[:, None]],
-                      dim=1)
+        if pairs is None:
+            eps = torch.empty((2, ds.N - 1, K), **f).exponential_(
+                generator=gen)
+            b = torch.cat([eps[0] / rates_l[:, None],
+                           eps[1] / rates_r[:, None]], dim=1)
+        else:
+            b = torch.empty((2 * pairs * M_TWIST * K_TWIST,), **f
+                            ).exponential_(generator=gen) / rates_l.mean()
         b = (b[..., None] * model.rates(params["model"]).to(torch.float32))
     return Qt, b.reshape(-1).contiguous()
 
 
-def check_k4(ek, gen, dev, label, Q, b, timed=True):
-    """K4 forward and backward against their plain versions on (Q, b),
-    and, with the branch lengths clamped past 80 / mu, on the clamp
-    region; timed beside the plain versions and torch.linalg.matrix_exp
-    (forward and its backward) when `timed`."""
-    from phylo_tpu_torch.models.expm import uniformize
+def device_kernels(fn):
+    """[(name, launches)] of the device kernels one call of fn makes, read
+    from torch.profiler's device trace."""
+    from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key, int(e.count)) for e in prof.key_averages()
+            if getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA]
+
+
+def k4_bounds(B, order=12, squarings=12):
+    """(fwd, bwd) bounds of K4 on B matrices: ((ms, by), (ms, by)).
+    Forward: b read, P written, Q read; order - 1 + squarings products of
+    2 A^3 operations plus A^2 for the scale or the 2 D.  Backward: b, P
+    and P_bar read, b_bar written, Q read and Q_bar written; three products
+    a step, (Q P) and its dot with P_bar for b_bar, and w DF summed over
+    the batch."""
+    steps = order - 1 + squarings
+    mm, aa = 2 * A ** 3, A * A
+    fwd = bound(B * 4 + B * aa * 4 + aa * 4, B * (steps * (mm + aa) + 10))
+    bwd = bound(B * 4 + 2 * B * aa * 4 + B * 4 + 2 * aa * 4,
+                B * (steps * (3 * mm + 3 * aa) + mm + 2 * aa + 2 * aa))
+    return fwd, bwd
+
+
+def check_k4(ek, gen, dev, label, Q, b, timed=True, order=12, squarings=12):
+    """K4 forward and backward against their plain versions on (Q, b) and
+    again with every fourth branch past 80 / mu (the clamp region: b_bar
+    must be exactly 0 there): P to 1e-6 max abs, Q_bar (the batch sum,
+    reduced in the kernel) and b_bar to 1e-4 relative.  Each backward is
+    called twice and must give the same bits (no float atomics).  When
+    `timed`, both are timed beside the plain versions and
+    torch.linalg.matrix_exp (forward and its backward), and the kernels
+    line's (fwd, bwd) entries returned."""
     f = dict(dtype=torch.float32, device=dev)
     B = b.shape[0]
     gbar = torch.randn((B, A, A), generator=gen, **f)
-    out = {}
-    clamped = torch.full_like(b, 500.0)
-    mu, Rm = uniformize(Q)
-    for region, bb in (("mu*b < 80", b), ("mu*b > 80 (clamp)", clamped)):
-        P_k = ek.expm_fwd(Rm, mu, bb)
-        P_p = ek._expm_fwd_plain(Rm, mu, bb)
-        F_k = ek.expm_bwd(Rm, mu, bb, gbar)
-        F_p = ek._expm_bwd_plain(Rm, mu, bb, gbar)
+    mixed = b.clone()
+    mixed[::4] = 500.0
+    errs = {}
+    for region, bb in (("mu*b < 80", b), ("every 4th mu*b > 80", mixed)):
+        P_k = ek.expm_fwd(Q, bb, order, squarings)
+        P_p = ek._expm_fwd_plain(Q, bb, order, squarings)
+        q_k, b_k = ek.expm_bwd(Q, bb, P_k, gbar, order, squarings)
+        q_k2, b_k2 = ek.expm_bwd(Q, bb, P_k, gbar, order, squarings)
+        q_p, b_p = ek._expm_bwd_plain(Q, bb, P_k, gbar, order, squarings)
         torch.cuda.synchronize()
-        e_f = max_abs(P_k, P_p)
-        e_b = max_rel(F_k.sum(0), F_p.sum(0))
-        e_bf = max_rel(F_k, F_p)
-        log(f"  K4 {label} B={B} {region}: fwd max abs err {e_f:.3e} "
-            f"(tol 1e-6), bwd Q_bar rel err {e_b:.3e}, field rel err "
-            f"{e_bf:.3e} (tol 1e-4)")
-        require(e_f <= 1e-6, f"K4 {label} fwd error {e_f}")
-        require(e_b <= 1e-4 and e_bf <= 1e-4,
-                f"K4 {label} bwd error {e_b} {e_bf}")
-        out[region] = (e_f, max_abs(F_k, F_p))
-        del P_k, P_p, F_k, F_p
+        same = bool(torch.equal(q_k, q_k2) and torch.equal(b_k, b_k2))
+        e = dict(fwd=max_abs(P_k, P_p), qbar=max_rel(q_k, q_p),
+                 bbar=max_rel(b_k, b_p),
+                 bwd_abs=max(max_abs(q_k, q_p), max_abs(b_k, b_p)))
+        log(f"  K4 {label} B={B} ({order}, {squarings}) {region}: fwd max "
+            f"abs err {e['fwd']:.3e} (tol 1e-6), Q_bar rel err "
+            f"{e['qbar']:.3e}, b_bar rel err {e['bbar']:.3e} (tol 1e-4); "
+            f"two backward calls bit-identical: {same}")
+        require(e["fwd"] <= 1e-6, f"K4 {label} fwd error {e['fwd']}")
+        require(e["qbar"] <= 1e-4 and e["bbar"] <= 1e-4,
+                f"K4 {label} bwd error {e['qbar']} {e['bbar']}")
+        require(same, f"K4 {label}: two backward calls differ")
+        if bb is mixed:
+            require(float(b_k[::4].abs().max()) == 0.0,
+                    f"K4 {label}: b_bar non-zero past the clamp")
+        errs[region] = e
+        del P_k, P_p, q_k, b_k, q_k2, b_k2, q_p, b_p
     if not timed:
         return None
-    ms_f = time_ms(lambda: ek.expm_fwd(Rm, mu, b))
-    plain_f = time_ms(lambda: ek._expm_fwd_plain(Rm, mu, b))
+    P = ek.expm_fwd(Q, b)
+    ms_f = time_ms(lambda: ek.expm_fwd(Q, b))
+    plain_f = time_ms(lambda: ek._expm_fwd_plain(Q, b), iters=5)
     Qb = (Q[None] * b[:, None, None]).contiguous()
-    lib_f = time_ms(lambda: torch.linalg.matrix_exp(Qb))
-    ms_b = time_ms(lambda: ek.expm_bwd(Rm, mu, b, gbar))
-    plain_b = time_ms(lambda: ek._expm_bwd_plain(Rm, mu, b, gbar))
-    steps = 11 + 12                      # order-1 Horner + squarings
-    mm = 2 * A ** 3
-    bf, byf = bound(B * 4 + B * A * A * 4 + (A * A + 1) * 4,
-                    B * (steps * (mm + A * A) + 10))
-    bb_, byb = bound(B * 4 + 2 * B * A * A * 4 + (A * A + 1) * 4,
-                     B * steps * (3 * mm + 3 * A * A))
+    lib_f = time_ms(lambda: torch.linalg.matrix_exp(Qb), iters=5)
+    ms_b = time_ms(lambda: ek.expm_bwd(Q, b, P, gbar))
+    plain_b = time_ms(lambda: ek._expm_bwd_plain(Q, b, P, gbar), iters=5)
+    (bf, byf), (bb_, byb) = k4_bounds(B)
     # library: the backward of torch.linalg.matrix_exp on the same batch
     # (the Frechet adjoint per matrix; Q_bar and b_bar follow by sums)
     Qb_req = Qb.clone().requires_grad_(True)
     E = torch.linalg.matrix_exp(Qb_req)
     lib_b = time_ms(lambda: torch.autograd.grad(E, Qb_req, gbar,
-                                                retain_graph=True))
+                                                retain_graph=True), iters=5)
     log(f"  K4 fwd {label} B={B}: kernel {ms_f:.4f} ms, plain {plain_f:.4f} "
         f"ms, torch.linalg.matrix_exp {lib_f:.4f} ms, bound {bf:.4f} ms "
         f"({byf})")
     log(f"  K4 bwd {label} B={B}: kernel {ms_b:.4f} ms, plain {plain_b:.4f} "
         f"ms, torch.linalg.matrix_exp backward {lib_b:.4f} ms, bound "
         f"{bb_:.4f} ms ({byb})")
-    fwd = dict(max_abs_err=max(v[0] for v in out.values()), ms=ms_f,
+    fwd = dict(max_abs_err=max(e["fwd"] for e in errs.values()), ms=ms_f,
                plain_ms=plain_f, bound_ms=bf, bound_by=byf, library_ms=lib_f)
-    bwd = dict(max_abs_err=max(v[1] for v in out.values()), ms=ms_b,
+    bwd = dict(max_abs_err=max(e["bwd_abs"] for e in errs.values()),
+               ms=ms_b,
                plain_ms=plain_b, bound_ms=bb_, bound_by=byb,
                library_ms=lib_b)
     return fwd, bwd
+
+
+def check_k4_all(ek, gen, dev):
+    """K4 at every shape phase 2 holds it to: timed at primate VCSMC's
+    45,056 matrices, DS1 GTR+G4's 425,984 (the kernels line) and the
+    twist's DS1 rank-0 898,560 and last-rank 7,680; untimed at B = 1, 7,
+    255, 257 and 4,099 (ragged edges; at B = 1 Q_bar is that element's
+    own field), at a non-default (order, squarings) = (8, 6) (the generic
+    instance) and on DS1 GTR+G4+I (b = 0 in its rate-0 category).  Then
+    one forward and one backward call under torch.profiler: exactly one
+    device kernel each, and its launch counter up by one.  Returns the
+    kernels line's (fwd, bwd)."""
+    from phylo_tpu_torch import _ext
+
+    Qd, bd = expm_inputs(gen, dev, "gtr+g4")
+    line = None
+    for label, (Q, b) in (
+            ("primate", expm_inputs(gen, dev)),
+            ("DS1 gtr+g4", (Qd, bd)),
+            ("DS1 twist rank 0", expm_inputs(gen, dev, "gtr+g4",
+                                              pairs=N_DS1 * (N_DS1 - 1) // 2)),
+            ("DS1 twist last rank", expm_inputs(gen, dev, "gtr+g4",
+                                                 pairs=3))):
+        entries = check_k4(ek, gen, dev, label, Q, b)
+        if label == "DS1 gtr+g4":
+            line = entries
+        torch.cuda.empty_cache()
+    for B in (1, 7, 255, 257, 4099):
+        check_k4(ek, gen, dev, "DS1 gtr+g4", Qd, bd[:B].contiguous(),
+                 timed=False)
+    check_k4(ek, gen, dev, "DS1 gtr+g4", Qd, bd[:4099].contiguous(),
+             timed=False, order=8, squarings=6)
+    check_k4(ek, gen, dev, "DS1 gtr+g4+i",
+             *expm_inputs(gen, dev, "gtr+g4+i"), timed=False)
+    P = ek.expm_fwd(Qd, bd)
+    gbar = torch.randn(P.shape, generator=gen, device=dev)
+    for name, fn in (("expm_fwd", lambda: ek.expm_fwd(Qd, bd)),
+                     ("expm_bwd", lambda: ek.expm_bwd(Qd, bd, P, gbar))):
+        before = _ext.LAUNCHES[name]
+        seen = device_kernels(fn)
+        counted = _ext.LAUNCHES[name] - before
+        log(f"  K4 one {name} call under torch.profiler: {json.dumps(seen)}"
+            f"; launch counter +{counted}")
+        require(len(seen) == 1 and seen[0][1] == 1 and counted == 1
+                and f"{name}_kernel" in seen[0][0],
+                f"K4: one {name} call launched {seen}, counted {counted}")
+    torch.cuda.empty_cache()
+    return line
 
 
 def check_k5(rk, gen, dev):
@@ -1410,7 +1506,10 @@ PATHS = {
         earlier="PR 6: ELBO -7420.570, -7387.625 after epochs 1, 2; "
                 "6.20-8.66 s per epoch",
         twist_profile="PR 6: K11b 454 ms over 390 launches, K7 wide 816 ms "
-                      "over 182"),
+                      "over 182; register-tiled blocked forms: 77.1 and "
+                      "148.9 ms",
+        k4_profile="with divisions in the chain and the batch sums in "
+                   "torch: K4 backward 93 ms"),
     # primate VNCSMC again with the T-field backward K11c
     # (PHYLO_TWIST_BWD_V2=1) in place of K7: 3 SGD steps an epoch, 11
     # ranks each
@@ -1539,7 +1638,7 @@ def profile_epoch(name):
         wall_ms = (time.perf_counter() - t0) * 1e3
         t1 = time.perf_counter()
     rows = []
-    twist = {"K11b": [0.0, 0], "K7 wide": [0.0, 0]}
+    named = {k: [0.0, 0] for k in ("K11b", "K7 wide", "K4f", "K4b")}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
@@ -1547,10 +1646,12 @@ def profile_epoch(name):
                 us = getattr(e, "self_cuda_time_total", 0.0)
             rows.append((e.key[:70], float(us) / 1e3, int(e.count)))
             for kname, fn in (("K11b", "pair_ll_fwd_kernel"),
-                              ("K7 wide", "pair_ll_bwd_wide_kernel")):
+                              ("K7 wide", "pair_ll_bwd_wide_kernel"),
+                              ("K4f", "expm_fwd_kernel"),
+                              ("K4b", "expm_bwd_kernel")):
                 if fn in e.key:
-                    twist[kname][0] += float(us) / 1e3
-                    twist[kname][1] += int(e.count)
+                    named[kname][0] += float(us) / 1e3
+                    named[kname][1] += int(e.count)
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     if not rows:
@@ -1564,7 +1665,12 @@ def profile_epoch(name):
         "summary_s": time.perf_counter() - t1,
         "top_kernels": [{"name": k, "device_ms": ms, "launches": n}
                         for k, ms, n in rows[:10]]}))
+    log(f"phase 5 {name} K4 kernels: " + ", ".join(
+        f"{k} {named[k][0]:.2f} ms over {named[k][1]} launches"
+        for k in ("K4f", "K4b"))
+        + f" ({path.get('k4_profile', 'earlier: not recorded')})")
     if "twist_profile" in path:
+        twist = {k: named[k] for k in ("K11b", "K7 wide")}
         log(f"phase 5 {name} twist kernels: " + ", ".join(
             f"{k} {ms:.1f} ms over {n} launches"
             for k, (ms, n) in twist.items())
@@ -1618,14 +1724,9 @@ def main(argv):
     del blk_inputs
     check_k1(kernels, gen, dev, S_DS1, save=False, G=G_GAMMA)
     torch.cuda.empty_cache()
-    # K4 on primate VCSMC's batch, and on DS1 GTR+G4's (the kernels line
-    # carries the latter: the largest batch a main path gives K4)
-    check_k4(expm_kernel, gen, dev, "primate", *expm_inputs(gen, dev))
-    k4f, k4b = check_k4(expm_kernel, gen, dev, "DS1 gtr+g4",
-                        *expm_inputs(gen, dev, "gtr+g4"))
-    check_k4(expm_kernel, gen, dev, "DS1 gtr+g4+i",
-             *expm_inputs(gen, dev, "gtr+g4+i"), timed=False)
-    torch.cuda.empty_cache()
+    # K4 on primate VCSMC's batch, DS1 GTR+G4's (the kernels line) and the
+    # twist's; ragged and single-element batches; the generic instance
+    k4f, k4b = check_k4_all(expm_kernel, gen, dev)
     k5 = check_k5(resample_kernel, gen, dev)
     k7 = check_k7(kernels, gen, dev)
     k8 = check_k8(kernels, gen, dev, S_BATCH)

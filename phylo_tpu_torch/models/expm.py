@@ -80,8 +80,9 @@ def delta_chain(R, mu, b, order=12, squarings=12):
     b_eff = min(b, 80 / mu), x = mu b_eff / 2^s, order-`order` Horner
     on the delta, `squarings` squarings D <- 2D + D D, and
     P = e^{-mu b_eff} (I + D).  b: any batch shape -> (..., A, A).
-    Differentiable by autograd; also the plain version of kernel K4's
-    forward (models.expm_kernel)."""
+    Differentiable by autograd.  Kernel K4's plain forward
+    (models.expm_kernel._expm_fwd_plain) is the same chain with the
+    kernel's association."""
     A = R.shape[-1]
     eye = torch.eye(A, dtype=R.dtype, device=R.device)
     b_eff = torch.minimum(b, CLAMP / mu)
