@@ -16,7 +16,7 @@ script exits non-zero without printing a result:
    last-rank 7,680, each with every fourth branch past the clamp too,
    and untimed at B = 1, 7, 255, 257, 4,099, at (order, squarings) =
    (8, 6) and on GTR+G4+I, with two backward calls bit-identical and one
-   device kernel a wrapper call (torch.profiler); GY94 codons: K9 at
+   device kernel a wrapper call (a captured CUDA graph); GY94 codons: K9 at
    K=128, A=61, S=256 and 1086, and A=100, A=20 at a small shape, the
    all-planes-tied case included; protein+G4: K9 blocked at K=256, G=4
    blocks of A=20, S=256 and 500, K9bs blocked at K=64, and G=5 (+I)
@@ -33,7 +33,11 @@ script exits non-zero without printing a result:
    (bound) and, where one exists, a single PyTorch library call; and the
    saved-children route (K10 saving + K10's backward) against the
    re-gather route (K10 + K3) at the DS1 step shape, the trade
-   SAVE_CHILDREN_CAP decides;
+   SAVE_CHILDREN_CAP decides; the rank backwards K3 blocked (timed at
+   DS1 S=256 and 1949), K10's saved backward, K9bs and K9b (dense and
+   blocked) and K11a (A=4 and 16) each also called twice (the same
+   bits) and once captured as a CUDA graph (one device kernel a wrapper
+   call), their times printed beside the former design's;
 3. fixed-decision ELBO: the sweep in float32 on the card through the
    kernels against float64 on the CPU through the plain path, with the
    same numpy-made decisions (1e-3 relative, BASELINE.md's bar), and
@@ -62,9 +66,10 @@ script exits non-zero without printing a result:
    site batch 256, through phylo_tpu_torch.cli.runner, with every
    kernel's launch counter set to 0 before each path and read after;
 5. where the time of one epoch of each path goes, under torch.profiler
-   (K4f's and K4b's device time and launches on every path; for VNCSMC
-   GTR+G4 on DS1, K11b's, K7 wide's and K4's device time beside their
-   earlier designs').
+   (K4f's and K4b's device time and launches on every path, and the
+   rank backwards' (K3 blocked / K10's backward, the wide body of K9bs,
+   K9b and K11a); for VNCSMC GTR+G4 on DS1, K11b's, K7 wide's and K4's
+   device time beside their earlier designs').
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -75,6 +80,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -101,6 +107,20 @@ PROT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 PROT_FASTA = os.path.join(PROT_DIR, "protein_16x500.fa")
 PROT_DAT = os.path.join(PROT_DIR, "protein_seed0.dat")
 SLEEP_CYCLES = 100_000_000         # ~50 ms at the H100's ~2 GHz clock
+# The rank backwards' phase-2 times on their former design (ms, PERF.md's
+# kernel table: this script on an NVIDIA H100 80GB HBM3 at 700 W), keyed
+# by (kernel, particles, states a block, sites)
+FORMER_MS = {("K2", K, 4, 256): 0.0489, ("K3", K, 4, 256): 0.0373,
+          ("K10 bwd-saved", K, 4, 256): 0.2002,
+          ("K3 blocked", K, 4, 256): 0.1746,
+          ("K9bs", 128, 61, 256): 0.3026, ("K9bs", 128, 61, 1086): 1.2451,
+          ("K9b", 128, 61, 256): 0.2618, ("K9b", 128, 61, 1086): 1.1591,
+          ("K9bs blocked", 64, 20, 256): 0.1667,
+          ("K9bs blocked", 256, 20, 256): 0.3930,
+          ("K9bs blocked", 256, 20, 500): 0.7759,
+          ("K9b blocked", 256, 20, 256): 0.3579,
+          ("K9b blocked", 256, 20, 500): 0.7156,
+          ("K11a", 32, 4, 256): 0.0388, ("K11a", 32, 16, 256): 0.0653}
 
 
 def log(msg):
@@ -339,14 +359,41 @@ def compare_bwd(label, got, want, tol=1e-4):
     return max(max_abs(a, b) for a, b in zip(got, want))
 
 
-def bwd_bytes(K_, G, S, child_slabs, nb):
+def former(kernel, Kd, A_, S):
+    """The former design's time of a rank backward at this shape, for the
+    log line."""
+    t = FORMER_MS.get((kernel, Kd, A_, S))
+    return (f"former design: {t:.4f} ms" if t is not None else
+            "former design: not timed here")
+
+
+def repeat_checks(label, fn, sums=0):
+    """Two calls of a backward give the same bits (no float atomics), and
+    one call enqueues one device kernel (`device_kernels`), plus `sums`
+    torch.sum kernels where the wrapper reduces partial rows itself (K11a:
+    dpi and dw)."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+    require(same, f"{label}: two calls differ")
+    names, _ = device_kernels(fn)
+    n = sum(c for _, c in names)
+    shown = [(re.findall(r"[A-Za-z_]+_kernel", k) or [k[:60]])[-1]
+             for k, _ in names]
+    log(f"  {label}: two calls bit-identical: {same}; device kernels a "
+        f"call: {n} ({', '.join(shown)})")
+    require(n == 1 + sums, f"{label}: {n} device kernels a call, not "
+            f"{1 + sums}")
+
+
+def bwd_bytes(K_, G, S, child_slabs):
     """Bytes a rank backward must move: the children (slabs of G*A*S
     floats), the cotangent in and the two child cotangents out, the
-    transitions in and their cotangents out, the partial rows."""
+    transitions in and their cotangents out, dpi and dw out once."""
     GA = G * A
     slab = GA * S * 4
     return child_slabs * slab + 3 * K_ * slab + 4 * K_ * G * A * A * 4 \
-        + 2 * K_ * 4 + S * 4 + GA * 4 + nb * (GA + S) * 4
+        + 2 * K_ * 4 + S * 4 + GA * 4 + (GA + S) * 4
 
 
 def check_k2(kern, gen, dev, inputs, G=1):
@@ -361,14 +408,15 @@ def check_k2(kern, gen, dev, inputs, G=1):
         f"K10 fused_rank_bwd_saved_blocked G={G}"
     err = compare_bwd(label, kern.fused_rank_bwd_saved(*args),
                       kern._fused_rank_bwd_saved_ref(*args))
+    repeat_checks(label, lambda: kern.fused_rank_bwd_saved(*args))
     ms = time_ms(lambda: kern.fused_rank_bwd_saved(*args))
     plain = time_ms(lambda: kern._fused_rank_bwd_saved_ref(*args),
                     iters=3 if G > 1 else 20)
-    nb = -(-K // kern.BWD_PARTICLES_PER_BLOCK)
     nops = K * S * (8 * G * A * A + 20 * GA + 4)
-    b_ms, b_by = bound(bwd_bytes(K, G, S, 2 * K, nb), nops)
-    log(f"  {label.split()[0]} S={S}: kernel {ms:.4f} ms, plain {plain:.4f} "
-        f"ms, bound {b_ms:.4f} ms ({b_by})")
+    b_ms, b_by = bound(bwd_bytes(K, G, S, 2 * K), nops)
+    name = "K2" if G == 1 else "K10 bwd-saved"
+    log(f"  {name} G={G} S={S}: kernel {ms:.4f} ms ({former(name, K, A, S)}), "
+        f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 
@@ -396,17 +444,19 @@ def check_k3(kern, gen, dev, inputs, G=1, ties=False):
              f"K3 fused_rank_bwd_blocked G={G}") + (" ties" if ties else "")
     err = compare_bwd(label, kern.fused_rank_bwd(*args),
                       kern._fused_rank_bwd_ref(*args))
+    repeat_checks(label, lambda: kern.fused_rank_bwd(*args))
     if ties:
         return None
     ms = time_ms(lambda: kern.fused_rank_bwd(*args))
     plain = time_ms(lambda: kern._fused_rank_bwd_ref(*args),
                     iters=3 if G > 1 else 20)
-    nb = -(-K // kern.BWD_PARTICLES_PER_BLOCK)
     n_leaf, n_int = k1_slabs_read(idx, leaves.shape[0])
     nops = K * S * (8 * G * A * A + 20 * GA + 4)
-    b_ms, b_by = bound(bwd_bytes(K, G, S, n_leaf + n_int, nb), nops)
-    log(f"  K3 G={G} S={S}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by})")
+    b_ms, b_by = bound(bwd_bytes(K, G, S, n_leaf + n_int), nops)
+    name = "K3" if G == 1 else "K3 blocked"
+    log(f"  {name} G={G} S={S}: kernel {ms:.4f} ms ({former(name, K, A, S)}), "
+        f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{b_ms / ms:.0%} of it reached)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 
@@ -487,7 +537,8 @@ def k9_bounds(kern, idx, A_, S, Nd, kind, G=1):
     states).  kind: "fwd", "fwd_save" (K9f), "bwd_saved" (K9bs), "bwd"
     (K9b).  Bytes: the child slabs read once each (the distinct ones idx
     names, or the 2 Kd saved copies for K9bs), the cotangent in and
-    outputs out, transitions and their cotangents, the partial rows.
+    outputs out, transitions and their cotangents, dpi and dw once (the
+    forward: its partial rows).
     FP32 operations per particle and site: 4 G A^2 + 4 G A + 2 forward (u
     and v: 2 G A^2 FMAs), 12 G A^2 + 20 G A + 4 backward (u, v, dm1, dm2,
     dP_l, dP_r)."""
@@ -502,8 +553,7 @@ def k9_bounds(kern, idx, A_, S, Nd, kind, G=1):
         nbytes = child + Kd * slab + small + 2 * Kd * T * 4 \
             + (2 * Kd * slab if kind == "fwd_save" else 0)
         return bound(nbytes, Kd * S * (4 * G * A_ * A_ + 4 * GA + 2))
-    nbytes = child + 3 * Kd * slab + 2 * small + 2 * Kd * 4 \
-        + Kd * (GA + S) * 4
+    nbytes = child + 3 * Kd * slab + 2 * small + 2 * Kd * 4 + (GA + S) * 4
     return bound(nbytes, Kd * S * (12 * G * A_ * A_ + 20 * GA + 4))
 
 
@@ -590,14 +640,18 @@ def check_k9(kern, gen, dev, idx, S, Nd=N_CODON, A_=A_CODON, timed=True,
             err = compare_bwd(f"{label} {name} {tag}"
                               + (" ties" if tied else ""),
                               fn(*args), ref(*args))
+            repeat_checks(f"{label} {tag}" + (" ties" if tied else ""),
+                          lambda: fn(*args))
             if not timed or tied:
                 continue
             ms = time_ms(lambda: fn(*args))
             plain = time_ms(lambda: ref(*args), iters=3)
             b_ms, b_by = k9_bounds(kern, idx, A_, S, Nd, kind, G)
-            log(f"  {label} {tag}: kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); library: "
-                "null (no single PyTorch call computes this backward)")
+            log(f"  {label} {tag}: kernel {ms:.4f} ms "
+                f"({former(label, Kd, A_, S)}), plain {plain:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}, {b_ms / ms:.0%} of it reached); "
+                "library: null (no single PyTorch call computes this "
+                "backward)")
             out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                              bound_ms=b_ms, bound_by=b_by, library_ms=None)
     return out
@@ -658,17 +712,44 @@ def expm_inputs(gen, dev, spec=None, pairs=None):
 
 
 def device_kernels(fn):
-    """[(name, launches)] of the device kernels one call of fn makes, read
-    from torch.profiler's device trace."""
-    from torch.profiler import ProfilerActivity, profile
+    """([(name, launches)] of the device work one call of fn enqueues, the
+    number of calls of fn made): the nodes of a CUDA graph captured from
+    one call (after a warm-up call on the capturing stream), read through
+    the driver API, kernel nodes by their function's name.
+    torch.profiler's traces lost kernel records late in this script's
+    runs (a call counted as 0, 1/3 or 2/3 of a launch, again on retries);
+    a captured graph does not."""
+    import ctypes
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp, ref = ctypes.c_void_p, ctypes.byref
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):       # per-stream state (K4's ticket)
         fn()
-        torch.cuda.synchronize()
-    return [(e.key, int(e.count)) for e in prof.key_averages()
-            if getattr(e, "device_type", None)
-            == torch.autograd.DeviceType.CUDA]
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, stream=stream, capture_error_mode="relaxed"):
+        fn()
+    graph = vp(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    require(cu.cuGraphGetNodes(graph, None, ref(n)) == 0, "cuGraphGetNodes")
+    nodes = (vp * n.value)()
+    require(cu.cuGraphGetNodes(graph, nodes, ref(n)) == 0, "cuGraphGetNodes")
+    found = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(vp(node), ref(kind))
+        key = f"graph node of type {kind.value}"
+        if kind.value == 0:               # CU_GRAPH_NODE_TYPE_KERNEL
+            params = (vp * 32)()          # CUDA_KERNEL_NODE_PARAMS: func first
+            name = ctypes.c_char_p()
+            key = "kernel"
+            if (cu.cuGraphKernelNodeGetParams(vp(node), params) == 0
+                    and cu.cuFuncGetName(ref(name), vp(params[0])) == 0):
+                key = name.value.decode()
+        found[key] = found.get(key, 0) + 1
+    del g
+    return sorted(found.items()), 2
 
 
 def k4_bounds(B, order=12, squarings=12):
@@ -763,7 +844,7 @@ def check_k4_all(ek, gen, dev):
     255, 257 and 4,099 (ragged edges; at B = 1 Q_bar is that element's
     own field), at a non-default (order, squarings) = (8, 6) (the generic
     instance) and on DS1 GTR+G4+I (b = 0 in its rate-0 category).  Then
-    one forward and one backward call under torch.profiler: exactly one
+    one forward and one backward call captured as a CUDA graph: exactly one
     device kernel each, and its launch counter up by one.  Returns the
     kernels line's (fwd, bwd)."""
     from phylo_tpu_torch import _ext
@@ -793,10 +874,10 @@ def check_k4_all(ek, gen, dev):
     for name, fn in (("expm_fwd", lambda: ek.expm_fwd(Qd, bd)),
                      ("expm_bwd", lambda: ek.expm_bwd(Qd, bd, P, gbar))):
         before = _ext.LAUNCHES[name]
-        seen = device_kernels(fn)
-        counted = _ext.LAUNCHES[name] - before
-        log(f"  K4 one {name} call under torch.profiler: {json.dumps(seen)}"
-            f"; launch counter +{counted}")
+        seen, made = device_kernels(fn)
+        counted = (_ext.LAUNCHES[name] - before) / made
+        log(f"  K4 one {name} call captured as a CUDA graph: "
+            f"{json.dumps(seen)}; launch counter +{counted} a call")
         require(len(seen) == 1 and seen[0][1] == 1 and counted == 1
                 and f"{name}_kernel" in seen[0][0],
                 f"K4: one {name} call launched {seen}, counted {counted}")
@@ -1226,6 +1307,8 @@ def check_k11a(kern, gen, dev, A_, S=S_BATCH, Kt=K_TWIST):
         f"{n} rel err {v:.3e}" for n, v in errs.items()) + f" (tol {tol:g})")
     for n, v in errs.items():
         require(v <= tol, f"K11a {n} relative error {v} > {tol}")
+    repeat_checks(f"K11a merge_bwd A={A_}", lambda: kern.merge_bwd(*args),
+                  sums=2)
     ms = time_ms(lambda: kern.merge_bwd(*args))
     plain = time_ms(lambda: kern._merge_bwd_ref(*args))
     slab = Kt * A_ * S * 4
@@ -1234,9 +1317,9 @@ def check_k11a(kern, gen, dev, A_, S=S_BATCH, Kt=K_TWIST):
     # (about 10 A); an FMA counts 2
     nops = Kt * S * (12 * A_ * A_ + 10 * A_)
     b_ms, b_by = bound(nbytes, nops)
-    log(f"  K11a A={A_}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}); library: null (no single PyTorch call "
-        "computes this vector-Jacobian product)")
+    log(f"  K11a A={A_}: kernel {ms:.4f} ms ({former('K11a', Kt, A_, S)}), "
+        f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); library: null "
+        "(no single PyTorch call computes this vector-Jacobian product)")
     return dict(max_abs_err=max(max_abs(a, b) for a, b in zip(got, want)),
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
@@ -1638,7 +1721,8 @@ def profile_epoch(name):
         wall_ms = (time.perf_counter() - t0) * 1e3
         t1 = time.perf_counter()
     rows = []
-    named = {k: [0.0, 0] for k in ("K11b", "K7 wide", "K4f", "K4b")}
+    named = {k: [0.0, 0] for k in ("K11b", "K7 wide", "K4f", "K4b",
+                                   "K3 blocked / K10 bwd", "K9b / K9bs / K11a")}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
@@ -1648,7 +1732,10 @@ def profile_epoch(name):
             for kname, fn in (("K11b", "pair_ll_fwd_kernel"),
                               ("K7 wide", "pair_ll_bwd_wide_kernel"),
                               ("K4f", "expm_fwd_kernel"),
-                              ("K4b", "expm_bwd_kernel")):
+                              ("K4b", "expm_bwd_kernel"),
+                              ("K3 blocked / K10 bwd",
+                               "fused_rank_bwd_blocked_kernel"),
+                              ("K9b / K9bs / K11a", "wide_rank_bwd_kernel")):
                 if fn in e.key:
                     named[kname][0] += float(us) / 1e3
                     named[kname][1] += int(e.count)
@@ -1669,6 +1756,9 @@ def profile_epoch(name):
         f"{k} {named[k][0]:.2f} ms over {named[k][1]} launches"
         for k in ("K4f", "K4b"))
         + f" ({path.get('k4_profile', 'earlier: not recorded')})")
+    log(f"phase 5 {name} rank backwards: " + ", ".join(
+        f"{k} {named[k][0]:.2f} ms over {named[k][1]} launches"
+        for k in ("K3 blocked / K10 bwd", "K9b / K9bs / K11a")))
     if "twist_profile" in path:
         twist = {k: named[k] for k in ("K11b", "K7 wide")}
         log(f"phase 5 {name} twist kernels: " + ", ".join(
@@ -1722,7 +1812,12 @@ def main(argv):
     cap_trade(kernels, gen, dev, blk_inputs, "DS1 GTR+G4", "K10",
               "K2 blocked", "K3 blocked")
     del blk_inputs
-    check_k1(kernels, gen, dev, S_DS1, save=False, G=G_GAMMA)
+    # K3 blocked at all 1949 sites of DS1 (the eval sweep's shape), on the
+    # inputs of K10's forward at that shape
+    _, ds1_inputs = check_k1(kernels, gen, dev, S_DS1, save=False,
+                             G=G_GAMMA)
+    check_k3(kernels, gen, dev, ds1_inputs, G=G_GAMMA)
+    del ds1_inputs
     torch.cuda.empty_cache()
     # K4 on primate VCSMC's batch, DS1 GTR+G4's (the kernels line) and the
     # twist's; ragged and single-element batches; the generic instance

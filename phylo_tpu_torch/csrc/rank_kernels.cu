@@ -44,11 +44,22 @@
 // re-reading its children (from L1/L2) and recomputing the block's
 // merge bit for bit (explicit __fmaf_rn / __fmul_rn, never contracted
 // differently).  The transitions sit in shared memory (2 G A^2 floats).
-// The backward's first pass leaves five per-site scalars (1/scale,
-// dsite, dscale, tie count, max) in a global scratch row of its block;
-// its second pass loops over the blocks outermost, so only one block's
-// 2 A^2 dP sums (+ A dpi sums) are live, one block reduction per block.
 // Ties of the max are counted across all G*A planes in the first pass.
+//
+// The blocked backward (K3 blocked, K10's).  Bytes bound it (DS1
+// GTR+Gamma4, K = 2048, S = 256: 0.0308 ms), so the card has to keep
+// enough loads in flight: the former form, 8 particles a 128-thread block
+// (256 blocks, ~8 warps an SM), a block-wide reduction of 36 values per
+// (particle, block) through shared memory and five per-site scalars
+// through a global scratch row, ran at 5.7x the bound.  Now a warp owns a
+// (particle, chunk of 32 sites) and a block a particle (DS1: 16,384
+// warps); the warp stages its chunk's children and cotangent in shared
+// memory by cp.async (every load in flight at once), a lane keeps its
+// sites' scalars in registers between the two passes and the 2 A^2 + A
+// dP / dpi sums of one rate block in registers, and reduces them with
+// one transpose_sum (about 36 shuffles, no barrier) a (chunk, block).
+// The warps' sums meet once in shared memory, in warp order, and dP is
+// written once.
 // Every entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -57,10 +68,27 @@
 namespace {
 
 constexpr int kThreads = 128;
+// K3 blocked / K10 backward: sites a lane holds per chunk, warps a block
+// (pruning/kernels.py::rank_bwd_plan mirrors both)
+constexpr int kBwdSPL = 1;
+constexpr int kBwdMaxWarps = 8;
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Asynchronous 4-byte copies from global to shared memory (sm_80+): a
+// thread issues many and then waits for all of its copies.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Block-wide sums of NV per-thread values; the result is valid in
@@ -330,6 +358,29 @@ __device__ __forceinline__ void load_block(const float* m, int g, int S,
   for (int i = 0; i < A; ++i) a[i] = m[(size_t)(g * A + i) * S + s];
 }
 
+// One rate-category block of P_l, P_r from shared memory into registers
+// (float4 broadcasts where A^2 is a multiple of 4, so every block starts
+// 16-byte aligned).
+template <int A>
+__device__ __forceinline__ void load_pblock(const float* pl, const float* pr,
+                                            float* plg, float* prg) {
+  if constexpr (A * A % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < A * A; e += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(pl + e);
+      const float4 y = *reinterpret_cast<const float4*>(pr + e);
+      plg[e] = x.x; plg[e + 1] = x.y; plg[e + 2] = x.z; plg[e + 3] = x.w;
+      prg[e] = y.x; prg[e + 1] = y.y; prg[e + 2] = y.z; prg[e + 3] = y.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < A * A; ++e) {
+      plg[e] = pl[e];
+      prg[e] = pr[e];
+    }
+  }
+}
+
 // Shared memory of the blocked kernels: Pl (G A^2), Pr (G A^2), pi (G A).
 __device__ __forceinline__ void load_transitions(
     float* pl, float* pr, const float* Pl, const float* Pr, int k, int npb) {
@@ -407,150 +458,244 @@ __global__ void __launch_bounds__(kThreads) fused_rank_blocked_kernel(
   }
 }
 
+// Sums the N values v over a warp's 32 lanes by recursive halving (a
+// transpose reduction): at the xor-O step a lane keeps half of its
+// values, sends the other half to its partner and adds the partner's copy
+// of the half it keeps, so after the five steps (O = 16 .. 1) lane L holds
+// the warp totals of indices [base, base + size) in v[0, size) (size may
+// be 0), ceil(N / 32) or fewer of them.  Each total is the butterfly sum
+// over lanes (pairs L, L^16 first, then L^8, ...): a fixed tree, the same
+// bits in every call.  About N shuffles in all, against 5 N for N
+// butterflies.  The caller sets base = 0, size = N.
+template <int N, int O>
+__device__ __forceinline__ void transpose_sum(float* v, int lane, int& base,
+                                              int& size) {
+  constexpr int H = (N + 1) / 2;
+  const bool up = (lane & O) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float lo = v[i];
+    const float hi = (H + i < N) ? v[H + i] : 0.f;
+    const float x = __shfl_xor_sync(0xffffffffu, up ? lo : hi, O);
+    v[i] = (up ? hi : lo) + x;
+  }
+  if (up) {
+    base += H;
+    size -= H;
+  } else {
+    size = min(size, H);
+  }
+  if constexpr (O > 1) transpose_sum<H, O / 2>(v, lane, base, size);
+}
+
+// Values a lane keeps after transpose_sum of n: n ceil-halved five times.
+__host__ __device__ constexpr int halved5(int n) {
+  for (int i = 0; i < 5; ++i) n = (n + 1) / 2;
+  return n;
+}
+
 // K10 backward (Gather=false, saved children) and K3 blocked
 // (Gather=true, children re-gathered by idx): _rank_bwd_core with G > 1.
-template <int A, bool Gather>
-__global__ void __launch_bounds__(kThreads) fused_rank_bwd_blocked_kernel(
-    const float* __restrict__ m1g, const float* __restrict__ m2g,
-    const float* __restrict__ leaves, const float* __restrict__ buf,
-    const int* __restrict__ idx, const float* __restrict__ gmg,
-    const float* __restrict__ gr, const float* __restrict__ gl,
-    const float* __restrict__ Pl, const float* __restrict__ Pr,
-    const float* __restrict__ pi, const float* __restrict__ w,
-    float* __restrict__ dm1g, float* __restrict__ dm2g,
-    float* __restrict__ dPl, float* __restrict__ dPr,
-    float* __restrict__ dpi_part, float* __restrict__ dw_part,
-    float* __restrict__ scratch, int K, int R, int N, int G, int S,
-    int tkb) {
+// One CUDA block per particle k, `blockDim.x / 32` warps; warp w owns the
+// site chunks c = w, w + W, ... of CH = 32 SPL sites, lane l the sites
+// c CH + 32 j + l (j < SPL).  A warp stages its chunk's children and
+// cotangent (3 G A CH floats) in its own shared memory by cp.async, every
+// load in flight at once; a lane only ever reads the sites it copied, so
+// no barrier guards the staging.  Pass 1 keeps each site's scalars (1/scale,
+// dsite, dscale's max share, tie count, max) in the lane's registers;
+// pass 2 loops over the G rate-category blocks with the block's 2 A^2 dP
+// and A dpi sums in registers across the lane's sites, one transpose_sum
+// a (chunk, block), added onto the warp's slot in shared memory in chunk
+// order.  The block then sums the warps' slots in warp order and writes
+// dP and the particle's dpi row once.  No global scratch, no float
+// atomics; one barrier after the transitions load and one before the
+// slot sum.
+template <int A, bool Gather, int SPL>
+__global__ void __launch_bounds__(32 * kBwdMaxWarps)
+    fused_rank_bwd_blocked_kernel(
+        const float* __restrict__ m1g, const float* __restrict__ m2g,
+        const float* __restrict__ leaves, const float* __restrict__ buf,
+        const int* __restrict__ idx, const float* __restrict__ gmg,
+        const float* __restrict__ gr, const float* __restrict__ gl,
+        const float* __restrict__ Pl, const float* __restrict__ Pr,
+        const float* __restrict__ pi, const float* __restrict__ w,
+        float* __restrict__ dm1g, float* __restrict__ dm2g,
+        float* __restrict__ dPl, float* __restrict__ dPr,
+        float* __restrict__ dpi_part, float* __restrict__ dw_part, int K,
+        int R, int N, int G, int S) {
   constexpr int AA = A * A;
   constexpr int NV = 2 * AA + A;        // dP_l, dP_r and dpi of one block
+  constexpr int NF = halved5(NV);       // values a lane keeps after the sum
+  constexpr int CH = 32 * SPL;          // sites a chunk
   extern __shared__ float smem[];
-  __shared__ float sh[32 * NV];
-  const int blk = blockIdx.x;
-  const int k0 = blk * tkb;
-  const int k1 = min(K, k0 + tkb);
+  const int k = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
   const int GA = G * A, npb = G * AA;
   const size_t slab = (size_t)GA * S;
+  const int tile = 3 * GA * CH;         // one staged chunk: x1, x2, gm
   float* pl = smem;
   float* pr = smem + npb;
   float* pv = smem + 2 * npb;
+  float* slot = pv + GA;                // W x G x NV running sums
+  float* myslot = slot + (size_t)warp * G * NV;
+  float* mystage = slot + (size_t)W * G * NV + (size_t)warp * tile;
+  load_transitions(pl, pr, Pl, Pr, k, npb);
   for (int c = threadIdx.x; c < GA; c += blockDim.x) pv[c] = pi[c];
-  float* sc = scratch + (size_t)blk * 5 * S;  // this block's site scalars
-  float* dw_row = dw_part + (size_t)blk * S;
-  float* dpi_row = dpi_part + (size_t)blk * GA;
+  const float grk = gr[k], glk = gl[k];
+  const float* m1 =
+      Gather ? child_slab(leaves, buf, idx[k], idx[K + k], N, R, slab)
+             : m1g + (size_t)k * slab;
+  const float* m2 =
+      Gather ? child_slab(leaves, buf, idx[2 * K + k], idx[3 * K + k], N, R,
+                          slab)
+             : m2g + (size_t)k * slab;
+  const float* gm = gmg + (size_t)k * slab;
+  float* dm1 = dm1g + (size_t)k * slab;
+  float* dm2 = dm2g + (size_t)k * slab;
+  const int nch = (S + CH - 1) / CH;
+  // this lane's sites of chunk c into stage x (planes-major, CH a plane)
+  auto stage = [&](int c, float* x) {
+    for (int p = 0; p < GA; ++p) {
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) {
+        const int s = c * CH + 32 * j + lane;
+        float* d = x + p * CH + 32 * j + lane;
+        if (s < S) {
+          const size_t at = (size_t)p * S + s;
+          cp_async4(d, m1 + at);
+          cp_async4(d + GA * CH, m2 + at);
+          cp_async4(d + 2 * GA * CH, gm + at);
+        } else {
+          d[0] = d[GA * CH] = d[2 * GA * CH] = 0.f;
+        }
+      }
+    }
+  };
+  __syncthreads();                      // the transitions and pi
 
-  for (int k = k0; k < k1; ++k) {
-    __syncthreads();                      // the last particle's readers
-    load_transitions(pl, pr, Pl, Pr, k, npb);
-    __syncthreads();
-    const float grk = gr[k], glk = gl[k];
-    const float* m1 =
-        Gather ? child_slab(leaves, buf, idx[k], idx[K + k], N, R, slab)
-               : m1g + (size_t)k * slab;
-    const float* m2 =
-        Gather ? child_slab(leaves, buf, idx[2 * K + k], idx[3 * K + k], N,
-                            R, slab)
-               : m2g + (size_t)k * slab;
-    const float* gm = gmg + (size_t)k * slab;
-    float* dm1 = dm1g + (size_t)k * slab;
-    float* dm2 = dm2g + (size_t)k * slab;
-
+  for (int c = warp, it = 0; c < nch; c += W, ++it) {
+    const float* x1 = mystage;
+    const float* x2 = x1 + GA * CH;
+    const float* xg = x2 + GA * CH;
+    stage(c, mystage);
+    cp_async_wait_all();
+    const int s0 = c * CH + lane;
     // pass 1, per site over all G*A planes: max, its ties, site sum
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      float raw = __int_as_float(0xff800000);  // -inf
-      float neq = 0.f, site = 0.f, gsum = 0.f;
-      for (int g = 0; g < G; ++g) {
+    float raw[SPL], neq[SPL], site[SPL], gsum[SPL];
+#pragma unroll
+    for (int j = 0; j < SPL; ++j) {
+      raw[j] = __int_as_float(0xff800000);  // -inf
+      neq[j] = site[j] = gsum[j] = 0.f;
+    }
+    for (int g = 0; g < G; ++g) {
+      float plg[AA], prg[AA];
+      load_pblock<A>(pl + g * AA, pr + g * AA, plg, prg);
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) {
+        const int e = 32 * j + lane;
         float a1[A], a2[A], u[A], v[A], wp[A];
-        load_block<A>(m1, g, S, s, a1);
-        load_block<A>(m2, g, S, s, a2);
-        block_merge<A>(a1, a2, pl + g * AA, pr + g * AA, u, v, wp);
+        load_block<A>(x1, g, CH, e, a1);
+        load_block<A>(x2, g, CH, e, a2);
+        block_merge<A>(a1, a2, plg, prg, u, v, wp);
 #pragma unroll
         for (int b = 0; b < A; ++b) {
           const int p = g * A + b;
           const float x = wp[b];
-          site = __fmaf_rn(x, pv[p], site);
-          gsum = __fmaf_rn(gm[(size_t)p * S + s], x, gsum);
-          if (x > raw) {
-            raw = x;
-            neq = 1.f;
-          } else if (x == raw) {
-            neq += 1.f;
+          site[j] = __fmaf_rn(x, pv[p], site[j]);
+          gsum[j] = __fmaf_rn(xg[p * CH + e], x, gsum[j]);
+          if (x > raw[j]) {
+            raw[j] = x;
+            neq[j] = 1.f;
+          } else if (x == raw[j]) {
+            neq[j] += 1.f;
           }
         }
       }
-      const float scale = fmaxf(raw, FLT_MIN);
-      const float ws = w[s];
-      const float inv = 1.f / scale;
-      const float dscale = (glk * ws) / scale - gsum * (inv * inv);
-      // max(raw, tiny): full cotangent above the clamp, half at it
-      const float draw =
-          dscale * ((raw > FLT_MIN ? 1.f : 0.f) + (raw == FLT_MIN ? 0.5f : 0.f));
-      sc[s] = inv;
-      sc[S + s] = (grk * ws) / site;      // dsite
-      sc[2 * S + s] = draw;
-      sc[3 * S + s] = neq;
-      sc[4 * S + s] = raw;
-      // site-weight cotangent; this thread owns site s for every k
-      const float dwv = grk * logf(site) + glk * logf(scale);
-      dw_row[s] = (k == k0) ? dwv : dw_row[s] + dwv;
+    }
+    float inv[SPL], dsite[SPL], draw[SPL];
+#pragma unroll
+    for (int j = 0; j < SPL; ++j) {
+      const int s = s0 + 32 * j;
+      inv[j] = dsite[j] = draw[j] = 0.f;  // padded sites carry nothing
+      neq[j] = 1.f / neq[j];            // eq / neq for eq in {0, 1}
+      if (s < S) {
+        const float scale = fmaxf(raw[j], FLT_MIN);
+        const float ws = w[s];
+        inv[j] = 1.f / scale;
+        dsite[j] = (grk * ws) / site[j];
+        const float dscale = (glk * ws) / scale - gsum[j] * (inv[j] * inv[j]);
+        // max(raw, tiny): full cotangent above the clamp, half at it
+        draw[j] = dscale * ((raw[j] > FLT_MIN ? 1.f : 0.f) +
+                            (raw[j] == FLT_MIN ? 0.5f : 0.f));
+        dw_part[(size_t)k * S + s] = grk * logf(site[j]) + glk * logf(scale);
+      }
     }
 
     // pass 2, one rate-category block at a time
     for (int g = 0; g < G; ++g) {
-      const float* plg = pl + g * AA;
-      const float* prg = pr + g * AA;
+      float plg[AA], prg[AA];
+      load_pblock<A>(pl + g * AA, pr + g * AA, plg, prg);
       float acc[NV];
 #pragma unroll
-      for (int c = 0; c < NV; ++c) acc[c] = 0.f;
-      for (int s = threadIdx.x; s < S; s += blockDim.x) {
-        const float inv = sc[s], dsite = sc[S + s], draw = sc[2 * S + s];
-        const float neq = sc[3 * S + s], raw = sc[4 * S + s];
+      for (int e = 0; e < NV; ++e) acc[e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) {
+        const int e = 32 * j + lane, s = s0 + 32 * j;
         float a1[A], a2[A], u[A], v[A], wp[A], du[A], dv[A];
-        load_block<A>(m1, g, S, s, a1);
-        load_block<A>(m2, g, S, s, a2);
+        load_block<A>(x1, g, CH, e, a1);
+        load_block<A>(x2, g, CH, e, a2);
         block_merge<A>(a1, a2, plg, prg, u, v, wp);
 #pragma unroll
         for (int b = 0; b < A; ++b) {
           const int p = g * A + b;
           // reduce-max cotangent split evenly among tied planes
-          const float eq = (wp[b] == raw) ? 1.f : 0.f;
-          const float dwp = gm[(size_t)p * S + s] * inv + dsite * pv[p] +
-                            draw * (eq / neq);
+          const float share = (wp[b] == raw[j]) ? neq[j] : 0.f;
+          const float dwp = xg[p * CH + e] * inv[j] + dsite[j] * pv[p] +
+                            draw[j] * share;
           du[b] = dwp * v[b];
           dv[b] = dwp * u[b];
-          acc[2 * AA + b] += dsite * wp[b];
+          acc[2 * AA + b] = __fmaf_rn(dsite[j], wp[b], acc[2 * AA + b]);
         }
 #pragma unroll
         for (int a = 0; a < A; ++a) {
-          float x1 = du[0] * plg[a * A], x2 = dv[0] * prg[a * A];
+          float y1 = du[0] * plg[a * A], y2 = dv[0] * prg[a * A];
 #pragma unroll
           for (int b = 1; b < A; ++b) {
-            x1 += du[b] * plg[a * A + b];
-            x2 += dv[b] * prg[a * A + b];
+            y1 = __fmaf_rn(du[b], plg[a * A + b], y1);
+            y2 = __fmaf_rn(dv[b], prg[a * A + b], y2);
           }
-          dm1[(size_t)(g * A + a) * S + s] = x1;
-          dm2[(size_t)(g * A + a) * S + s] = x2;
+          if (s < S) {
+            dm1[(size_t)(g * A + a) * S + s] = y1;
+            dm2[(size_t)(g * A + a) * S + s] = y2;
+          }
 #pragma unroll
           for (int b = 0; b < A; ++b) {
-            acc[a * A + b] += du[b] * a1[a];
-            acc[AA + a * A + b] += dv[b] * a2[a];
+            acc[a * A + b] = __fmaf_rn(du[b], a1[a], acc[a * A + b]);
+            acc[AA + a * A + b] = __fmaf_rn(dv[b], a2[a], acc[AA + a * A + b]);
           }
         }
       }
-      block_sum<NV>(acc, sh);
-      if (threadIdx.x == 0) {
+      int base = 0, size = NV;
+      transpose_sum<NV, 16>(acc, lane, base, size);
+      float* sl = myslot + g * NV + base;
 #pragma unroll
-        for (int c = 0; c < AA; ++c) {
-          dPl[(size_t)k * npb + g * AA + c] = acc[c];
-          dPr[(size_t)k * npb + g * AA + c] = acc[AA + c];
-        }
-#pragma unroll
-        for (int b = 0; b < A; ++b) {
-          const float x = acc[2 * AA + b];
-          dpi_row[g * A + b] = (k == k0) ? x : dpi_row[g * A + b] + x;
-        }
-      }
+      for (int i = 0; i < NF; ++i)
+        if (i < size) sl[i] = it ? sl[i] + acc[i] : acc[i];
     }
+  }
+  __syncthreads();
+  // the warps' slots in warp order: dP and the particle's dpi row, once
+  for (int e = threadIdx.x; e < G * NV; e += blockDim.x) {
+    float t = slot[e];
+    for (int q = 1; q < W; ++q) t += slot[(size_t)q * G * NV + e];
+    const int g = e / NV, v = e - g * NV;
+    if (v < AA)
+      dPl[(size_t)k * npb + g * AA + v] = t;
+    else if (v < 2 * AA)
+      dPr[(size_t)k * npb + g * AA + v - AA] = t;
+    else
+      dpi_part[(size_t)k * GA + g * A + v - 2 * AA] = t;
   }
 }
 
@@ -637,6 +782,21 @@ static size_t blocked_smem(int G, int A) {
   return (size_t)(2 * G * A * A + G * A) * sizeof(float);
 }
 
+// K3 blocked / K10 backward: transitions, pi, the warps' slots and their
+// staged chunks (3 G A CH floats a warp).
+static size_t bwd_blocked_smem(int G, int A, int warps, int spl) {
+  return blocked_smem(G, A) +
+         (size_t)warps * G * (2 * A * A + A) * sizeof(float) +
+         (size_t)warps * 3 * G * A * 32 * spl * sizeof(float);
+}
+
+template <typename Kernel>
+static int allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 extern "C" int launch_fused_rank_blocked(
     const float* leaves, float* buf, const int* idx, const float* Pl,
     const float* Pr, const float* pi, const float* w, float* rootll,
@@ -661,26 +821,32 @@ extern "C" int launch_fused_rank_blocked(
   return (int)cudaGetLastError();
 }
 
+// spl and warps come from pruning/kernels.py::rank_bwd_plan; spl must
+// be the instantiated kBwdSPL.
 template <bool Gather>
 static int launch_bwd_blocked(
     const float* m1, const float* m2, const float* leaves, const float* buf,
     const int* idx, const float* gm, const float* gr, const float* gl,
     const float* Pl, const float* Pr, const float* pi, const float* w,
     float* dm1, float* dm2, float* dPl, float* dPr, float* dpi_part,
-    float* dw_part, float* scratch, int K, int R, int N, int G, int A, int S,
-    int tkb, void* stream) {
-  if (K <= 0) return 0;
-  if (tkb <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
+    float* dw_part, int K, int R, int N, int G, int A, int S, int spl,
+    int warps, void* stream) {
+  if (K <= 0 || S <= 0) return 0;
+  if (G <= 0 || spl != kBwdSPL || warps < 1 || warps > kBwdMaxWarps)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nb = (K + tkb - 1) / tkb;
-  const size_t smem = blocked_smem(G, A);
+  const size_t smem = bwd_blocked_smem(G, A, warps, spl);
   switch (A) {
 #define PHYLO_K10B(AA)                                                     \
-  case AA:                                                                 \
-    fused_rank_bwd_blocked_kernel<AA, Gather><<<nb, kThreads, smem, st>>>( \
+  case AA: {                                                               \
+    auto kernel = fused_rank_bwd_blocked_kernel<AA, Gather, kBwdSPL>;      \
+    const int err = allow_smem(kernel, smem);                              \
+    if (err) return err;                                                   \
+    kernel<<<K, 32 * warps, smem, st>>>(                                   \
         m1, m2, leaves, buf, idx, gm, gr, gl, Pl, Pr, pi, w, dm1, dm2,     \
-        dPl, dPr, dpi_part, dw_part, scratch, K, R, N, G, S, tkb);         \
-    break;
+        dPl, dPr, dpi_part, dw_part, K, R, N, G, S);                       \
+    break;                                                                 \
+  }
     PHYLO_A_CASES(PHYLO_K10B)
 #undef PHYLO_K10B
     default:
@@ -693,21 +859,21 @@ extern "C" int launch_fused_rank_bwd_saved_blocked(
     const float* m1, const float* m2, const float* gm, const float* gr,
     const float* gl, const float* Pl, const float* Pr, const float* pi,
     const float* w, float* dm1, float* dm2, float* dPl, float* dPr,
-    float* dpi_part, float* dw_part, float* scratch, int K, int G, int A,
-    int S, int tkb, void* stream) {
+    float* dpi_part, float* dw_part, int K, int G, int A, int S, int spl,
+    int warps, void* stream) {
   return launch_bwd_blocked<false>(
       m1, m2, nullptr, nullptr, nullptr, gm, gr, gl, Pl, Pr, pi, w, dm1, dm2,
-      dPl, dPr, dpi_part, dw_part, scratch, K, 0, 0, G, A, S, tkb, stream);
+      dPl, dPr, dpi_part, dw_part, K, 0, 0, G, A, S, spl, warps, stream);
 }
 
 extern "C" int launch_fused_rank_bwd_blocked(
     const float* leaves, const float* buf, const int* idx, const float* gm,
     const float* gr, const float* gl, const float* Pl, const float* Pr,
     const float* pi, const float* w, float* dm1, float* dm2, float* dPl,
-    float* dPr, float* dpi_part, float* dw_part, float* scratch, int K, int R,
-    int N, int G, int A, int S, int tkb, void* stream) {
+    float* dPr, float* dpi_part, float* dw_part, int K, int R, int N, int G,
+    int A, int S, int spl, int warps, void* stream) {
   return launch_bwd_blocked<true>(
       nullptr, nullptr, leaves, buf, idx, gm, gr, gl, Pl, Pr, pi, w, dm1,
-      dm2, dPl, dPr, dpi_part, dw_part, scratch, K, R, N, G, A, S, tkb,
+      dm2, dPl, dPr, dpi_part, dw_part, K, R, N, G, A, S, spl, warps,
       stream);
 }

@@ -67,8 +67,14 @@ SMEM_LIMIT = 232448             # shared-memory bytes of a block (H100)
 MAX_G = 32                      # rate-category blocks on the card
 MAX_WIDE_PLANES = 128           # G*A planes of the wide kernels K9
 WIDE_TILE = 32                  # K9f: sites per CUDA block (partial rows)
-BWD_PARTICLES_PER_BLOCK = 8     # K2/K3: particles per CUDA block (dpi/dw
+BWD_PARTICLES_PER_BLOCK = 8     # K2/K3 dense: particles per CUDA block (dpi/dw
                                 # partials come back one row per block)
+BWD_SITES_PER_LANE = 1          # K3 blocked / K10 bwd: a lane's sites a chunk
+BWD_MAX_WARPS = 8               # K3 blocked / K10 bwd: warps (chunks) a block
+WIDE_BWD_SITE_TILES = 8         # K9bs / K9b: site tiles of 4 a chunk (32 sites)
+WIDE_BWD_THREADS = 256          # K9bs / K9b: threads a block at most
+MAX_CLUSTER = 8                 # K9bs / K9b: blocks a particle (portable)
+SMS = 132                       # streaming multiprocessors of an H100
 # bytes of the (R, K, 2, G*A, S) child residuals the manual-VJP forward
 # may save for K2; above it the reverse pass re-gathers through K3
 SAVE_CHILDREN_CAP = 2 ** 28
@@ -325,22 +331,90 @@ def _fused_rank_bwd_ref(leaves, buf, idx, gm, gr, gl, P_l, P_r, pi,
                                      weights)
 
 
-def _bwd_outputs(K, GA, S, P_shape, dev):
-    nb = -(-K // BWD_PARTICLES_PER_BLOCK)
+def _bwd_outputs(K, GA, S, P_shape, dev, rows):
+    """(dm1, dm2, dP_l, dP_r, dpi_part (rows, GA), dw_part (rows, S)): dP
+    shaped as the transitions; the caller sums the partial rows.  K2 / K3
+    dense write one row per block of BWD_PARTICLES_PER_BLOCK particles;
+    K3 blocked, K10's backward and K9bs / K9b one per particle."""
     f = dict(dtype=torch.float32, device=dev)
     return (torch.empty((K, GA, S), **f), torch.empty((K, GA, S), **f),
             torch.empty(P_shape, **f), torch.empty(P_shape, **f),
-            torch.empty((nb, GA), **f), torch.empty((nb, S), **f))
+            torch.empty((rows, GA), **f), torch.empty((rows, S), **f))
 
 
-def _wide_bwd_outputs(K, GA, S, P_shape, dev):
-    """K9bs / K9b: dP shaped as the transitions ((K, A, A), or (K, G, A,
-    A) blocked); one CUDA block per particle, so dpi / dw come back as
-    (K, GA) / (K, S) partial rows."""
-    f = dict(dtype=torch.float32, device=dev)
-    return (torch.empty((K, GA, S), **f), torch.empty((K, GA, S), **f),
-            torch.empty(P_shape, **f), torch.empty(P_shape, **f),
-            torch.empty((K, GA), **f), torch.empty((K, S), **f))
+def rank_bwd_plan(K, G, A, S, spl=BWD_SITES_PER_LANE, max_warps=None):
+    """Launch of K3 blocked / K10's backward: (sites a lane, warps a
+    block, chunks a particle, blocks, shared-memory bytes).  One block per
+    particle; a chunk is 32 lanes x spl sites, and a warp takes every
+    warps-th chunk, up to BWD_MAX_WARPS warps a particle, so DS1's K =
+    2048 x S = 256 runs 16,384 warps and K = 128 x S = 1949 1,024.  A
+    warp stages a chunk's children and cotangent (3 G A 32 spl floats) in
+    shared memory, beside the transitions, pi and each warp's running
+    2 A^2 + A sums of every block; warps shrink until it fits."""
+    chunks = _ceil(S, 32 * spl)
+    warps = min(chunks, max_warps or BWD_MAX_WARPS)
+
+    def smem(w):
+        return 4 * (2 * G * A * A + G * A + w * G * (2 * A * A + A)
+                    + w * 3 * G * A * 32 * spl)
+
+    while warps > 1 and smem(warps) > SMEM_LIMIT:
+        warps -= 1
+    return spl, warps, chunks, K, smem(warps)
+
+
+def wide_bwd_smem(G, A, nst=WIDE_BWD_SITE_TILES):
+    """Shared-memory bytes of K9bs / K9b: csrc/wide_kernels.cu's
+    BwdLayout (P blocks padded to AP = 4 ceil(A / 4), reused as the dP /
+    dpi staging row; pi; four (G AP, 4 nst) tiles at pitch 4 nst + 4; the
+    warps' per-site partials, the per-site scalars, the dpi partials)."""
+    sc = 4 * nst
+    AP = 4 * _ceil(A, 4)
+    GA, GAP = G * A, G * AP
+    preg = max(2 * G * AP * AP, 4 * _ceil(2 * G * A * A + GA, 4))
+    warps = _wide_max_threads(nst) // 32
+    return 4 * (preg + 4 * _ceil(GA, 4) + 4 * GAP * (sc + 4)
+                + 4 * warps * sc + 5 * sc + nst * GAP)
+
+
+def _wide_max_threads(nst):
+    """K9bs / K9b's threads a block at most (`bwd_max_threads`)."""
+    return 32 * nst if nst > 8 else WIDE_BWD_THREADS
+
+
+def wide_bwd_plan(K, G, A, S, nst=None, max_cluster=MAX_CLUSTER):
+    """Launch of K9bs / K9b (and K11a above 8 states): (sites a chunk,
+    cluster, threads, dP tiles a thread, blocks, shared-memory bytes).
+    Grid (cluster, K): the cluster's blocks split particle k's chunks of
+    4 nst sites (block r takes chunks r, r + cluster, ...) and sum their
+    dP through distributed shared memory.  A thread owns a (4 planes x 4
+    sites) tile of u, v, du, dv and dm, so a block has G ceil(A / 4) nst
+    threads rounded up to a warp, and dpt (1, 2, 4 or 8) of the 2 G
+    ceil(A / 4)^2 (4 x 4) dP tiles.  nst = WIDE_BWD_SITE_TILES (32-site
+    chunks), or 4 where more than 32 plane tiles would not fit
+    WIDE_BWD_THREADS (a blocked model with a padded A, such as 14 x 9).
+    The cluster is the largest (up to 8) that keeps the grid to one wave
+    of the card: a block pays a fixed prologue (P into shared memory) and
+    the cluster's reduction, so 8 blocks a particle ran 1.5x slower than
+    2 at GY94's K = 128 (tools/torch_k9_bwd_forms.py, PERF.md)."""
+    if not 1 <= G * A <= MAX_WIDE_PLANES:
+        raise NotImplementedError(
+            f"K9bs / K9b take G*A <= {MAX_WIDE_PLANES} planes, got {G}x{A}")
+    npt = _ceil(A, 4)
+    if nst is None:
+        nst = WIDE_BWD_SITE_TILES
+        if G * npt * nst > WIDE_BWD_THREADS:
+            nst = 4
+    sc = 4 * nst
+    chunks = _ceil(S, sc)
+    threads = _ceil(G * npt * nst, 32) * 32
+    dpt = _pow2(_ceil(2 * G * npt * npt, threads))
+    smem = wide_bwd_smem(G, A, nst)
+    # one wave: the blocks an SM holds by shared memory and by registers
+    # at the launch bound's cap of 255 a thread
+    per_sm = max(1, min(SMEM_LIMIT // smem, 65536 // (255 * threads)))
+    cluster = min(chunks, max_cluster, max(1, SMS * per_sm // K))
+    return sc, cluster, threads, dpt, cluster * K, smem
 
 
 def _check_bwd_args(gm, gr, gl, P_l, P_r, pi, weights, K, GA, S):
@@ -380,32 +454,32 @@ def _launch_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights,
     _ext.require(m1, "m1", torch.float32, shape=(K, GA, S))
     _ext.require(m2, "m2", torch.float32, shape=(K, GA, S))
     dev = m1.device
-    tkb = BWD_PARTICLES_PER_BLOCK
-    outs = (_wide_bwd_outputs if wide else _bwd_outputs)(K, GA, S,
-                                                         P_l.shape, dev)
+    blocked = P_l.ndim == 4
+    rows = K if wide or blocked else _ceil(K, BWD_PARTICLES_PER_BLOCK)
+    outs = _bwd_outputs(K, GA, S, P_l.shape, dev, rows)
     ins = [t.data_ptr() for t in (m1, m2, gm, gr, gl, P_l, P_r, pi,
                                   weights)]
     out_p = [t.data_ptr() for t in outs]
     if wide:
-        fn = _ext.bind("wide_kernels", "launch_wide_rank_bwd_saved", 15, 4)
-        name = "fused_rank_bwd_saved_wide" + (
-            "_blocked" if P_l.ndim == 4 else "")
+        sc, cluster, threads, dpt, _, _ = wide_bwd_plan(K, G, A, S)
+        fn = _ext.bind("wide_kernels", "launch_wide_rank_bwd_saved", 15, 8)
+        name = "fused_rank_bwd_saved_wide" + ("_blocked" if blocked else "")
         _ext.LAUNCHES[counter or name] += 1
-        code = fn(*ins, *out_p, K, G, A, S, _ext.stream_ptr(dev))
-    elif P_l.ndim == 4:
-        scratch = torch.empty((outs[4].shape[0], 5, S), dtype=torch.float32,
-                              device=dev)
+        code = fn(*ins, *out_p, K, G, A, S, sc, cluster, threads, dpt,
+                  _ext.stream_ptr(dev))
+    elif blocked:
+        spl, warps, _, _, _ = rank_bwd_plan(K, G, A, S)
         fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_saved_blocked",
-                       16, 5)
+                       15, 6)
         name = "fused_rank_bwd_saved_blocked"
         _ext.LAUNCHES[counter or name] += 1
-        code = fn(*ins, *out_p, scratch.data_ptr(), K, G, A, S, tkb,
-                  _ext.stream_ptr(dev))
+        code = fn(*ins, *out_p, K, G, A, S, spl, warps, _ext.stream_ptr(dev))
     else:
         fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_saved", 15, 4)
         name = "fused_rank_bwd_saved"
         _ext.LAUNCHES[counter or name] += 1
-        code = fn(*ins, *out_p, K, A, S, tkb, _ext.stream_ptr(dev))
+        code = fn(*ins, *out_p, K, A, S, BWD_PARTICLES_PER_BLOCK,
+                  _ext.stream_ptr(dev))
     _ext.check(code, counter or name)
     return outs
 
@@ -426,30 +500,32 @@ def fused_rank_bwd(leaves, buf, idx, gm, gr, gl, P_l, P_r, pi, weights):
     _ext.require(buf, "buf", torch.float32)
     _ext.require(idx, "idx", torch.int32, shape=(4, K))
     dev = buf.device
-    tkb = BWD_PARTICLES_PER_BLOCK
-    outs = (_wide_bwd_outputs if wide else _bwd_outputs)(K, GA, S,
-                                                         P_l.shape, dev)
+    blocked = P_l.ndim == 4
+    rows = K if wide or blocked else _ceil(K, BWD_PARTICLES_PER_BLOCK)
+    outs = _bwd_outputs(K, GA, S, P_l.shape, dev, rows)
     ins = [t.data_ptr() for t in (leaves, buf, idx, gm, gr, gl, P_l, P_r,
                                   pi, weights)]
     out_p = [t.data_ptr() for t in outs]
     if wide:
-        fn = _ext.bind("wide_kernels", "launch_wide_rank_bwd", 16, 6)
-        name = "fused_rank_bwd_wide" + ("_blocked" if P_l.ndim == 4 else "")
+        sc, cluster, threads, dpt, _, _ = wide_bwd_plan(K, G, A, S)
+        fn = _ext.bind("wide_kernels", "launch_wide_rank_bwd", 16, 10)
+        name = "fused_rank_bwd_wide" + ("_blocked" if blocked else "")
         _ext.LAUNCHES[name] += 1
-        code = fn(*ins, *out_p, K, R, N, G, A, S, _ext.stream_ptr(dev))
-    elif P_l.ndim == 4:
-        scratch = torch.empty((outs[4].shape[0], 5, S), dtype=torch.float32,
-                              device=dev)
-        fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_blocked", 17, 7)
+        code = fn(*ins, *out_p, K, R, N, G, A, S, sc, cluster, threads, dpt,
+                  _ext.stream_ptr(dev))
+    elif blocked:
+        spl, warps, _, _, _ = rank_bwd_plan(K, G, A, S)
+        fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_blocked", 16, 8)
         name = "fused_rank_bwd_blocked"
         _ext.LAUNCHES[name] += 1
-        code = fn(*ins, *out_p, scratch.data_ptr(), K, R, N, G, A, S, tkb,
+        code = fn(*ins, *out_p, K, R, N, G, A, S, spl, warps,
                   _ext.stream_ptr(dev))
     else:
         fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd", 16, 6)
         name = "fused_rank_bwd"
         _ext.LAUNCHES[name] += 1
-        code = fn(*ins, *out_p, K, R, N, A, S, tkb, _ext.stream_ptr(dev))
+        code = fn(*ins, *out_p, K, R, N, A, S, BWD_PARTICLES_PER_BLOCK,
+                  _ext.stream_ptr(dev))
     _ext.check(code, name)
     return outs
 
