@@ -30,14 +30,16 @@ script exits non-zero without printing a result:
    and 4 x 4 over two site chunks small; K11a at A=4 and 16), with the
    tolerances printed, and
    timed beside the plain version, the least time the card could take
-   (bound) and, where one exists, a single PyTorch library call; and the
+   (bound) and, where one exists, a single PyTorch library call; K5 at
+   K=2048 and at VNCSMC's K=32, with some particles at weight 0 (-inf,
+   never drawn), by chi-square beside torch.multinomial; and the
    saved-children route (K10 saving + K10's backward) against the
    re-gather route (K10 + K3) at the DS1 step shape, the trade
    SAVE_CHILDREN_CAP decides; the rank backwards K3 blocked (timed at
-   DS1 S=256 and 1949), K10's saved backward, K9bs and K9b (dense and
-   blocked) and K11a (A=4 and 16) each also called twice (the same
-   bits) and once captured as a CUDA graph (one device kernel a wrapper
-   call), their times printed beside the former design's;
+   DS1 S=256 and 1949), K10's saved backward, K9f, K9bs and K9b (dense
+   and blocked), K11a (A=4 and 16) and K5 each also called twice (the
+   same bits) and once captured as a CUDA graph (one device kernel a
+   wrapper call), their times printed beside the former design's;
 3. fixed-decision ELBO: the sweep in float32 on the card through the
    kernels against float64 on the CPU through the plain path, with the
    same numpy-made decisions (1e-3 relative, BASELINE.md's bar), and
@@ -66,10 +68,10 @@ script exits non-zero without printing a result:
    site batch 256, through phylo_tpu_torch.cli.runner, with every
    kernel's launch counter set to 0 before each path and read after;
 5. where the time of one epoch of each path goes, under torch.profiler
-   (K4f's and K4b's device time and launches on every path, and the
-   rank backwards' (K3 blocked / K10's backward, the wide body of K9bs,
-   K9b and K11a); for VNCSMC GTR+G4 on DS1, K11b's, K7 wide's and K4's
-   device time beside their earlier designs').
+   (K4f's, K4b's, K9f's and K5's device time and launches on every path,
+   and the rank backwards' (K3 blocked / K10's backward, the wide body of
+   K9bs, K9b and K11a); for VNCSMC GTR+G4 on DS1, K11b's, K7 wide's and
+   K4's device time beside their earlier designs').
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -107,9 +109,9 @@ PROT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 PROT_FASTA = os.path.join(PROT_DIR, "protein_16x500.fa")
 PROT_DAT = os.path.join(PROT_DIR, "protein_seed0.dat")
 SLEEP_CYCLES = 100_000_000         # ~50 ms at the H100's ~2 GHz clock
-# The rank backwards' phase-2 times on their former design (ms, PERF.md's
-# kernel table: this script on an NVIDIA H100 80GB HBM3 at 700 W), keyed
-# by (kernel, particles, states a block, sites)
+# Phase-2 times of the redesigned kernels on their former design (ms,
+# PERF.md's kernel table: this script on an NVIDIA H100 80GB HBM3 at
+# 700 W), keyed by (kernel, particles, states a block, sites)
 FORMER_MS = {("K2", K, 4, 256): 0.0489, ("K3", K, 4, 256): 0.0373,
           ("K10 bwd-saved", K, 4, 256): 0.2002,
           ("K3 blocked", K, 4, 256): 0.1746,
@@ -120,7 +122,14 @@ FORMER_MS = {("K2", K, 4, 256): 0.0489, ("K3", K, 4, 256): 0.0373,
           ("K9bs blocked", 256, 20, 500): 0.7759,
           ("K9b blocked", 256, 20, 256): 0.3579,
           ("K9b blocked", 256, 20, 500): 0.7156,
-          ("K11a", 32, 4, 256): 0.0388, ("K11a", 32, 16, 256): 0.0653}
+          ("K11a", 32, 4, 256): 0.0388, ("K11a", 32, 16, 256): 0.0653,
+          # K9f (one block a 32-site tile) and K5 (the Gumbel field)
+          ("K9f save", 128, 61, 256): 0.0678, ("K9f", 128, 61, 256): 0.0659,
+          ("K9f save", 128, 61, 1086): 0.2503,
+          ("K9f", 128, 61, 1086): 0.2409,
+          ("K9f blocked", 256, 20, 256): 0.0775,
+          ("K9f blocked", 256, 20, 500): 0.1456,
+          ("K5", 2048, 1, 1): 0.0170}
 
 
 def log(msg):
@@ -360,21 +369,25 @@ def compare_bwd(label, got, want, tol=1e-4):
 
 
 def former(kernel, Kd, A_, S):
-    """The former design's time of a rank backward at this shape, for the
-    log line."""
+    """The former design's time of a kernel at this shape, for the log
+    line."""
     t = FORMER_MS.get((kernel, Kd, A_, S))
     return (f"former design: {t:.4f} ms" if t is not None else
             "former design: not timed here")
 
 
-def repeat_checks(label, fn, sums=0):
-    """Two calls of a backward give the same bits (no float atomics), and
-    one call enqueues one device kernel (`device_kernels`), plus `sums`
-    torch.sum kernels where the wrapper reduces partial rows itself (K11a:
-    dpi and dw)."""
-    a, b = fn(), fn()
+def repeat_checks(label, fn, sums=0, state=None):
+    """Two calls of a kernel's wrapper give the same bits (no float
+    atomics), and one call enqueues one device kernel (`device_kernels`),
+    plus `sums` torch.sum kernels where the wrapper reduces partial rows
+    itself (K11a: dpi and dw).  `state`: a tensor the call writes in place
+    (K9f's buffer column), compared too."""
+    a = fn()
+    before = None if state is None else state.clone()
+    b = fn()
     torch.cuda.synchronize()
-    same = all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+    same = all(bool(torch.equal(x, y)) for x, y in zip(a, b)) and (
+        state is None or bool(torch.equal(before, state)))
     require(same, f"{label}: two calls differ")
     names, _ = device_kernels(fn)
     n = sum(c for _, c in names)
@@ -532,13 +545,13 @@ def wide_inputs(gen, dev, S, idx, Kd=K_CODON, Nd=N_CODON, A_=A_CODON,
     return leaves, buf, idx, P_l, P_r, pi, w
 
 
-def k9_bounds(kern, idx, A_, S, Nd, kind, G=1):
+def k9_bounds(idx, A_, S, Nd, kind, G=1):
     """(bound ms, by) of one K9 launch on these inputs (G blocks of A_
     states).  kind: "fwd", "fwd_save" (K9f), "bwd_saved" (K9bs), "bwd"
     (K9b).  Bytes: the child slabs read once each (the distinct ones idx
     names, or the 2 Kd saved copies for K9bs), the cotangent in and
     outputs out, transitions and their cotangents, dpi and dw once (the
-    forward: its partial rows).
+    forward: rootll and logscale).
     FP32 operations per particle and site: 4 G A^2 + 4 G A + 2 forward (u
     and v: 2 G A^2 FMAs), 12 G A^2 + 20 G A + 4 backward (u, v, dm1, dm2,
     dP_l, dP_r)."""
@@ -549,8 +562,7 @@ def k9_bounds(kern, idx, A_, S, Nd, kind, G=1):
     child = (2 * Kd if kind == "bwd_saved" else n_leaf + n_int) * slab
     small = 2 * Kd * G * A_ * A_ * 4 + S * 4 + GA * 4
     if kind.startswith("fwd"):
-        T = -(-S // kern.WIDE_TILE)
-        nbytes = child + Kd * slab + small + 2 * Kd * T * 4 \
+        nbytes = child + Kd * slab + small + 2 * Kd * 4 \
             + (2 * Kd * slab if kind == "fwd_save" else 0)
         return bound(nbytes, Kd * S * (4 * G * A_ * A_ + 4 * GA + 2))
     nbytes = child + 3 * Kd * slab + 2 * small + 2 * Kd * 4 + (GA + S) * 4
@@ -596,18 +608,25 @@ def check_k9(kern, gen, dev, idx, S, Nd=N_CODON, A_=A_CODON, timed=True,
                         for k, v in errs.items()))
         for k, v in errs.items():
             require(v <= tol[k], f"{fname} {k} error {v} > {tol[k]}")
+
+        def call(save=save, b_k=b_k):
+            return kern.fused_rank_update(leaves, b_k, idx, outc, P_l, P_r,
+                                          pi, w, save_children=save)
+        repeat_checks(f"{fname} {tag} save={save}", call,
+                      state=b_k[:, outc])
         if not timed:
             continue
-        ms = time_ms(lambda: kern.fused_rank_update(
-            leaves, b_k, idx, outc, P_l, P_r, pi, w, save_children=save))
+        ms = time_ms(call)
         plain = time_ms(lambda: kern._fused_rank_ref(
             leaves, b_p, idx, outc, P_l, P_r, pi, w, save_children=save),
             iters=3)
-        b_ms, b_by = k9_bounds(kern, idx, A_, S, Nd,
+        b_ms, b_by = k9_bounds(idx, A_, S, Nd,
                                "fwd_save" if save else "fwd", G)
-        log(f"  {fname} {tag} save={save}: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); library: null "
-            "(no single PyTorch call gathers, merges, rescales and reduces)")
+        log(f"  {fname} {tag} save={save}: kernel {ms:.4f} ms "
+            f"({former(fname + (' save' if save else ''), Kd, A_, S)}), "
+            f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{b_ms / ms:.0%} of it reached); library: null (no single "
+            "PyTorch call gathers, merges, rescales and reduces)")
         if save == line_save:
             out["fused_rank_update_wide" + sfx] = dict(
                 max_abs_err=max(errs.values()), ms=ms, plain_ms=plain,
@@ -646,7 +665,7 @@ def check_k9(kern, gen, dev, idx, S, Nd=N_CODON, A_=A_CODON, timed=True,
                 continue
             ms = time_ms(lambda: fn(*args))
             plain = time_ms(lambda: ref(*args), iters=3)
-            b_ms, b_by = k9_bounds(kern, idx, A_, S, Nd, kind, G)
+            b_ms, b_by = k9_bounds(idx, A_, S, Nd, kind, G)
             log(f"  {label} {tag}: kernel {ms:.4f} ms "
                 f"({former(label, Kd, A_, S)}), plain {plain:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}, {b_ms / ms:.0%} of it reached); "
@@ -885,11 +904,43 @@ def check_k4_all(ek, gen, dev):
     return line
 
 
-def check_k5(rk, gen, dev):
+def sm_clock_hz():
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def k5_bound(K, field=False):
+    """(ms, by) of K draws: the logits read and the indices written once,
+    against the pipes the work issues to at the card's maximum SM clock:
+    MUFU (16 a clock an SM) for each exp or log, IMAD (64 a clock an SM)
+    for Philox4x32-10's 40 multiplies a call.  The inverse CDF: one exp a
+    particle, half a Philox call a draw.  field=True: the former (K, K)
+    Gumbel field, two logs and a quarter of a Philox call an entry."""
+    clk = sm_clock_hz() * 132
+    n = K * K if field else K
+    mufu = 2 * n if field else n
+    imad = 40 * n / (4 if field else 2)
+    t_ops = max(mufu / (16 * clk), imad / (64 * clk)) * 1e3
+    t_bytes = (8 * K + 16) / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_k5(rk, gen, dev, Kd=K):
+    """K5 on Kd skewed weights (Gumbel logits spanning ~3 orders of
+    magnitude), every 13th particle from the 4th at weight 0 (-inf): the
+    kernel against its plain version on the same seed, -inf never drawn,
+    two calls bit-identical, one device kernel a call, the law by
+    chi-square over 512 x Kd draws beside torch.multinomial's; timed
+    beside the plain version, torch.multinomial and the former design."""
     rng = np.random.default_rng(7)
-    # skewed weights spanning ~3 orders of magnitude
-    logits = torch.tensor(rng.gumbel(size=K) * 2.0, dtype=torch.float32,
+    logits = torch.tensor(rng.gumbel(size=Kd) * 2.0, dtype=torch.float32,
                           device=dev)
+    dead = slice(3, None, 13)
+    logits[dead] = -math.inf
     log_norm = (logits - torch.logsumexp(logits, 0)).contiguous()
     p = torch.softmax(logits.double(), 0).cpu().numpy()
     seed = rk.draw_seed(gen, dev)
@@ -897,37 +948,44 @@ def check_k5(rk, gen, dev):
     want = rk._categorical_plain(log_norm, seed)
     torch.cuda.synchronize()
     mism = int((got != want).sum())
-    log(f"  K5 categorical: {mism} of {K} draws differ from the plain "
-        "version on the same seed (tol 2)")
+    log(f"  K5 categorical K={Kd}: {mism} of {Kd} draws differ from the "
+        "plain version on the same seed (tol 2)")
     require(mism <= 2, f"K5 disagrees with its plain version on {mism}")
+    repeat_checks(f"K5 categorical K={Kd}", lambda: (rk.categorical(
+        log_norm, seed),))
     rounds = 512
-    counts = {"kernel": torch.zeros(K, dtype=torch.int64, device=dev),
-              "torch.multinomial": torch.zeros(K, dtype=torch.int64,
+    counts = {"kernel": torch.zeros(Kd, dtype=torch.int64, device=dev),
+              "torch.multinomial": torch.zeros(Kd, dtype=torch.int64,
                                                device=dev)}
     probs = torch.softmax(logits, 0)
     for _ in range(rounds):
         s = rk.draw_seed(gen, dev)
         counts["kernel"] += torch.bincount(
-            rk.categorical(log_norm, s).long(), minlength=K)
+            rk.categorical(log_norm, s).long(), minlength=Kd)
         counts["torch.multinomial"] += torch.bincount(torch.multinomial(
-            probs, K, replacement=True, generator=gen), minlength=K)
-    n = rounds * K
+            probs, Kd, replacement=True, generator=gen), minlength=Kd)
+    drawn = int(counts["kernel"][dead].sum())
+    require(drawn == 0, f"K5 drew a -inf particle {drawn} times")
+    n = rounds * Kd
     zs = {}
     for name, c in counts.items():
         chi2, dof = pooled_chi2(c.cpu().numpy(), p, n)
         zs[name] = (chi2 - dof) / math.sqrt(2 * dof)
-        log(f"  K5 {name}: chi2 {chi2:.1f} on {dof} dof over {rounds}x{K}"
-            f" draws (z = {zs[name]:+.2f})")
+        log(f"  K5 {name} K={Kd}: chi2 {chi2:.1f} on {dof} dof over "
+            f"{rounds}x{Kd} draws (z = {zs[name]:+.2f}); -inf particles "
+            f"drawn {int(c[dead].sum())} times")
     require(abs(zs["kernel"]) < 4.0, f"K5 chi-square z {zs['kernel']}")
     ms = time_ms(lambda: rk.categorical(log_norm, seed))
     plain = time_ms(lambda: rk._categorical_plain(log_norm, seed), iters=5)
-    lib = time_ms(lambda: torch.multinomial(probs, K, replacement=True,
+    lib = time_ms(lambda: torch.multinomial(probs, Kd, replacement=True,
                                             generator=gen))
-    # per field entry: 2 logf + subtract + compare, plus a quarter of a
-    # Philox4x32-10 call (10 rounds x 4 multiplies) counted as 10 ops
-    b_ms, b_by = bound(2 * K * 4 + 16, K * K * 14)
-    log(f"  K5: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"torch.multinomial {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    b_ms, b_by = k5_bound(Kd)
+    f_ms, f_by = k5_bound(Kd, field=True)
+    log(f"  K5 K={Kd}: kernel {ms:.4f} ms ({former('K5', Kd, 1, 1)}), "
+        f"plain {plain:.4f} ms, torch.multinomial {lib:.4f} ms, bound "
+        f"{b_ms:.6f} ms ({b_by}; latency-bound: one block's dependent "
+        f"max, scan and search); the former Gumbel field's bound "
+        f"{f_ms:.4f} ms ({f_by})")
     return dict(max_abs_err=float((got - want).abs().max()), ms=ms,
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib)
@@ -1722,7 +1780,8 @@ def profile_epoch(name):
         t1 = time.perf_counter()
     rows = []
     named = {k: [0.0, 0] for k in ("K11b", "K7 wide", "K4f", "K4b",
-                                   "K3 blocked / K10 bwd", "K9b / K9bs / K11a")}
+                                   "K3 blocked / K10 bwd", "K9b / K9bs / K11a",
+                                   "K9f", "K5")}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
@@ -1735,7 +1794,9 @@ def profile_epoch(name):
                               ("K4b", "expm_bwd_kernel"),
                               ("K3 blocked / K10 bwd",
                                "fused_rank_bwd_blocked_kernel"),
-                              ("K9b / K9bs / K11a", "wide_rank_bwd_kernel")):
+                              ("K9b / K9bs / K11a", "wide_rank_bwd_kernel"),
+                              ("K9f", "wide_rank_fwd_kernel"),
+                              ("K5", "categorical_kernel")):
                 if fn in e.key:
                     named[kname][0] += float(us) / 1e3
                     named[kname][1] += int(e.count)
@@ -1759,6 +1820,9 @@ def profile_epoch(name):
     log(f"phase 5 {name} rank backwards: " + ", ".join(
         f"{k} {named[k][0]:.2f} ms over {named[k][1]} launches"
         for k in ("K3 blocked / K10 bwd", "K9b / K9bs / K11a")))
+    log(f"phase 5 {name} K9f and K5: " + ", ".join(
+        f"{k} {named[k][0]:.2f} ms over {named[k][1]} launches"
+        for k in ("K9f", "K5")))
     if "twist_profile" in path:
         twist = {k: named[k] for k in ("K11b", "K7 wide")}
         log(f"phase 5 {name} twist kernels: " + ", ".join(
@@ -1823,6 +1887,7 @@ def main(argv):
     # twist's; ragged and single-element batches; the generic instance
     k4f, k4b = check_k4_all(expm_kernel, gen, dev)
     k5 = check_k5(resample_kernel, gen, dev)
+    check_k5(resample_kernel, gen, dev, K_TWIST)      # VNCSMC's K
     k7 = check_k7(kernels, gen, dev)
     k8 = check_k8(kernels, gen, dev, S_BATCH)
     check_k8(kernels, gen, dev, S_FULL)

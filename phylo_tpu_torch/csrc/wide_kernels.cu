@@ -27,58 +27,75 @@
 // against about 5 G A floats, 0.6 A FLOP per byte.  The card's FP32
 // ridge is 20 FLOP/B (67 TFLOP/s over 3.35 TB/s): codons (A = 61) sit
 // at it or above (operations), protein (A = 20) below it, where the
-// bytes bound (chip_smoke.py computes the bound of each launch).  The TPU ran the contractions on its MXU in a multi-pass
-// exact-f32 emulation; here they are FP32 FMAs on the CUDA cores (no
-// tensor cores: no TF32, no wgmma), in a fixed order.
+// bytes bound (chip_smoke.py computes the bound of each launch).  The
+// TPU ran the contractions on its MXU in a multi-pass exact-f32
+// emulation; here they are FP32 FMAs on the CUDA cores (no tensor cores:
+// no TF32, no wgmma), in a fixed order.
 //
-// Design of K9f.  A tile is 32 sites (one warp's width) x all G*A
-// planes, staged in shared memory with a pitch of 33 floats, so a warp
-// reading one plane's 32 sites and a warp reading 32 planes' same site
-// are both free of bank conflicts.  P_l, P_r (2 G A^2 floats) and pi sit
-// in shared memory, and the contractions loop over the G blocks, each the
-// dense contraction on its own A planes; dynamic shared memory above 48
-// KB is opted into per kernel.  Every u[b, s] and v[b, s] is the same FMA
-// chain (a ascending from 0, one rounding per step, `contract_pair`) in
-// the forward and the backward, so the backward's tie test w == max sees
-// the forward's bits.  One block per (particle, site tile), 256 threads;
-// a warp owns a set of planes, a lane a site.  Warp 0 then reduces each
-// site over all G*A planes (max, pi-sum) in plane order, writes w / scale
-// into buffer column outc IN PLACE (the column written is never among the
-// columns read) and one partial rootll / logscale per tile, which the
-// wrapper sums with torch.sum (fixed order, no atomics).
+// One grid for all three: (cluster of up to 8 blocks, particle).  The
+// blocks of particle k split its chunks of SC sites (block r takes chunks
+// r, r + C, ...); each stages P_l, P_r (as (G, AP, AP) zero-padded
+// blocks, AP = 4 ceil(A / 4)) and pi in shared memory once and loops over
+// its chunks, whose children it stages by cp.async.  A thread owns a
+// (4 planes x TS sites) register tile of u and v, computed by `uv_tile`
+// from float4 operands (a float4 of P_l[a, b0..b0+3] and TS / 4 of
+// x1[a, ...] feed 4 TS FMAs a side), one FMA chain per (plane, site), a
+// ascending from 0: the forward and the backwards compute the same bits,
+// so the backward's tie test w == max sees the forward's.  The per-site
+// scalars (max, pi-sum) are reduced over the warp's plane tiles by xor
+// shuffles and over the warps in warp order; a particle's sums over its
+// blocks go through distributed shared memory in rank order and are
+// written once.  No float atomics: two calls give the same bits.  The
+// launch plans are pruning/kernels.py's wide_fwd_plan and wide_bwd_plan;
+// each launcher checks the plan it is given.
 //
-// Design of the backward (K9bs, K9b, K11a above 8 states).  The former
-// form ran one block per particle over the site tiles in turn (128 blocks at
-// GY94, 32 at K11a), the per-site scalars on warp 0 alone, and every FMA
-// of its three contractions with a shared-memory operand (the card's
-// shared memory serves 32 floats a clock an SM against 128 FMA lanes):
-// 13.5x its bound at GY94.  Now the grid is (cluster of up to 8 blocks,
-// particle): the blocks of a particle split its chunks of 32 sites, and
-// each thread computes a (4 x 4) register tile of each contraction from
-// float4 operands, 8 FMAs a shared-memory load; the per-site scalars are
-// reduced over the plane tiles by every warp (xor shuffles) and over the
-// warps in order; dP sums over a block's chunks in registers and over
-// the cluster's blocks in rank order through distributed shared memory,
-// written once (wide_rank_bwd_kernel says each step).  The site and
-// gm-sums are now per 4-plane tile, then tiles, then warps: a different
-// association from K9f's single chain over the planes (phase 2 holds the
-// backward to 1e-4 relative); u, v, and so the tie test, are K9f's
-// chains.  dpi and dw come back as per-particle partial rows.
+// K9f (wide_rank_fwd_kernel).  Per chunk three barriers: (1) the
+// chunk's tiles have landed (with save_children each thread first copies
+// the elements it staged to the saved children: the same bits); (2) u, v
+// and the tile's max and pi-sum partials, combined over the warp's plane
+// tiles and written per warp; then the next chunk's copies are issued
+// into the same tiles and land while (3) one thread a site combines the
+// warps in order, keeps the clamped max and adds w_s log(site) and w_s
+// log(scale) to its running sums, and each thread writes its tile's
+// w / scale (an IEEE division: the plain version's bits for the same w)
+// into buffer column outc IN PLACE (never among the columns read).
+// After the last chunk the block's sums (lanes by shuffles, warps in
+// order) and the cluster's (ranks in order) give rootll[k] and
+// logscale[k]: one launch a call.  The children come in cp.async copies
+// of 16 bytes where S % 4 == 0, of 8 where S is even (the column write
+// likewise), and P by 16-byte loads (stage_p16) while the first chunk is
+// in flight: a block holds one to a few chunks, so its prologue is a
+// large share of its time.  The former K9f ran one block per 32-site
+// tile, restaging all of P for each, took a shared-memory operand for
+// every FMA, reduced each site on warp 0 alone and left per-tile partial
+// rows to a torch.sum.
+//
+// The backward (K9bs, K9b, K11a above 8 states).  The former form ran
+// one block per particle over the site tiles in turn (128 blocks at GY94,
+// 32 at K11a), the per-site scalars on warp 0 alone, and every FMA of its
+// three contractions with a shared-memory operand (the card's shared
+// memory serves 32 floats a clock an SM against 128 FMA lanes): 13.5x its
+// bound at GY94.  Now each thread computes (4 x 4) register tiles of each
+// contraction, 8 FMAs a shared-memory load; dP sums over a block's chunks
+// in registers and over the cluster's blocks in rank order through
+// distributed shared memory, written once (wide_rank_bwd_kernel says each
+// step).  Its site and gm-sums run per 4-plane tile, then over tiles, then
+// warps, as K9f's site sum does.  dpi and dw come back as per-particle
+// partial rows.
 // Every entry point returns cudaGetLastError().
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
+#include <cstdint>
 #include <type_traits>
 
 namespace {
 
-constexpr int kTile = 32;          // sites per tile: one warp's lanes
-constexpr int kPitch = kTile + 1;  // shared-memory row pitch
-constexpr int kFwdThreads = 256;
-constexpr int kMaxPlanes = 128;   // G * A
-constexpr int kMaxCluster = 8;     // backward: blocks a particle (portable)
+constexpr int kMaxPlanes = 128;      // G * A
+constexpr int kMaxCluster = 8;       // blocks a particle (portable)
+constexpr int kFwdMaxThreads = 256;  // K9f: threads a block at most
 
 // Backward threads a block at most, for NST site tiles of 4 a chunk.
 __host__ __device__ constexpr int bwd_max_threads(int nst) {
@@ -99,6 +116,35 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                : "memory");
 }
 
+// W = 1, 2 or 4 consecutive floats (both addresses 4 W-byte aligned).
+template <int W>
+__device__ __forceinline__ void cp_async_w(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (W == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else if (W == 2)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+}
+
+// W consecutive floats from src to dst (both 4 W-byte aligned).
+template <int W>
+__device__ __forceinline__ void copy_w(float* dst, const float* src) {
+  if (W == 4)
+    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+  else if (W == 2)
+    *reinterpret_cast<float2*>(dst) = *reinterpret_cast<const float2*>(src);
+  else
+    *dst = *src;
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -110,182 +156,7 @@ __device__ __forceinline__ const float* child_slab(
                   : buf + ((size_t)row * R + (node - N)) * slab;
 }
 
-// Stage the (P, kTile) tile of message m (P planes, S sites) at site s0
-// in x (pitch kPitch), zeros past S; with `save`, copy what was read
-// there too.
-__device__ __forceinline__ void load_tile(const float* m, float* x, int P,
-                                          int S, int s0, float* save) {
-  for (int e = threadIdx.x; e < P * kTile; e += blockDim.x) {
-    const int a = e / kTile, s = e - a * kTile, gs = s0 + s;
-    float val = 0.f;
-    if (gs < S) {
-      val = m[(size_t)a * S + gs];
-      if (save) save[(size_t)a * S + gs] = val;
-    }
-    x[a * kPitch + s] = val;
-  }
-}
-
-// u[j] = sum_a x1[a, s] pl[a, b_j], v[j] likewise with x2, pr, for the
-// NB planes b_j = b0 + j * bstride (clamped to A - 1: the caller drops
-// b_j >= A).  One FMA chain per plane, a ascending from 0.
-template <int NB>
-__device__ __forceinline__ void contract_pair(
-    const float* x1, const float* x2, const float* pl, const float* pr,
-    int A, int b0, int bstride, int s, float (&u)[NB], float (&v)[NB]) {
-  int bj[NB];
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    bj[j] = min(b0 + j * bstride, A - 1);
-    u[j] = 0.f;
-    v[j] = 0.f;
-  }
-  for (int a = 0; a < A; ++a) {
-    const float y1 = x1[a * kPitch + s], y2 = x2[a * kPitch + s];
-    const float* pla = pl + a * A;
-    const float* pra = pr + a * A;
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      u[j] = __fmaf_rn(y1, pla[bj[j]], u[j]);
-      v[j] = __fmaf_rn(y2, pra[bj[j]], v[j]);
-    }
-  }
-}
-
-// One block's A planes: the warp `bw` of `nw` owns planes b = b0 + j * nw,
-// NB at a time.  Fwd stores w = u * v in o1, else u in o1 and v in o2.
-template <int NB, bool Fwd>
-__device__ __forceinline__ void contract_block(
-    const float* x1, const float* x2, const float* pl, const float* pr,
-    int A, int bw, int nw, int s, float* o1, float* o2) {
-  for (int b0 = bw; b0 < A; b0 += NB * nw) {
-    float u[NB], v[NB];
-    contract_pair<NB>(x1, x2, pl, pr, A, b0, nw, s, u, v);
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const int b = b0 + j * nw;
-      if (b < A) {
-        if (Fwd) {
-          o1[b * kPitch + s] = __fmul_rn(u[j], v[j]);
-        } else {
-          o1[b * kPitch + s] = u[j];
-          o2[b * kPitch + s] = v[j];
-        }
-      }
-    }
-  }
-}
-
-// Calls f(std::integral_constant<int, NB>{}) with NB = min(nb, 4) >= 1:
-// the compile-time count of planes a warp computes at a time.
-template <typename F>
-__device__ __forceinline__ void with_nb(int nb, F&& f) {
-  if (nb >= 4)
-    f(std::integral_constant<int, 4>{});
-  else if (nb == 3)
-    f(std::integral_constant<int, 3>{});
-  else if (nb == 2)
-    f(std::integral_constant<int, 2>{});
-  else
-    f(std::integral_constant<int, 1>{});
-}
-
-// u, v of all G blocks (x tiles, P blocks and outputs at the block's
-// offsets).  NB = ceil(A / nw) up to 4, so a warp computes no more chains
-// than its planes need (A = 20 on 8 warps: 3, on 16: 2).
-template <bool Fwd>
-__device__ __forceinline__ void contract_blocks(
-    const float* x1, const float* x2, const float* pl, const float* pr,
-    int G, int A, int bw, int nw, int s, float* o1, float* o2) {
-  with_nb((A + nw - 1) / nw, [&](auto nb) {
-    for (int g = 0; g < G; ++g) {
-      const int off = g * A * kPitch, poff = g * A * A;
-      contract_block<decltype(nb)::value, Fwd>(
-          x1 + off, x2 + off, pl + poff, pr + poff, A, bw, nw, s, o1 + off,
-          Fwd ? nullptr : o2 + off);
-    }
-  });
-}
-
-// Particle k's transitions (GAA = G A^2 floats a side) and pi (GA) into
-// shared memory.
-__device__ __forceinline__ void load_params(float* pl, float* pr, float* pv,
-                                            const float* Pl, const float* Pr,
-                                            const float* pi, int k, int GAA,
-                                            int GA) {
-  for (int c = threadIdx.x; c < GAA; c += blockDim.x) {
-    pl[c] = Pl[(size_t)k * GAA + c];
-    pr[c] = Pr[(size_t)k * GAA + c];
-  }
-  for (int c = threadIdx.x; c < GA; c += blockDim.x) pv[c] = pi[c];
-}
-
-// K9f.  grid (K, T), T = ceil(S / kTile); partial rows (K, T).
-__global__ void __launch_bounds__(kFwdThreads) wide_rank_kernel(
-    const float* __restrict__ leaves, float* buf,
-    const int* __restrict__ idx, const float* __restrict__ Pl,
-    const float* __restrict__ Pr, const float* __restrict__ pi,
-    const float* __restrict__ w, float* __restrict__ rootll_part,
-    float* __restrict__ logscale_part, float* __restrict__ c1,
-    float* __restrict__ c2, int K, int R, int N, int G, int A, int S,
-    int outc) {
-  extern __shared__ float smem[];
-  const int GA = G * A, AA = A * A, GAA = G * AA;
-  float* pl = smem;
-  float* pr = pl + GAA;
-  float* pv = pr + GAA;
-  float* x1 = pv + GA;
-  float* x2 = x1 + GA * kPitch;
-  float* wt = x2 + GA * kPitch;
-  float* sc = wt + GA * kPitch;         // kTile per-site scales
-  const int k = blockIdx.x, tile = blockIdx.y, T = gridDim.y;
-  const int s0 = tile * kTile;
-  const size_t slab = (size_t)GA * S;
-  load_params(pl, pr, pv, Pl, Pr, pi, k, GAA, GA);
-  const float* m1 = child_slab(leaves, buf, idx[k], idx[K + k], N, R, slab);
-  const float* m2 =
-      child_slab(leaves, buf, idx[2 * K + k], idx[3 * K + k], N, R, slab);
-  load_tile(m1, x1, GA, S, s0, c1 ? c1 + (size_t)k * slab : nullptr);
-  load_tile(m2, x2, GA, S, s0, c2 ? c2 + (size_t)k * slab : nullptr);
-  __syncthreads();
-
-  const int s = threadIdx.x & 31, bw = threadIdx.x >> 5;
-  contract_blocks<true>(x1, x2, pl, pr, G, A, bw, blockDim.x >> 5, s, wt,
-                        nullptr);
-  __syncthreads();
-
-  if (threadIdx.x < kTile) {            // warp 0: one lane per site
-    float raw = __int_as_float(0xff800000), site = 0.f;  // -inf
-    for (int b = 0; b < GA; ++b) {      // max and root sum: all planes
-      const float x = wt[b * kPitch + s];
-      raw = fmaxf(raw, x);
-      site = __fmaf_rn(x, pv[b], site);
-    }
-    const float scale = fmaxf(raw, FLT_MIN);
-    sc[s] = scale;
-    float acc0 = 0.f, acc1 = 0.f;
-    if (s0 + s < S) {
-      const float ws = w[s0 + s];
-      acc0 = logf(site) * ws;
-      acc1 = logf(scale) * ws;
-    }
-    acc0 = warp_sum(acc0);
-    acc1 = warp_sum(acc1);
-    if (s == 0) {
-      rootll_part[(size_t)k * T + tile] = acc0;
-      logscale_part[(size_t)k * T + tile] = acc1;
-    }
-  }
-  __syncthreads();
-
-  float* out = buf + ((size_t)k * R + outc) * slab;
-  for (int e = threadIdx.x; e < GA * kTile; e += blockDim.x) {
-    const int a = e / kTile, ss = e - a * kTile, gs = s0 + ss;
-    if (gs < S) out[(size_t)a * S + gs] = wt[a * kPitch + ss] / sc[ss];
-  }
-}
-
-// Four floats of shared memory at a 16-byte-aligned address.
+// Four floats at a 16-byte-aligned address.
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -297,6 +168,130 @@ __device__ __forceinline__ void st4(float* p, float a, float b, float c,
 
 __device__ __forceinline__ float comp(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// u[i][s] += sum_a x1[a, s] P_l[a, b0 + i] and v[i][s] likewise with x2,
+// P_r, for the 4 planes b0.. and TS sites of a thread's tile: pla, pra
+// point at P's block + b0 (rows of pitch AP), y1, y2 at the block's tile
+// rows + the tile's first site (pitch SCP); the caller zeroes u, v.  One
+// FMA chain per (plane, site), a ascending from 0: K9f, K9bs and K9b
+// compute the same bits.
+template <int TS>
+__device__ __forceinline__ void uv_tile(const float* pla, const float* pra,
+                                        const float* y1, const float* y2,
+                                        int A, int AP, int SCP,
+                                        float (&u)[4][TS],
+                                        float (&v)[4][TS]) {
+#pragma unroll 4
+  for (int a = 0; a < A; ++a) {
+    const float4 p1 = ld4(pla + a * AP), p2 = ld4(pra + a * AP);
+#pragma unroll
+    for (int h = 0; h < TS / 4; ++h) {
+      const float4 z1 = ld4(y1 + a * SCP + 4 * h);
+      const float4 z2 = ld4(y2 + a * SCP + 4 * h);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          u[i][4 * h + s] =
+              __fmaf_rn(comp(z1, s), comp(p1, i), u[i][4 * h + s]);
+          v[i][4 * h + s] =
+              __fmaf_rn(comp(z2, s), comp(p2, i), v[i][4 * h + s]);
+        }
+    }
+  }
+}
+
+// Particle k's P_l, P_r into shared memory as (G, AP, AP) blocks by
+// cp.async (the caller waits), the padding zeroed.
+__device__ __forceinline__ void stage_p(float* pl, float* pr,
+                                        const float* Pl, const float* Pr,
+                                        int k, int G, int A, int AP, int tid,
+                                        int NT) {
+  const int AA = A * A, GAA = G * AA;
+  const int q = NT / AP, rem = NT - q * AP;
+  int g = 0, a = tid / AP, b = tid - a * AP;
+  while (a >= AP) {
+    a -= AP;
+    ++g;
+  }
+  const float* pls = Pl + (size_t)k * GAA;
+  const float* prs = Pr + (size_t)k * GAA;
+  for (int e = tid; e < G * AP * AP; e += NT) {  // e = (g AP + a) AP + b
+    if (a < A && b < A) {
+      cp_async4(pl + e, pls + g * AA + a * A + b);
+      cp_async4(pr + e, prs + g * AA + a * A + b);
+    } else {
+      pl[e] = pr[e] = 0.f;
+    }
+    b += rem;
+    a += q;
+    if (b >= AP) {
+      b -= AP;
+      ++a;
+    }
+    while (a >= AP) {
+      a -= AP;
+      ++g;
+    }
+  }
+}
+
+// K9f's P_l, P_r of particle k into shared memory as (G, AP, AP)
+// zero-padded blocks: 16-byte loads of the flat (G, A, A) arrays (4-byte
+// ones at their misaligned ends), every element stored at its padded
+// place.  Fewer, wider requests than stage_p's 4-byte copies: K9f's
+// prologue waits on them (the backward, not redesigned here, keeps
+// stage_p).
+__device__ __forceinline__ void stage_p16(float* pl, float* pr,
+                                          const float* Pl, const float* Pr,
+                                          int k, int G, int A, int AP,
+                                          int tid, int NT) {
+  const int AA = A * A, GAA = G * AA, pad = AP - A;
+  for (int e = tid; e < G * pad * AP; e += NT) {     // rows a >= A
+    const int g = e / (pad * AP), rem = e - g * pad * AP;
+    const int i = (g * AP + A + rem / AP) * AP + rem % AP;
+    pl[i] = pr[i] = 0.f;
+  }
+  for (int e = tid; e < G * A * pad; e += NT) {      // columns b >= A
+    const int row = e / pad, b = A + e % pad;       // row = g A + a
+    const int g = row / A;
+    const int i = (g * AP + row - g * A) * AP + b;
+    pl[i] = pr[i] = 0.f;
+  }
+  // f = g AA + a A + b by float reciprocals: f < 2^14, so each quotient
+  // lies at least 0.5 / AA from an integer, far above the rounding
+  const float invAA = 1.f / AA, invA = 1.f / A;
+  auto place = [&](float* dst, int f, float x) {
+    const int g = (int)((f + 0.5f) * invAA), r = f - g * AA;
+    const int a = (int)((r + 0.5f) * invA);
+    dst[(g * AP + a) * AP + r - a * A] = x;
+  };
+  const float* src[2] = {Pl + (size_t)k * GAA, Pr + (size_t)k * GAA};
+  float* dst[2] = {pl, pr};
+  int hd[2], n4[2];
+  for (int q = 0; q < 2; ++q) {
+    const int h = (int)(((16 - (reinterpret_cast<uintptr_t>(src[q]) & 15)) &
+                         15) >> 2);
+    hd[q] = h < GAA ? h : GAA;
+    n4[q] = (GAA - hd[q]) >> 2;
+  }
+#pragma unroll 4
+  for (int i = tid; i < n4[0] + n4[1]; i += NT) {
+    const int q = i >= n4[0], j = i - (q ? n4[0] : 0);
+    const float4 v =
+        __ldg(reinterpret_cast<const float4*>(src[q] + hd[q]) + j);
+    const int f = hd[q] + 4 * j;
+    place(dst[q], f, v.x);
+    place(dst[q], f + 1, v.y);
+    place(dst[q], f + 2, v.z);
+    place(dst[q], f + 3, v.w);
+  }
+  for (int q = 0; q < 2; ++q) {
+    for (int f = tid; f < hd[q]; f += NT) place(dst[q], f, src[q][f]);
+    for (int f = hd[q] + 4 * n4[q] + tid; f < GAA; f += NT)
+      place(dst[q], f, src[q][f]);
+  }
 }
 
 // Shared-memory layout of the backward (floats; every region 16-byte
@@ -383,34 +378,7 @@ __global__ void __launch_bounds__(bwd_max_threads(NST)) wide_rank_bwd_kernel(
   float* dpis = smem + L.dpis;
   const size_t slab = (size_t)GA * S;
 
-  {                                     // P by cp.async, zero padding
-    const int q = NT / AP, rem = NT - q * AP;
-    int g = 0, a = tid / AP, b = tid - a * AP;
-    while (a >= AP) {
-      a -= AP;
-      ++g;
-    }
-    const float* pls = Pl + (size_t)k * GAA;
-    const float* prs = Pr + (size_t)k * GAA;
-    for (int e = tid; e < G * AP * AP; e += NT) {  // e = (g AP + a) AP + b
-      if (a < A && b < A) {
-        cp_async4(pl + e, pls + g * AA + a * A + b);
-        cp_async4(pr + e, prs + g * AA + a * A + b);
-      } else {
-        pl[e] = pr[e] = 0.f;
-      }
-      b += rem;
-      a += q;
-      if (b >= AP) {
-        b -= AP;
-        ++a;
-      }
-      while (a >= AP) {
-        a -= AP;
-        ++g;
-      }
-    }
-  }
+  stage_p(pl, pr, Pl, Pr, k, G, A, AP, tid, NT);
   for (int c = tid; c < GA; c += NT) pv[c] = pi[c];
   for (int e = tid; e < (AP - A) * G * SC; e += NT) {  // padded planes
     const int row = e / SC, s = e - row * SC;
@@ -489,22 +457,9 @@ __global__ void __launch_bounds__(bwd_max_threads(NST)) wide_rank_bwd_kernel(
       for (int i = 0; i < 4; ++i) u[i][s] = v[i][s] = 0.f;
     }
     if (tile) {
-      const float* pla = pl + tg * AP * AP + ta;
-      const float* pra = pr + tg * AP * AP + ta;
-      const float* y1 = x1 + tg * AP * SCP + st * 4;
-      const float* y2 = x2 + tg * AP * SCP + st * 4;
-#pragma unroll 4
-      for (int a = 0; a < A; ++a) {
-        const float4 p1 = ld4(pla + a * AP), p2 = ld4(pra + a * AP);
-        const float4 z1 = ld4(y1 + a * SCP), z2 = ld4(y2 + a * SCP);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            u[i][s] = __fmaf_rn(comp(z1, s), comp(p1, i), u[i][s]);
-            v[i][s] = __fmaf_rn(comp(z2, s), comp(p2, i), v[i][s]);
-          }
-      }
+      uv_tile<4>(pl + tg * AP * AP + ta, pr + tg * AP * AP + ta,
+                 x1 + tg * AP * SCP + st * 4, x2 + tg * AP * SCP + st * 4,
+                 A, AP, SCP, u, v);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         if (ta + i < A) {
@@ -749,8 +704,276 @@ __global__ void __launch_bounds__(bwd_max_threads(NST)) wide_rank_bwd_kernel(
   cluster.sync();                       // no rank leaves while read
 }
 
-size_t fwd_smem(int GA, int GAA) {
-  return (size_t)(2 * GAA + GA + 3 * GA * kPitch + kTile) * sizeof(float);
+// Shared-memory layout of K9f (floats; every region 16-byte aligned):
+// P_l, P_r as (G, AP, AP) zero-padded blocks; pi; the chunk's x1, x2
+// tiles (G*AP, SC) at pitch SC + 4; the warps' per-site partials (2 x
+// warps x SC); the per-site scales (SC); the block's site-sum slots.
+struct FwdLayout {
+  int AP, tile, pv, x1, wpart, ssc, red, total;
+  __host__ __device__ FwdLayout(int G, int A, int SC, int NW) {
+    AP = (A + 3) & ~3;
+    tile = G * AP * (SC + 4);
+    pv = 2 * G * AP * AP;
+    x1 = pv + ((G * A + 3) & ~3);       // then x2 a tile apart
+    wpart = x1 + 2 * tile;
+    ssc = wpart + 2 * NW * SC;
+    red = ssc + SC;
+    total = red + 16;
+  }
+};
+
+// K9f.  grid (C, K), a cluster of the C blocks of particle k =
+// blockIdx.y; block r takes the chunks c = r, r + C, ... of SC = TS NST
+// sites.  Its threads are (plane tile pt, site tile st) pairs, tid = pt
+// NST + st, for the G ceil(A / 4) tiles of 4 planes and the NST tiles of
+// TS sites.  rootll, logscale (K,); c1, c2 (K, G*A, S) or null.  The
+// launch bound asks for MINB blocks of 256 threads an SM (2: at most 128
+// registers a thread); the launcher runs TS = 4, MINB = 2, and
+// tools/torch_k9_fwd_forms.py times the other forms.
+template <int TS, int NST, int MINB = 2>
+__global__ void __launch_bounds__(kFwdMaxThreads, MINB) wide_rank_fwd_kernel(
+    const float* __restrict__ leaves, float* buf,
+    const int* __restrict__ idx, const float* __restrict__ Pl,
+    const float* __restrict__ Pr, const float* __restrict__ pi,
+    const float* __restrict__ w, float* __restrict__ rootll,
+    float* __restrict__ logscale, float* __restrict__ c1,
+    float* __restrict__ c2, int K, int R, int N, int G, int A, int S,
+    int outc) {
+  constexpr int SC = TS * NST, SCP = SC + 4;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, NT = blockDim.x, NW = NT >> 5;
+  const int lane = tid & 31, wid = tid >> 5;
+  const FwdLayout L(G, A, SC, NW);
+  const int AP = L.AP, NPT = AP / 4, GT = G * NPT, GA = G * A;
+  const int C = gridDim.x, r = blockIdx.x, k = blockIdx.y;
+  float* pl = smem;
+  float* pr = smem + G * AP * AP;
+  float* pv = smem + L.pv;
+  float* x1 = smem + L.x1;
+  float* x2 = x1 + L.tile;
+  float* wpart = smem + L.wpart;
+  float* ssc = smem + L.ssc;
+  float* red = smem + L.red;
+  const size_t slab = (size_t)GA * S;
+
+  for (int c = tid; c < GA; c += NT) pv[c] = pi[c];
+  for (int e = tid; e < (AP - A) * G * SC; e += NT) {  // padded planes
+    const int row = e / SC, s = e - row * SC;
+    const int g = row / (AP - A), a = A + row % (AP - A);
+    x1[(g * AP + a) * SCP + s] = 0.f;
+    x2[(g * AP + a) * SCP + s] = 0.f;
+  }
+  const float* m1 = child_slab(leaves, buf, idx[k], idx[K + k], N, R, slab);
+  const float* m2 =
+      child_slab(leaves, buf, idx[2 * K + k], idx[3 * K + k], N, R, slab);
+  float* s1 = c1 ? c1 + (size_t)k * slab : nullptr;
+  float* s2 = c2 ? c2 + (size_t)k * slab : nullptr;
+  float* out = buf + ((size_t)k * R + outc) * slab;
+
+  const int pt = tid / NST, st = tid - pt * NST;
+  const bool tile = pt < GT;
+  const int tg = tile ? pt / NPT : 0;   // the tile's block
+  const int ta = (pt - tg * NPT) * 4;   // its first plane within the block
+  const int nch = (S + SC - 1) / SC;
+  // copies of W = 4 (16 bytes), 2 or 1 floats, as wide as every row of a
+  // chunk is aligned
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(leaves) |
+                         reinterpret_cast<uintptr_t>(buf) |
+                         reinterpret_cast<uintptr_t>(c1) |
+                         reinterpret_cast<uintptr_t>(c2);
+  const int width = (S & 3) == 0 && (ptrs & 15) == 0  ? 4
+                    : (S & 1) == 0 && (ptrs & 7) == 0 ? 2
+                                                      : 1;
+  // chunk c's x1, x2 by cp.async, zeros past S; with `save` (after the
+  // copies have landed) the thread's own staged elements to the saved
+  // children instead
+  auto copy = [&](int c, auto save, auto w) {
+    constexpr int W = decltype(w)::value, PER = SC / W;
+    const int step = NT / PER;          // planes a pass
+    const int s = (tid % PER) * W, gs = c * SC + s;
+    int g = 0, a = tid / PER;
+    for (int p = a; p < GA; p += step) {
+      while (a >= A) {                  // p = g A + a without a division
+        a -= A;
+        ++g;
+      }
+      const int o = (g * AP + a) * SCP + s;
+      if (gs < S) {                     // S % W == 0: all W sites below S
+        const size_t src = (size_t)p * S + gs;
+        if (decltype(save)::value) {
+          copy_w<W>(s1 + src, x1 + o);
+          copy_w<W>(s2 + src, x2 + o);
+        } else {
+          cp_async_w<W>(x1 + o, m1 + src);
+          cp_async_w<W>(x2 + o, m2 + src);
+        }
+      } else if (!decltype(save)::value) {
+#pragma unroll
+        for (int j = 0; j < W; ++j) x1[o + j] = x2[o + j] = 0.f;
+      }
+      a += step;
+    }
+  };
+  // copy(c, save) at the chunk's width
+  auto copy_at = [&](int c, auto save) {
+    if (width == 4)
+      copy(c, save, std::integral_constant<int, 4>{});
+    else if (width == 2)
+      copy(c, save, std::integral_constant<int, 2>{});
+    else
+      copy(c, save, std::integral_constant<int, 1>{});
+  };
+
+  float racc0 = 0.f, racc1 = 0.f;       // thread s < SC: its sites' sums
+  if (r < nch) copy_at(r, std::false_type{});  // the first chunk in flight,
+  stage_p16(pl, pr, Pl, Pr, k, G, A, AP, tid, NT);  // then P
+  for (int c = r; c < nch; c += C) {
+    const int c0 = c * SC;
+    cp_async_wait_all();
+    if (s1) copy_at(c, std::true_type{});
+    __syncthreads();                    // (1) the chunk's tiles are in
+
+    // (2) u, v and the partial per-site max and pi-sum over the tile's
+    // real planes
+    float u[4][TS], v[4][TS], praw[TS], psite[TS];
+#pragma unroll
+    for (int s = 0; s < TS; ++s) {
+      praw[s] = __int_as_float(0xff800000);  // -inf
+      psite[s] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) u[i][s] = v[i][s] = 0.f;
+    }
+    if (tile) {
+      uv_tile<TS>(pl + tg * AP * AP + ta, pr + tg * AP * AP + ta,
+                  x1 + tg * AP * SCP + st * TS, x2 + tg * AP * SCP + st * TS,
+                  A, AP, SCP, u, v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (ta + i < A) {
+          const float piv = pv[tg * A + ta + i];
+#pragma unroll
+          for (int s = 0; s < TS; ++s) {
+            const float x = __fmul_rn(u[i][s], v[i][s]);
+            psite[s] = __fmaf_rn(x, piv, psite[s]);
+            praw[s] = fmaxf(praw[s], x);
+          }
+        }
+      }
+    }
+    // over the warp's plane tiles of one site tile: lanes st + NST q
+#pragma unroll
+    for (int o = NST; o < 32; o <<= 1)
+#pragma unroll
+      for (int s = 0; s < TS; ++s) {
+        const float rr = __shfl_xor_sync(0xffffffffu, praw[s], o);
+        const float ss = __shfl_xor_sync(0xffffffffu, psite[s], o);
+        praw[s] = fmaxf(praw[s], rr);
+        psite[s] = psite[s] + ss;
+      }
+    if (lane < NST)
+#pragma unroll
+      for (int h = 0; h < TS / 4; ++h) {
+        const int e = st * TS + 4 * h;
+        st4(wpart + wid * SC + e, praw[4 * h], praw[4 * h + 1],
+            praw[4 * h + 2], praw[4 * h + 3]);
+        st4(wpart + (NW + wid) * SC + e, psite[4 * h], psite[4 * h + 1],
+            psite[4 * h + 2], psite[4 * h + 3]);
+      }
+    __syncthreads();                    // (2) no thread reads the tiles now
+    if (c + C < nch)                    // lands during (3) and the write
+      copy_at(c + C, std::false_type{});
+
+    // (3) one thread a site: the warps' partials in warp order
+    if (tid < SC) {
+      const int gs = c0 + tid;
+      float raw = __int_as_float(0xff800000);
+      for (int q = 0; q < NW; ++q) raw = fmaxf(raw, wpart[q * SC + tid]);
+      float site = 0.f;
+      for (int q = 0; q < NW; ++q) site = site + wpart[(NW + q) * SC + tid];
+      const float scale = fmaxf(raw, FLT_MIN);
+      ssc[tid] = scale;
+      if (gs < S) {
+        const float ws = w[gs];
+        racc0 += logf(site) * ws;
+        racc1 += logf(scale) * ws;
+      }
+    }
+    __syncthreads();                    // (3) the chunk's scales are in
+
+    // w / scale of the thread's tile into column outc
+    if (tile) {
+      float scl[TS];
+#pragma unroll
+      for (int h = 0; h < TS / 4; ++h) {
+        const float4 q = ld4(ssc + st * TS + 4 * h);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) scl[4 * h + s] = comp(q, s);
+      }
+      const int s0 = c0 + st * TS;
+      float* o = out + (size_t)(tg * A + ta) * S + s0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (ta + i < A) {
+          float* oi = o + (size_t)i * S;
+#pragma unroll
+          for (int h = 0; h < TS / 4; ++h) {
+            float y[4];
+#pragma unroll
+            for (int s = 0; s < 4; ++s)
+              y[s] = __fdiv_rn(__fmul_rn(u[i][4 * h + s], v[i][4 * h + s]),
+                               scl[4 * h + s]);
+            if (width == 4 && s0 + 4 * h < S) {
+              st4(oi + 4 * h, y[0], y[1], y[2], y[3]);
+            } else if (width == 2 && s0 + 4 * h + 2 < S) {
+              *reinterpret_cast<float2*>(oi + 4 * h) = make_float2(y[0], y[1]);
+              *reinterpret_cast<float2*>(oi + 4 * h + 2) =
+                  make_float2(y[2], y[3]);
+            } else {
+#pragma unroll
+              for (int s = 0; s < 4; ++s)
+                if (s0 + 4 * h + s < S) oi[4 * h + s] = y[s];
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // the block's sums: lanes by shuffles, the site warps in order
+  if (tid < ((SC + 31) & ~31)) {
+    float a0 = tid < SC ? racc0 : 0.f, a1 = tid < SC ? racc1 : 0.f;
+    a0 = warp_sum(a0);
+    a1 = warp_sum(a1);
+    if (lane == 0) {
+      red[2 * wid] = a0;
+      red[2 * wid + 1] = a1;
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float t0 = 0.f, t1 = 0.f;
+    for (int q = 0; q < (SC + 31) / 32; ++q) {
+      t0 += red[2 * q];
+      t1 += red[2 * q + 1];
+    }
+    red[8] = t0;
+    red[9] = t1;
+  }
+  cluster.sync();                       // every rank's sums are staged
+  if (r == 0 && tid == 0) {             // rank 0 adds them in rank order
+    float t0 = 0.f, t1 = 0.f;
+    for (int q = 0; q < C; ++q) {
+      const float* o = cluster.map_shared_rank(red, q);
+      t0 += o[8];
+      t1 += o[9];
+    }
+    rootll[k] = t0;
+    logscale[k] = t1;
+  }
+  cluster.sync();                       // no rank leaves while it is read
 }
 
 template <typename Kernel>
@@ -764,16 +987,12 @@ bool planes_ok(int G, int A) {
   return A >= 1 && G >= 1 && G * A <= kMaxPlanes;
 }
 
-template <bool Gather, int DPT, int NST>
-int run_bwd(const float* m1, const float* m2, const float* leaves,
-            const float* buf, const int* idx, const float* gm,
-            const float* gr, const float* gl, const float* Pl,
-            const float* Pr, const float* pi, const float* w, float* dm1,
-            float* dm2, float* dPl, float* dPr, float* dpi_part,
-            float* dw_part, int K, int R, int N, int G, int A, int S,
-            int cluster, int threads, cudaStream_t st) {
-  const size_t smem = (size_t)BwdLayout(G, A, NST).total * sizeof(float);
-  auto kernel = wide_rank_bwd_kernel<Gather, DPT, NST>;
+// Launches kernel on the grid (cluster, K) in clusters of `cluster`
+// blocks of `threads`, with smem bytes of dynamic shared memory.
+template <typename... KArgs, typename... Args>
+int launch_cluster(void (*kernel)(KArgs...), int cluster, int K,
+                   int threads, size_t smem, cudaStream_t st,
+                   Args... args) {
   const int err = allow_smem(kernel, smem);
   if (err) return err;
   cudaLaunchConfig_t cfg = {};
@@ -788,11 +1007,70 @@ int run_bwd(const float* m1, const float* m2, const float* leaves,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kernel, m1, m2, leaves, buf, idx, gm, gr, gl, Pl, Pr, pi, w, dm1,
-      dm2, dPl, dPr, dpi_part, dw_part, K, R, N, G, A, S);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <int TS, int NST, int MINB = 2>
+int run_fwd(const float* leaves, float* buf, const int* idx, const float* Pl,
+            const float* Pr, const float* pi, const float* w, float* rootll,
+            float* logscale, float* c1, float* c2, int K, int R, int N,
+            int G, int A, int S, int outc, int cluster, int threads,
+            cudaStream_t st) {
+  const size_t smem =
+      (size_t)FwdLayout(G, A, TS * NST, threads / 32).total * sizeof(float);
+  return launch_cluster(wide_rank_fwd_kernel<TS, NST, MINB>, cluster, K,
+                        threads,
+                        smem, st, leaves, buf, idx, Pl, Pr, pi, w, rootll,
+                        logscale, c1, c2, K, R, N, G, A, S, outc);
+}
+
+template <bool Gather, int DPT, int NST>
+int run_bwd(const float* m1, const float* m2, const float* leaves,
+            const float* buf, const int* idx, const float* gm,
+            const float* gr, const float* gl, const float* Pl,
+            const float* Pr, const float* pi, const float* w, float* dm1,
+            float* dm2, float* dPl, float* dPr, float* dpi_part,
+            float* dw_part, int K, int R, int N, int G, int A, int S,
+            int cluster, int threads, cudaStream_t st) {
+  const size_t smem = (size_t)BwdLayout(G, A, NST).total * sizeof(float);
+  return launch_cluster(wide_rank_bwd_kernel<Gather, DPT, NST>, cluster, K,
+                        threads, smem, st, m1, m2, leaves, buf, idx, gm, gr,
+                        gl, Pl, Pr, pi, w, dm1, dm2, dPl, dPr, dpi_part,
+                        dw_part, K, R, N, G, A, S);
+}
+
+// The plan (pruning/kernels.py::wide_fwd_plan): chunks of `sc` = 4 nst
+// sites (tiles of 4 planes x 4 sites), `cluster` blocks a particle (1..8,
+// at most its chunks), `threads` a block (a multiple of 32 and of sc
+// covering the G ceil(A / 4) x nst tiles, at most 256).
+int launch_fwd(const float* leaves, float* buf, const int* idx,
+               const float* Pl, const float* Pr, const float* pi,
+               const float* w, float* rootll, float* logscale, float* c1,
+               float* c2, int K, int R, int N, int G, int A, int S, int outc,
+               int sc, int cluster, int threads, void* stream) {
+  if (K <= 0 || S <= 0) return 0;
+  if (!planes_ok(G, A) || sc <= 0 || sc % 4) return (int)cudaErrorInvalidValue;
+  const int npt = (A + 3) / 4, nst = sc / 4;
+  const int nch = (S + sc - 1) / sc;
+  if (cluster < 1 || cluster > kMaxCluster || cluster > nch ||
+      threads % 32 || threads % sc || threads < G * npt * nst ||
+      threads > kFwdMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PHYLO_RUN_FWD(NST)                                                  \
+  return run_fwd<4, NST>(leaves, buf, idx, Pl, Pr, pi, w, rootll, logscale, \
+                         c1, c2, K, R, N, G, A, S, outc, cluster, threads,  \
+                         st)
+  switch (nst) {
+    case 2: PHYLO_RUN_FWD(2);
+    case 4: PHYLO_RUN_FWD(4);
+    case 8: PHYLO_RUN_FWD(8);
+    case 16: PHYLO_RUN_FWD(16);
+  }
+#undef PHYLO_RUN_FWD
+  return (int)cudaErrorInvalidValue;
 }
 
 // The plan (pruning/kernels.py::wide_bwd_plan): chunks of `sc` sites (32,
@@ -848,21 +1126,14 @@ int launch_bwd(const float* m1, const float* m2, const float* leaves,
 extern "C" int launch_wide_rank(const float* leaves, float* buf,
                                 const int* idx, const float* Pl,
                                 const float* Pr, const float* pi,
-                                const float* w, float* rootll_part,
-                                float* logscale_part, float* c1, float* c2,
-                                int K, int R, int N, int G, int A, int S,
-                                int outc, void* stream) {
-  if (K <= 0 || S <= 0) return 0;
-  if (!planes_ok(G, A)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = fwd_smem(G * A, G * A * A);
-  const int err = allow_smem(wide_rank_kernel, smem);
-  if (err) return err;
-  const dim3 grid(K, (S + kTile - 1) / kTile);
-  wide_rank_kernel<<<grid, kFwdThreads, smem, st>>>(
-      leaves, buf, idx, Pl, Pr, pi, w, rootll_part, logscale_part, c1, c2, K,
-      R, N, G, A, S, outc);
-  return (int)cudaGetLastError();
+                                const float* w, float* rootll,
+                                float* logscale, float* c1, float* c2, int K,
+                                int R, int N, int G, int A, int S, int outc,
+                                int sc, int cluster, int threads,
+                                void* stream) {
+  return launch_fwd(leaves, buf, idx, Pl, Pr, pi, w, rootll, logscale, c1,
+                    c2, K, R, N, G, A, S, outc, sc, cluster, threads,
+                    stream);
 }
 
 extern "C" int launch_wide_rank_bwd_saved(

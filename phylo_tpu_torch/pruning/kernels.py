@@ -66,14 +66,14 @@ BWD_MAX_SC = 256                # K7 wide: sites per chunk
 SMEM_LIMIT = 232448             # shared-memory bytes of a block (H100)
 MAX_G = 32                      # rate-category blocks on the card
 MAX_WIDE_PLANES = 128           # G*A planes of the wide kernels K9
-WIDE_TILE = 32                  # K9f: sites per CUDA block (partial rows)
+WIDE_FWD_THREADS = 256          # K9f: threads a block at most
 BWD_PARTICLES_PER_BLOCK = 8     # K2/K3 dense: particles per CUDA block (dpi/dw
                                 # partials come back one row per block)
 BWD_SITES_PER_LANE = 1          # K3 blocked / K10 bwd: a lane's sites a chunk
 BWD_MAX_WARPS = 8               # K3 blocked / K10 bwd: warps (chunks) a block
 WIDE_BWD_SITE_TILES = 8         # K9bs / K9b: site tiles of 4 a chunk (32 sites)
 WIDE_BWD_THREADS = 256          # K9bs / K9b: threads a block at most
-MAX_CLUSTER = 8                 # K9bs / K9b: blocks a particle (portable)
+MAX_CLUSTER = 8                 # K9f / K9bs / K9b: blocks a particle
 SMS = 132                       # streaming multiprocessors of an H100
 # bytes of the (R, K, 2, G*A, S) child residuals the manual-VJP forward
 # may save for K2; above it the reverse pass re-gathers through K3
@@ -216,7 +216,7 @@ def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
     (K, G, A, A) blocked (K10); pi (GA,); weights (S,).  Returns (rootll
     (K,), logscale (K,)) and, with save_children, the gathered children
     (K, GA, S) twice.  On the card: K1, K10 (blocked, A <= 8), K9f (A > 8)
-    or K9f blocked (A > 8, G > 1)."""
+    or K9f blocked (A > 8, G > 1), one kernel launch each."""
     if not buf.is_cuda:
         return _fused_rank_ref(leaves, buf, idx, outc, P_l, P_r, pi,
                                weights, save_children)
@@ -237,10 +237,7 @@ def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
     if not 0 <= outc < R:
         raise ValueError(f"output column {outc} outside [0, {R})")
     dev = buf.device
-    # K9f writes one partial row per 32-site tile, summed below (fixed
-    # order); K1 and K10 write rootll and logscale themselves
-    T = -(-S // WIDE_TILE) if wide else 1
-    sums = torch.empty((2, K, T), dtype=f32, device=dev)
+    sums = torch.empty((2, K), dtype=f32, device=dev)   # rootll, logscale
     if save_children:
         m1 = torch.empty((K, GA, S), dtype=f32, device=dev)
         m2 = torch.empty((K, GA, S), dtype=f32, device=dev)
@@ -252,10 +249,12 @@ def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
             weights.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(), p1,
             p2)
     if wide:
-        fn = _ext.bind("wide_kernels", "launch_wide_rank", 11, 7)
+        sc, cluster, threads, _, _ = wide_fwd_plan(K, G, A, S)
+        fn = _ext.bind("wide_kernels", "launch_wide_rank", 11, 10)
         name = "fused_rank_update_wide" + ("_blocked" if blocked else "")
         _ext.LAUNCHES[name] += 1
-        code = fn(*ptrs, K, R, N, G, A, S, outc, _ext.stream_ptr(dev))
+        code = fn(*ptrs, K, R, N, G, A, S, outc, sc, cluster, threads,
+                  _ext.stream_ptr(dev))
     elif blocked:
         fn = _ext.bind("rank_kernels", "launch_fused_rank_blocked", 11, 7)
         name = "fused_rank_update_blocked"
@@ -267,7 +266,7 @@ def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
         _ext.LAUNCHES[name] += 1
         code = fn(*ptrs, K, R, N, A, S, outc, _ext.stream_ptr(dev))
     _ext.check(code, name)
-    rootll, logscale = torch.sum(sums, dim=2) if wide else sums[:, :, 0]
+    rootll, logscale = sums
     if save_children:
         return rootll, logscale, m1, m2
     return rootll, logscale
@@ -415,6 +414,53 @@ def wide_bwd_plan(K, G, A, S, nst=None, max_cluster=MAX_CLUSTER):
     per_sm = max(1, min(SMEM_LIMIT // smem, 65536 // (255 * threads)))
     cluster = min(chunks, max_cluster, max(1, SMS * per_sm // K))
     return sc, cluster, threads, dpt, cluster * K, smem
+
+
+def wide_fwd_smem(G, A, sc, threads):
+    """Shared-memory bytes of K9f: csrc/wide_kernels.cu's FwdLayout (P
+    blocks padded to AP = 4 ceil(A / 4), pi, two (G AP, sc) tiles at pitch
+    sc + 4, the warps' per-site max and pi-sum partials, the per-site
+    scales and 16 floats of site-sum slots)."""
+    AP = 4 * _ceil(A, 4)
+    return 4 * (2 * G * AP * AP + 4 * _ceil(G * A, 4)
+                + 2 * G * AP * (sc + 4) + 2 * (threads // 32) * sc + sc + 16)
+
+
+def wide_fwd_plan(K, G, A, S, sc=None, max_cluster=MAX_CLUSTER, ts=4):
+    """Launch of K9f: (sites a chunk, cluster, threads, blocks,
+    shared-memory bytes).  Grid (cluster, K): the cluster's blocks split
+    particle k's chunks of sc sites (block r takes chunks r, r + cluster,
+    ...), each with P staged once, and sum rootll and logscale through
+    distributed shared memory.  A thread owns a (4 planes x ts sites)
+    tile of u and v (the launcher's ts = 4; tools/torch_k9_fwd_forms.py
+    also times 8), so a block has G ceil(A / 4) sc / ts threads, rounded
+    up to a multiple of 32 and of sc, at most WIDE_FWD_THREADS: sc = 64,
+    halved (down to 2 ts) while the tiles would not fit.  The cluster is
+    the largest power of two (up to 8, at most the chunks) that keeps the
+    grid to one wave: the blocks an SM holds by shared memory and by the
+    launch bound's 128 registers a thread.  On the H100 the largest
+    blocks ran quickest, a second wave or a cluster of 6 blocks slower
+    (tools/torch_k9_fwd_forms.py, PERF.md)."""
+    if not 1 <= G * A <= MAX_WIDE_PLANES:
+        raise NotImplementedError(
+            f"K9f takes G*A <= {MAX_WIDE_PLANES} planes, got {G}x{A}")
+    npt = _ceil(A, 4)
+    if sc is None:
+        sc = 64
+        while G * npt * (sc // ts) > WIDE_FWD_THREADS and sc > 2 * ts:
+            sc //= 2
+    nst = sc // ts
+    chunks = _ceil(S, sc)
+    unit = max(32, sc)
+    threads = _ceil(G * npt * nst, unit) * unit
+    if threads > WIDE_FWD_THREADS:
+        raise ValueError(f"K9f: {G * npt} plane tiles x {nst} site tiles "
+                         f"exceed {WIDE_FWD_THREADS} threads")
+    smem = wide_fwd_smem(G, A, sc, threads)
+    per_sm = max(1, min(SMEM_LIMIT // smem, 65536 // (128 * threads)))
+    fit = min(chunks, max_cluster, max(1, SMS * per_sm // K))
+    cluster = 1 << (fit.bit_length() - 1)
+    return sc, cluster, threads, cluster * K, smem
 
 
 def _check_bwd_args(gm, gr, gl, P_l, P_r, pi, weights, K, GA, S):

@@ -1,21 +1,32 @@
-"""Kernel K5: multinomial resampling by Gumbel-max over a counter-based
-random field (port of phylo_tpu/smc/resample_kernel.py).
+"""Kernel K5: multinomial resampling by inverse CDF in exact integer
+arithmetic (port of phylo_tpu/smc/resample_kernel.py::categorical_pallas).
 
-K draws from softmax(logits): draw i takes argmax_j logits_j + g_ij with
-g = -log(-log(u)), u = (n + 0.5) / 2^23 from the top 23 bits n of a
-32-bit word, ties to the lowest index.  The words come from Philox4x32-10
-(Salmon et al., SC'11) keyed by a (2,) int64 seed: the word for (i, j) is
-word j % 4 of Philox(counter = (j // 4, i, 0, 0), key = (seed0, seed1)).
+K iid draws from softmax(logits), logits (K,) float32 (-inf allowed):
+
+    lmax = max_j logits_j;  w_j = exp(l_j - lmax) in float32 (0 at -inf)
+    q_j = floor(w_j 2^E) as int64, E = 52 - ceil(log2 K)   (`cdf_bits`)
+    C = cumsum(q) (exact), Q = C[-1] <= 2^52
+    x_i = floor(((r_i + 0.5) / 2^52) Q) in float64,  draw_i = the first j
+    with C_j > x_i (searchsorted right), or 0 when every logit is -inf
+
+with r_i the top 52 bits of words (2h, 2h + 1), h = i % 2, of
+Philox4x32-10 (Salmon et al., SC'11) at counter (i // 2, 0, 0, 0) and key
+(seed0, seed1) (low 32 bits of a (2,) int64 seed).  The law: j is drawn
+with probability q_j / Q (to 2^-52), within 2^-E / w_j relative of
+softmax(logits); a particle more than E ln 2 nats below the max (28 at
+K = 2048) is never drawn (the former float32 Gumbel-max form could never
+draw one about 19 nats below).
 
 The seed is drawn on the device from the run's torch.Generator
 (`draw_seed`), so no rank waits on the host.  The stream differs from the
 TPU's hardware PRNG and from torch.multinomial: the draw is held to the
 multinomial distribution, not to a stream.
 
-CUDA tensors launch csrc/resample_kernels.cu, which synthesizes the field
-in registers and never writes it; CPU tensors run `_categorical_plain`,
-the same Philox words and the same float32 arithmetic in torch.  Indices
-carry no gradient (the sweep treats them as constants).
+CUDA tensors launch csrc/resample_kernels.cu (one block, one launch);
+CPU tensors run `_categorical_plain`, the same integer steps in torch ops
+(int64 cumsum, a float64 multiply, searchsorted), so on the card the two
+agree draw for draw.  Indices carry no gradient (the sweep treats them
+as constants).
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ from phylo_tpu_torch import _ext
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK = 0xFFFFFFFF
+CDF_SMEM_MAX = 28672    # particles whose CDF fits a block's shared memory
 
 
 def draw_seed(generator, device):
@@ -56,37 +68,33 @@ def philox4x32(c0, c1, c2, c3, k0, k1, rounds=10):
     return c0, c1, c2, c3
 
 
-def philox_uniforms(seed, rows, cols):
-    """The kernel's (rows, cols) float32 uniform field for `seed`."""
-    dev = seed.device
-    n4 = -(-cols // 4)
-    i = torch.arange(rows, dtype=torch.int64, device=dev)[:, None]
-    j4 = torch.arange(n4, dtype=torch.int64, device=dev)[None, :]
-    c0 = j4.expand(rows, n4)
-    c1 = i.expand(rows, n4)
-    zero = torch.zeros_like(c0)
-    k0 = seed[0] & _MASK
-    k1 = seed[1] & _MASK
-    words = torch.stack(philox4x32(c0, c1, zero, zero, k0, k1), dim=-1)
-    bits = words.reshape(rows, 4 * n4)[:, :cols]
-    n = (bits >> 9).to(torch.float32)
-    return (n + 0.5) * (1.0 / (1 << 23))
+def cdf_bits(K):
+    """E = 52 - ceil(log2 K): the bits of each q_j, so that Q < 2^53."""
+    return 52 - (K - 1).bit_length()
 
 
-def gumbel_argmax(logits, u):
-    """argmax_j logits_j - log(-log(u_ij)) per row, ties to the lowest
-    index (float32)."""
-    K = logits.shape[0]
-    scores = logits[None, :] - torch.log(-torch.log(u))
-    m = torch.max(scores, dim=1, keepdim=True).values
-    lanes = torch.arange(K, device=logits.device)
-    return torch.min(torch.where(scores >= m, lanes, K), dim=1).values
+def draw_bits(seed, K):
+    """(K,) int64: draw i's 52 random bits, the top 32 of Philox word 2h
+    above the top 20 of word 2h + 1 at counter (i // 2, 0, 0, 0)."""
+    p = torch.arange(-(-K // 2), dtype=torch.int64, device=seed.device)
+    zero = torch.zeros_like(p)
+    c0, c1, c2, c3 = philox4x32(p, zero, zero, zero, seed[0] & _MASK,
+                                seed[1] & _MASK)
+    r = torch.stack([(c0 << 20) | (c1 >> 12), (c2 << 20) | (c3 >> 12)],
+                    dim=1)
+    return r.reshape(-1)[:K]
 
 
 def _categorical_plain(logits, seed):
     K = logits.shape[0]
-    u = philox_uniforms(seed, K, K)
-    return gumbel_argmax(logits.to(torch.float32), u).to(torch.int32)
+    l = logits.to(torch.float32)
+    w = torch.where(l > -torch.inf, torch.exp(l - torch.max(l)), 0.0)
+    q = torch.floor(w * float(2 ** cdf_bits(K))).to(torch.int64)
+    C = torch.cumsum(q, 0)
+    u = (draw_bits(seed, K).to(torch.float64) + 0.5) * 2.0 ** -52
+    x = torch.floor(u * C[-1].to(torch.float64)).to(torch.int64)
+    j = torch.searchsorted(C, x, right=True)
+    return torch.where(j < K, j, 0).to(torch.int32)
 
 
 def categorical(logits, seed):
@@ -97,10 +105,15 @@ def categorical(logits, seed):
     K = logits.shape[0]
     _ext.require(logits, "logits", torch.float32, ndim=1)
     _ext.require(seed, "seed", torch.int64, shape=(2,))
-    out = torch.empty((K,), dtype=torch.int32, device=logits.device)
+    dev = logits.device
+    out = torch.empty((K,), dtype=torch.int32, device=dev)
     if K:
-        fn = _ext.bind("resample_kernels", "launch_categorical", 3, 1)
+        # C lives in shared memory up to CDF_SMEM_MAX particles
+        scratch = (torch.empty((K,), dtype=torch.int64, device=dev)
+                   if K > CDF_SMEM_MAX else None)
+        fn = _ext.bind("resample_kernels", "launch_categorical", 4, 2)
         _ext.LAUNCHES["categorical"] += 1
         _ext.check(fn(logits.data_ptr(), seed.data_ptr(), out.data_ptr(),
-                      K, _ext.stream_ptr(logits.device)), "categorical")
+                      None if scratch is None else scratch.data_ptr(), K,
+                      cdf_bits(K), _ext.stream_ptr(dev)), "categorical")
     return out

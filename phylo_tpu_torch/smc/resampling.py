@@ -2,9 +2,9 @@
 
 Multinomial is the reference's scheme (tf.random.categorical over the
 log-weights, vcsmc.py:279-289); it draws through kernel K5
-(smc.resample_kernel.categorical: Gumbel-max over a counter-based
-Philox field), at any K.  Systematic and stratified invert the weight
-CDF.
+(smc.resample_kernel.categorical: an inverse CDF in exact integer
+arithmetic over counter-based Philox bits), at any K.  Systematic and
+stratified invert the weight CDF.
 """
 
 from __future__ import annotations

@@ -210,19 +210,6 @@ def test_philox_known_answers():
         assert [int(g) for g in got] == list(want)
 
 
-def test_gumbel_argmax_matches_numpy_on_same_uniforms(rng):
-    Kc = 16
-    logits = np.log(rng.dirichlet(np.ones(Kc))).astype(np.float32)
-    logits[3] = -np.inf                          # a zero-weight particle
-    u = rk.philox_uniforms(torch.tensor([12345, 678]), Kc, Kc)
-    got = rk.gumbel_argmax(torch.tensor(logits), u).numpy()
-    un = u.numpy()
-    scores = logits[None, :] - np.log(-np.log(un))
-    np.testing.assert_array_equal(got, np.argmax(scores, axis=1))
-    assert not np.any(got == 3)
-    assert un.min() > 0.0 and un.max() < 1.0
-
-
 def test_categorical_plain_chi_square():
     Kc, rounds = 64, 200
     rng = np.random.default_rng(3)
