@@ -35,11 +35,16 @@ script exits non-zero without printing a result:
    never drawn), by chi-square beside torch.multinomial; and the
    saved-children route (K10 saving + K10's backward) against the
    re-gather route (K10 + K3) at the DS1 step shape, the trade
-   SAVE_CHILDREN_CAP decides; the rank backwards K3 blocked (timed at
-   DS1 S=256 and 1949), K10's saved backward, K9f, K9bs and K9b (dense
-   and blocked), K11a (A=4 and 16) and K5 each also called twice (the
-   same bits) and once captured as a CUDA graph (one device kernel a
-   wrapper call), their times printed beside the former design's;
+   SAVE_CHILDREN_CAP decides (also at primate's K=2048, S=256: K1 saving
+   + K2 against K1 + K3, both backwards now one body); the rank
+   backwards K2 and K3 (the dense form of K3 blocked's body, the
+   all-planes-tied case too), K3 blocked (timed at DS1 S=256 and 1949),
+   K10's saved backward, K9f, K9bs and K9b (dense and blocked), K11a
+   (A=4 and 16, with and without dw), K7 (primate rank 0, ragged S=300,
+   the last rank's KC=32, and A=3 and 8 small; the launcher alone) and
+   K5 each also called twice (the same bits) and once captured as a CUDA
+   graph (one device kernel a wrapper call, of the named body), their
+   times printed beside the former design's;
 3. fixed-decision ELBO: the sweep in float32 on the card through the
    kernels against float64 on the CPU through the plain path, with the
    same numpy-made decisions (1e-3 relative, BASELINE.md's bar), and
@@ -69,8 +74,9 @@ script exits non-zero without printing a result:
    kernel's launch counter set to 0 before each path and read after;
 5. where the time of one epoch of each path goes, under torch.profiler
    (K4f's, K4b's, K9f's and K5's device time and launches on every path,
-   and the rank backwards' (K3 blocked / K10's backward, the wide body of
-   K9bs, K9b and K11a); for VNCSMC GTR+G4 on DS1, K11b's, K7 wide's and
+   and the rank backwards' (K2, K3, K3 blocked / K10's backward and K11a
+   at 4 states: one body; the wide body of K9bs, K9b and K11a) and K7's;
+   for VNCSMC GTR+G4 on DS1, K11b's, K7 wide's and
    K4's device time beside their earlier designs').
 
 The last lines are the kernel table as JSON, the card's name and power
@@ -109,6 +115,8 @@ PROT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 PROT_FASTA = os.path.join(PROT_DIR, "protein_16x500.fa")
 PROT_DAT = os.path.join(PROT_DIR, "protein_seed0.dat")
 SLEEP_CYCLES = 100_000_000         # ~50 ms at the H100's ~2 GHz clock
+# the rank backward's one body (K2, K3, K11a at A <= 8: its dense form)
+RANK_BWD_KERNEL = "fused_rank_bwd_blocked_kernel"
 # Phase-2 times of the redesigned kernels on their former design (ms,
 # PERF.md's kernel table: this script on an NVIDIA H100 80GB HBM3 at
 # 700 W), keyed by (kernel, particles, states a block, sites)
@@ -129,7 +137,9 @@ FORMER_MS = {("K2", K, 4, 256): 0.0489, ("K3", K, 4, 256): 0.0373,
           ("K9f", 128, 61, 1086): 0.2409,
           ("K9f blocked", 256, 20, 256): 0.0775,
           ("K9f blocked", 256, 20, 500): 0.1456,
-          ("K5", 2048, 1, 1): 0.0170}
+          ("K5", 2048, 1, 1): 0.0170,
+          # K7 (a 128-thread block a row, a block-wide dP sum per m)
+          ("K7", 2112, 4, 256): 0.1497}
 
 
 def log(msg):
@@ -376,12 +386,13 @@ def former(kernel, Kd, A_, S):
             "former design: not timed here")
 
 
-def repeat_checks(label, fn, sums=0, state=None):
+def repeat_checks(label, fn, sums=0, state=None, kernel=None):
     """Two calls of a kernel's wrapper give the same bits (no float
     atomics), and one call enqueues one device kernel (`device_kernels`),
     plus `sums` torch.sum kernels where the wrapper reduces partial rows
     itself (K11a: dpi and dw).  `state`: a tensor the call writes in place
-    (K9f's buffer column), compared too."""
+    (K9f's buffer column), compared too.  `kernel`: a name the one device
+    kernel must hold."""
     a = fn()
     before = None if state is None else state.clone()
     b = fn()
@@ -397,6 +408,9 @@ def repeat_checks(label, fn, sums=0, state=None):
         f"call: {n} ({', '.join(shown)})")
     require(n == 1 + sums, f"{label}: {n} device kernels a call, not "
             f"{1 + sums}")
+    if kernel is not None:
+        ours = sum(c for k, c in names if kernel in k)
+        require(ours == 1, f"{label}: {ours} launches of {kernel}, not 1")
 
 
 def bwd_bytes(K_, G, S, child_slabs):
@@ -421,15 +435,20 @@ def check_k2(kern, gen, dev, inputs, G=1):
         f"K10 fused_rank_bwd_saved_blocked G={G}"
     err = compare_bwd(label, kern.fused_rank_bwd_saved(*args),
                       kern._fused_rank_bwd_saved_ref(*args))
-    repeat_checks(label, lambda: kern.fused_rank_bwd_saved(*args))
+    repeat_checks(label, lambda: kern.fused_rank_bwd_saved(*args),
+                  kernel=RANK_BWD_KERNEL)
     ms = time_ms(lambda: kern.fused_rank_bwd_saved(*args))
+    ms_no_dw = time_ms(lambda: kern.fused_rank_bwd_saved(*args,
+                                                         want_dw=False))
     plain = time_ms(lambda: kern._fused_rank_bwd_saved_ref(*args),
                     iters=3 if G > 1 else 20)
     nops = K * S * (8 * G * A * A + 20 * GA + 4)
     b_ms, b_by = bound(bwd_bytes(K, G, S, 2 * K), nops)
     name = "K2" if G == 1 else "K10 bwd-saved"
     log(f"  {name} G={G} S={S}: kernel {ms:.4f} ms ({former(name, K, A, S)}), "
-        f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"without dw {ms_no_dw:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}); plan (spl, warps, chunks, blocks, smem) "
+        f"{kern.rank_bwd_plan(K, G, A, S)}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 
@@ -457,7 +476,8 @@ def check_k3(kern, gen, dev, inputs, G=1, ties=False):
              f"K3 fused_rank_bwd_blocked G={G}") + (" ties" if ties else "")
     err = compare_bwd(label, kern.fused_rank_bwd(*args),
                       kern._fused_rank_bwd_ref(*args))
-    repeat_checks(label, lambda: kern.fused_rank_bwd(*args))
+    repeat_checks(label, lambda: kern.fused_rank_bwd(*args),
+                  kernel=RANK_BWD_KERNEL)
     if ties:
         return None
     ms = time_ms(lambda: kern.fused_rank_bwd(*args))
@@ -1029,19 +1049,22 @@ def check_k8(kern, gen, dev, S):
                 library_ms=None)
 
 
-def check_k7(kern, gen, dev):
+def check_k7(kern, gen, dev, KC=K_TWIST * (N * (N - 1) // 2), M_=M_TWIST,
+             S=S_BATCH, A_=A, timed=True):
     """K7 at the VNCSMC training shapes: M=10 subsamples, KC = 32
-    particles x 66 candidate pairs (rank 0 of primate), S=256 sites."""
+    particles x 66 candidate pairs (rank 0 of primate), S=256 sites;
+    also ragged and small shapes, untimed.  Two launches give the same
+    bits and one is one device kernel (the launcher alone: the wrapper
+    adds its dpi ops)."""
     f = dict(dtype=torch.float32, device=dev)
-    KC = K_TWIST * (N * (N - 1) // 2)
-    m1 = torch.rand((KC, A, S_BATCH), generator=gen, **f) * 0.95 + 0.05
-    m2 = torch.rand((KC, A, S_BATCH), generator=gen, **f) * 0.95 + 0.05
-    P_l = torch.rand((M_TWIST, KC, A, A), generator=gen, **f) * 0.95 + 0.05
-    P_r = torch.rand((M_TWIST, KC, A, A), generator=gen, **f) * 0.95 + 0.05
-    pi = torch.rand((A,), generator=gen, **f) + 0.1
+    m1 = torch.rand((KC, A_, S), generator=gen, **f) * 0.95 + 0.05
+    m2 = torch.rand((KC, A_, S), generator=gen, **f) * 0.95 + 0.05
+    P_l = torch.rand((M_, KC, A_, A_), generator=gen, **f) * 0.95 + 0.05
+    P_r = torch.rand((M_, KC, A_, A_), generator=gen, **f) * 0.95 + 0.05
+    pi = torch.rand((A_,), generator=gen, **f) + 0.1
     pi = (pi / pi.sum()).contiguous()
-    w = torch.ones((S_BATCH,), **f)
-    g = torch.randn((M_TWIST, KC), generator=gen, **f)
+    w = torch.ones((S,), **f)
+    g = torch.randn((M_, KC), generator=gen, **f)
     args = (m1, m2, P_l, P_r, pi, w, g)
     got = kern.pair_ll_bwd(*args, want_dw=False)[:5]
     want = kern._pair_ll_bwd_plain(*args)[:5]
@@ -1051,23 +1074,40 @@ def check_k7(kern, gen, dev):
     # f32 sums over M subsamples (dm) and S sites (dP, dpi), in another
     # order than the plain version's autograd
     tol = 1e-4
-    log("  K7 pair_ll_bwd: " + ", ".join(
-        f"{n} rel err {v:.3e}" for n, v in errs.items()) + f" (tol {tol:g})")
+    plan = kern.twist_narrow_plan(KC, M_, A_, S)
+    log(f"  K7 pair_ll_bwd M={M_} KC={KC} A={A_} S={S} (plan: spl, warps, "
+        f"chunks, blocks, smem {plan}): " + ", ".join(
+            f"{n} rel err {v:.3e}" for n, v in errs.items())
+        + f" (tol {tol:g})")
     for n, v in errs.items():
         require(v <= tol, f"K7 {n} relative error {v} > {tol}")
+    fn = kern._ext.bind("twist_kernels", "launch_pair_ll_bwd", 11, 6)
+
+    def launch():
+        o = [torch.empty_like(t) for t in (m1, m2, P_l, P_r)]
+        code = fn(*[t.data_ptr() for t in (*args, *o)], KC, M_, A_, S,
+                  plan[0], plan[1], torch.cuda.current_stream().cuda_stream)
+        require(code == 0, f"K7 launch error {code}")
+        return o
+    repeat_checks(f"K7 M={M_} KC={KC} A={A_} S={S} (launcher)", launch,
+                  kernel="pair_ll_bwd_narrow_kernel")
+    if not timed:
+        return None
     ms = time_ms(lambda: kern.pair_ll_bwd(*args, want_dw=False))
+    alone = time_ms(launch)
     plain = time_ms(lambda: kern._pair_ll_bwd_plain(*args), iters=5)
-    slab = KC * A * S_BATCH * 4
-    pbytes = M_TWIST * KC * A * A * 4
-    nbytes = 4 * slab + 4 * pbytes + M_TWIST * KC * 4 + S_BATCH * 4 \
-        + 2 * A * 4
+    slab = KC * A_ * S * 4
+    pbytes = M_ * KC * A_ * A_ * 4
+    nbytes = 4 * slab + 4 * pbytes + M_ * KC * 4 + S * 4 + 2 * A_ * 4
     # per (m, k, s): u, v (4 A^2), site (3 A), gsite (2), du/dv (4 A),
     # dm and dP accumulation (8 A^2); an FMA counts 2
-    nops = M_TWIST * KC * S_BATCH * (12 * A * A + 7 * A + 2)
+    nops = M_ * KC * S * (12 * A_ * A_ + 7 * A_ + 2)
     b_ms, b_by = bound(nbytes, nops)
-    log(f"  K7 M={M_TWIST} KC={KC} S={S_BATCH}: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); library: null (no "
-        "single PyTorch call computes this vector-Jacobian product)")
+    log(f"  K7 M={M_} KC={KC} S={S}: kernel {ms:.4f} ms (the launch alone "
+        f"{alone:.4f}; {former('K7', KC, A_, S)}), plain {plain:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.0%} of it reached); "
+        "library: null (no single PyTorch call computes this "
+        "vector-Jacobian product)")
     return dict(max_abs_err=max(max_abs(a, b) for a, b in zip(got, want)),
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
@@ -1366,8 +1406,12 @@ def check_k11a(kern, gen, dev, A_, S=S_BATCH, Kt=K_TWIST):
     for n, v in errs.items():
         require(v <= tol, f"K11a {n} relative error {v} > {tol}")
     repeat_checks(f"K11a merge_bwd A={A_}", lambda: kern.merge_bwd(*args),
-                  sums=2)
+                  sums=2, kernel=RANK_BWD_KERNEL if A_ <= kern.MAX_A else
+                  "wide_rank_bwd_kernel")
+    repeat_checks(f"K11a merge_bwd A={A_} without dw",
+                  lambda: kern.merge_bwd(*args, want_dw=False)[:5], sums=1)
     ms = time_ms(lambda: kern.merge_bwd(*args))
+    ms_no_dw = time_ms(lambda: kern.merge_bwd(*args, want_dw=False))
     plain = time_ms(lambda: kern._merge_bwd_ref(*args))
     slab = Kt * A_ * S * 4
     nbytes = 5 * slab + 4 * Kt * A_ * A_ * 4 + 2 * Kt * 4 + 2 * (S + A_) * 4
@@ -1376,8 +1420,9 @@ def check_k11a(kern, gen, dev, A_, S=S_BATCH, Kt=K_TWIST):
     nops = Kt * S * (12 * A_ * A_ + 10 * A_)
     b_ms, b_by = bound(nbytes, nops)
     log(f"  K11a A={A_}: kernel {ms:.4f} ms ({former('K11a', Kt, A_, S)}), "
-        f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); library: null "
-        "(no single PyTorch call computes this vector-Jacobian product)")
+        f"without dw {ms_no_dw:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}); library: null (no single PyTorch call "
+        "computes this vector-Jacobian product)")
     return dict(max_abs_err=max(max_abs(a, b) for a, b in zip(got, want)),
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
@@ -1779,9 +1824,9 @@ def profile_epoch(name):
         wall_ms = (time.perf_counter() - t0) * 1e3
         t1 = time.perf_counter()
     rows = []
-    named = {k: [0.0, 0] for k in ("K11b", "K7 wide", "K4f", "K4b",
-                                   "K3 blocked / K10 bwd", "K9b / K9bs / K11a",
-                                   "K9f", "K5")}
+    named = {k: [0.0, 0] for k in ("K11b", "K7 wide", "K7", "K4f", "K4b",
+                                   "rank bwd (K2, K3, K10 bwd, K11a A<=8)",
+                                   "K9b / K9bs / K11a", "K9f", "K5")}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
@@ -1790,10 +1835,11 @@ def profile_epoch(name):
             rows.append((e.key[:70], float(us) / 1e3, int(e.count)))
             for kname, fn in (("K11b", "pair_ll_fwd_kernel"),
                               ("K7 wide", "pair_ll_bwd_wide_kernel"),
+                              ("K7", "pair_ll_bwd_narrow_kernel"),
                               ("K4f", "expm_fwd_kernel"),
                               ("K4b", "expm_bwd_kernel"),
-                              ("K3 blocked / K10 bwd",
-                               "fused_rank_bwd_blocked_kernel"),
+                              ("rank bwd (K2, K3, K10 bwd, K11a A<=8)",
+                               RANK_BWD_KERNEL),
                               ("K9b / K9bs / K11a", "wide_rank_bwd_kernel"),
                               ("K9f", "wide_rank_fwd_kernel"),
                               ("K5", "categorical_kernel")):
@@ -1817,9 +1863,10 @@ def profile_epoch(name):
         f"{k} {named[k][0]:.2f} ms over {named[k][1]} launches"
         for k in ("K4f", "K4b"))
         + f" ({path.get('k4_profile', 'earlier: not recorded')})")
-    log(f"phase 5 {name} rank backwards: " + ", ".join(
+    log(f"phase 5 {name} rank backwards and K7: " + ", ".join(
         f"{k} {named[k][0]:.2f} ms over {named[k][1]} launches"
-        for k in ("K3 blocked / K10 bwd", "K9b / K9bs / K11a")))
+        for k in ("rank bwd (K2, K3, K10 bwd, K11a A<=8)",
+                  "K9b / K9bs / K11a", "K7")))
     log(f"phase 5 {name} K9f and K5: " + ", ".join(
         f"{k} {named[k][0]:.2f} ms over {named[k][1]} launches"
         for k in ("K9f", "K5")))
@@ -1863,6 +1910,12 @@ def main(argv):
     check_k1(kernels, gen, dev, S_FULL, save=False)
     k2 = check_k2(kernels, gen, dev, k1_inputs)
     k3 = check_k3(kernels, gen, dev, k1_inputs)
+    check_k3(kernels, gen, dev, k1_inputs, ties=True)
+    # the former dense body and its launchers are gone from the library
+    for gone in ("launch_fused_rank_bwd_saved", "launch_fused_rank_bwd"):
+        require(not hasattr(_ext.lib("rank_kernels"), gone),
+                f"rank_kernels still exports {gone}")
+    cap_trade(kernels, gen, dev, k1_inputs, "primate", "K1", "K2", "K3")
     del k1_inputs
     # DS1 GTR+G4 (K10, K3 blocked): one real child index per site count
     idx_b = last_rank_idx(gen, dev, S_BATCH, "hohna_data_1", "gtr+g4")
@@ -1889,6 +1942,11 @@ def main(argv):
     k5 = check_k5(resample_kernel, gen, dev)
     check_k5(resample_kernel, gen, dev, K_TWIST)      # VNCSMC's K
     k7 = check_k7(kernels, gen, dev)
+    # ragged sites; the last rank's KC = 32; odd and widest A, small
+    check_k7(kernels, gen, dev, S=300)
+    check_k7(kernels, gen, dev, KC=K_TWIST, timed=False)
+    check_k7(kernels, gen, dev, KC=5, M_=3, S=70, A_=3, timed=False)
+    check_k7(kernels, gen, dev, KC=4, M_=2, S=40, A_=8, timed=False)
     k8 = check_k8(kernels, gen, dev, S_BATCH)
     check_k8(kernels, gen, dev, S_FULL)
     k11b, k11b_blk, k7w, k7wb, k11c = check_twist_kernels(kernels, gen,

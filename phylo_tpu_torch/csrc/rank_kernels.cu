@@ -25,8 +25,8 @@
 // children from wherever the index points.  Blocked, every count is per
 // plane of G*A and the arithmetic ~4 G A^2.
 //
-// Design: one CUDA block per particle (K1) or per group of particles
-// (K2, K3), threads striding over sites so neighbouring threads read
+// Design: one CUDA block per particle, threads (K1) or warps (the
+// backward) striding over sites so neighbouring threads read
 // neighbouring addresses of each plane (coalesced).  Each block reads
 // its own idx entries (the TPU kernel scalar-prefetched them).  The
 // 4x4 contraction runs in exact FP32 FMAs in registers (no tensor
@@ -46,7 +46,8 @@
 // differently).  The transitions sit in shared memory (2 G A^2 floats).
 // Ties of the max are counted across all G*A planes in the first pass.
 //
-// The blocked backward (K3 blocked, K10's).  Bytes bound it (DS1
+// The backward (K2, K3, K11a at A <= 8: the dense form, G = 1; K3
+// blocked, K10's: the blocked form).  Bytes bound it (DS1
 // GTR+Gamma4, K = 2048, S = 256: 0.0308 ms), so the card has to keep
 // enough loads in flight: the former form, 8 particles a 128-thread block
 // (256 blocks, ~8 warps an SM), a block-wide reduction of 36 values per
@@ -59,7 +60,12 @@
 // dP / dpi sums of one rate block in registers, and reduces them with
 // one transpose_sum (about 36 shuffles, no barrier) a (chunk, block).
 // The warps' sums meet once in shared memory, in warp order, and dP is
-// written once.
+// written once.  K2, K3 and K11a at A <= 8 run this body's dense form
+// (G = 1 at compile time, the children straight into registers and the
+// merge kept from pass 1 for pass 2); their former body was the
+// 8-particle layout above (3.8x its bound at primate K = 2048, S = 256,
+// and 4 blocks at K11a's K = 32).  rank_bwd_plan halves the lane's sites
+// while the grid would be short of warps.
 // Every entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -68,8 +74,8 @@
 namespace {
 
 constexpr int kThreads = 128;
-// K3 blocked / K10 backward: sites a lane holds per chunk, warps a block
-// (pruning/kernels.py::rank_bwd_plan mirrors both)
+// The rank backward: sites a lane holds per chunk (blocked form), warps a
+// block (pruning/kernels.py::rank_bwd_plan mirrors both)
 constexpr int kBwdSPL = 1;
 constexpr int kBwdMaxWarps = 8;
 
@@ -194,141 +200,6 @@ __global__ void __launch_bounds__(kThreads) fused_rank_kernel(
     logscale[k] = acc[1];
   }
 }
-
-template <int A, bool Gather>
-__global__ void __launch_bounds__(kThreads) fused_rank_bwd_kernel(
-    const float* __restrict__ m1g, const float* __restrict__ m2g,
-    const float* __restrict__ leaves, const float* __restrict__ buf,
-    const int* __restrict__ idx, const float* __restrict__ gmg,
-    const float* __restrict__ gr, const float* __restrict__ gl,
-    const float* __restrict__ Pl, const float* __restrict__ Pr,
-    const float* __restrict__ pi, const float* __restrict__ w,
-    float* __restrict__ dm1g, float* __restrict__ dm2g,
-    float* __restrict__ dPl, float* __restrict__ dPr,
-    float* __restrict__ dpi_part, float* __restrict__ dw_part, int K, int R,
-    int N, int S, int tkb) {
-  constexpr int NP = 2 * A * A;
-  __shared__ float sh[32 * NP];
-  const int blk = blockIdx.x;
-  const int k0 = blk * tkb;
-  const int k1 = min(K, k0 + tkb);
-  const size_t slab = (size_t)A * S;
-  float pv[A];
-#pragma unroll
-  for (int a = 0; a < A; ++a) pv[a] = pi[a];
-  float dpi_acc[A];
-#pragma unroll
-  for (int a = 0; a < A; ++a) dpi_acc[a] = 0.f;
-  float* dw_row = dw_part + (size_t)blk * S;
-
-  for (int k = k0; k < k1; ++k) {
-    float pl[A * A], pr[A * A];
-#pragma unroll
-    for (int c = 0; c < A * A; ++c) {
-      pl[c] = Pl[(size_t)k * A * A + c];
-      pr[c] = Pr[(size_t)k * A * A + c];
-    }
-    const float grk = gr[k], glk = gl[k];
-    const float* m1 =
-        Gather ? child_slab(leaves, buf, idx[k], idx[K + k], N, R, slab)
-               : m1g + (size_t)k * slab;
-    const float* m2 =
-        Gather ? child_slab(leaves, buf, idx[2 * K + k], idx[3 * K + k], N,
-                            R, slab)
-               : m2g + (size_t)k * slab;
-    const float* gm = gmg + (size_t)k * slab;
-    float* dm1 = dm1g + (size_t)k * slab;
-    float* dm2 = dm2g + (size_t)k * slab;
-    float dP[NP];
-#pragma unroll
-    for (int c = 0; c < NP; ++c) dP[c] = 0.f;
-
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      float a1[A], a2[A], g[A], u[A], v[A], wp[A];
-#pragma unroll
-      for (int a = 0; a < A; ++a) {
-        a1[a] = m1[(size_t)a * S + s];
-        a2[a] = m2[(size_t)a * S + s];
-        g[a] = gm[(size_t)a * S + s];
-      }
-#pragma unroll
-      for (int b = 0; b < A; ++b) {
-        float uu = a1[0] * pl[b], vv = a2[0] * pr[b];
-#pragma unroll
-        for (int a = 1; a < A; ++a) {
-          uu += a1[a] * pl[a * A + b];
-          vv += a2[a] * pr[a * A + b];
-        }
-        u[b] = uu;
-        v[b] = vv;
-        wp[b] = uu * vv;
-      }
-      float site = wp[0] * pv[0];
-      float raw = wp[0];
-#pragma unroll
-      for (int b = 1; b < A; ++b) {
-        site += wp[b] * pv[b];
-        raw = fmaxf(raw, wp[b]);
-      }
-      const float scale = fmaxf(raw, FLT_MIN);
-      const float ws = w[s];
-      const float dsite = (grk * ws) / site;
-      const float inv = 1.f / scale;
-      float dscale = (glk * ws) / scale;
-#pragma unroll
-      for (int p = 0; p < A; ++p) dscale -= g[p] * (wp[p] * inv * inv);
-      // max(raw, tiny): full cotangent above the clamp, half at it
-      const float draw =
-          dscale * ((raw > FLT_MIN ? 1.f : 0.f) + (raw == FLT_MIN ? 0.5f : 0.f));
-      // reduce-max cotangent split evenly among tied planes
-      float neq = 0.f;
-#pragma unroll
-      for (int p = 0; p < A; ++p) neq += (wp[p] == raw) ? 1.f : 0.f;
-      float du[A], dv[A];
-#pragma unroll
-      for (int b = 0; b < A; ++b) {
-        const float eq = (wp[b] == raw) ? 1.f : 0.f;
-        const float dwp = g[b] * inv + dsite * pv[b] + draw * (eq / neq);
-        du[b] = dwp * v[b];
-        dv[b] = dwp * u[b];
-        dpi_acc[b] += dsite * wp[b];
-      }
-#pragma unroll
-      for (int a = 0; a < A; ++a) {
-        float x1 = du[0] * pl[a * A], x2 = dv[0] * pr[a * A];
-#pragma unroll
-        for (int b = 1; b < A; ++b) {
-          x1 += du[b] * pl[a * A + b];
-          x2 += dv[b] * pr[a * A + b];
-        }
-        dm1[(size_t)a * S + s] = x1;
-        dm2[(size_t)a * S + s] = x2;
-#pragma unroll
-        for (int b = 0; b < A; ++b) {
-          dP[a * A + b] += du[b] * a1[a];
-          dP[A * A + a * A + b] += dv[b] * a2[a];
-        }
-      }
-      // site-weight cotangent; this thread owns site s for every k
-      const float dwv = grk * logf(site) + glk * logf(scale);
-      dw_row[s] = (k == k0) ? dwv : dw_row[s] + dwv;
-    }
-    block_sum<NP>(dP, sh);
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int c = 0; c < A * A; ++c) {
-        dPl[(size_t)k * A * A + c] = dP[c];
-        dPr[(size_t)k * A * A + c] = dP[A * A + c];
-      }
-    }
-  }
-  block_sum<A>(dpi_acc, sh);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int a = 0; a < A; ++a) dpi_part[(size_t)blk * A + a] = dpi_acc[a];
-  }
-}
-
 
 // One rate-category block of the merge: u = Pl_g^T a1, v = Pr_g^T a2,
 // w = u * v, in a fixed operation order (no FMA contraction choices), so
@@ -494,23 +365,113 @@ __host__ __device__ constexpr int halved5(int n) {
   return n;
 }
 
-// K10 backward (Gather=false, saved children) and K3 blocked
-// (Gather=true, children re-gathered by idx): _rank_bwd_core with G > 1.
+// Pass 1 of the backward for one site and one rate-category block: the
+// site sum, the cotangent-weighted sum of w, the max over planes and its
+// ties, each a fixed chain over the block's planes in order.
+template <int A>
+__device__ __forceinline__ void bwd_pass1(const float* wp, const float* gv,
+                                          const float* pvb, float& site,
+                                          float& gsum, float& raw,
+                                          float& neq) {
+#pragma unroll
+  for (int b = 0; b < A; ++b) {
+    const float x = wp[b];
+    site = __fmaf_rn(x, pvb[b], site);
+    gsum = __fmaf_rn(gv[b], x, gsum);
+    if (x > raw) {
+      raw = x;
+      neq = 1.f;
+    } else if (x == raw) {
+      neq += 1.f;
+    }
+  }
+}
+
+// Pass 2 for one site and one block: the child cotangents y1 = P_l du,
+// y2 = P_r dv, and the site's dP_l, dP_r and dpi terms added onto acc
+// (2 A^2 + A values).  share is 1 / ties; inv, dsite, draw the site's
+// scalars (all 0 on a padded site).
+template <int A>
+__device__ __forceinline__ void bwd_pass2(
+    const float* a1, const float* a2, const float* u, const float* v,
+    const float* wp, const float* gv, const float* pvb, const float* plg,
+    const float* prg, float raw, float share, float inv, float dsite,
+    float draw, float* acc, float* y1, float* y2) {
+  constexpr int AA = A * A;
+  float du[A], dv[A];
+#pragma unroll
+  for (int b = 0; b < A; ++b) {
+    // reduce-max cotangent split evenly among tied planes
+    const float sh = (wp[b] == raw) ? share : 0.f;
+    const float dwp = gv[b] * inv + dsite * pvb[b] + draw * sh;
+    du[b] = dwp * v[b];
+    dv[b] = dwp * u[b];
+    acc[2 * AA + b] = __fmaf_rn(dsite, wp[b], acc[2 * AA + b]);
+  }
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    float x1 = du[0] * plg[a * A], x2 = dv[0] * prg[a * A];
+#pragma unroll
+    for (int b = 1; b < A; ++b) {
+      x1 = __fmaf_rn(du[b], plg[a * A + b], x1);
+      x2 = __fmaf_rn(dv[b], prg[a * A + b], x2);
+    }
+    y1[a] = x1;
+    y2[a] = x2;
+#pragma unroll
+    for (int b = 0; b < A; ++b) {
+      acc[a * A + b] = __fmaf_rn(du[b], a1[a], acc[a * A + b]);
+      acc[AA + a * A + b] = __fmaf_rn(dv[b], a2[a], acc[AA + a * A + b]);
+    }
+  }
+}
+
+// A site's scalars from pass 1 (padded sites carry nothing): 1/scale,
+// dsite, dscale's max share, 1 / ties, and its dw (written when dw_part
+// is given).
+__device__ __forceinline__ void bwd_scalars(
+    float raw, float site, float gsum, float& neq, float& inv, float& dsite,
+    float& draw, int s, int S, const float* w, float grk, float glk,
+    float* dw_row) {
+  inv = dsite = draw = 0.f;
+  neq = 1.f / neq;                      // eq / neq for eq in {0, 1}
+  if (s < S) {
+    const float scale = fmaxf(raw, FLT_MIN);
+    const float ws = w[s];
+    inv = 1.f / scale;
+    dsite = (grk * ws) / site;
+    const float dscale = (glk * ws) / scale - gsum * (inv * inv);
+    // max(raw, tiny): full cotangent above the clamp, half at it
+    draw = dscale * ((raw > FLT_MIN ? 1.f : 0.f) +
+                     (raw == FLT_MIN ? 0.5f : 0.f));
+    if (dw_row) dw_row[s] = grk * logf(site) + glk * logf(scale);
+  }
+}
+
+// The rank backward: _rank_bwd_core for K2, K3 and K11a at A <= 8
+// (Dense: G = 1, transitions (K, A, A)), K10's backward (saved children)
+// and K3 blocked (G > 1).  Gather re-gathers the children by idx.
 // One CUDA block per particle k, `blockDim.x / 32` warps; warp w owns the
 // site chunks c = w, w + W, ... of CH = 32 SPL sites, lane l the sites
-// c CH + 32 j + l (j < SPL).  A warp stages its chunk's children and
-// cotangent (3 G A CH floats) in its own shared memory by cp.async, every
-// load in flight at once; a lane only ever reads the sites it copied, so
-// no barrier guards the staging.  Pass 1 keeps each site's scalars (1/scale,
+// c CH + 32 j + l (j < SPL).  Pass 1 keeps each site's scalars (1/scale,
 // dsite, dscale's max share, tie count, max) in the lane's registers;
-// pass 2 loops over the G rate-category blocks with the block's 2 A^2 dP
-// and A dpi sums in registers across the lane's sites, one transpose_sum
-// a (chunk, block), added onto the warp's slot in shared memory in chunk
-// order.  The block then sums the warps' slots in warp order and writes
-// dP and the particle's dpi row once.  No global scratch, no float
-// atomics; one barrier after the transitions load and one before the
-// slot sum.
-template <int A, bool Gather, int SPL>
+// pass 2 holds a block's 2 A^2 dP and A dpi sums in registers across the
+// lane's sites, one transpose_sum a (chunk, block), added onto the
+// warp's slot in shared memory in chunk order.  The block then sums the
+// warps' slots in warp order and writes dP and the particle's dpi row
+// once.  No global scratch, no float atomics.
+// * Blocked (G at run time): a warp stages its chunk's children and
+//   cotangent (3 G A CH floats) in its own shared memory by cp.async,
+//   every load in flight at once; a lane only ever reads the sites it
+//   copied, so no barrier guards the staging.  Pass 2 loops over the
+//   blocks and recomputes each block's merge (block_merge: the same
+//   bits), since a site's scale is the max over all G A planes.
+// * Dense (G = 1): a lane loads its sites' 3 A SPL values straight into
+//   registers and keeps u, v and w from pass 1 for pass 2, so the merge
+//   runs once and nothing is staged (the blocked form at G = 1
+//   recomputes it from shared memory).
+// One barrier after the transitions load and one before the slot sum.
+template <int A, bool Gather, int SPL, bool Dense>
 __global__ void __launch_bounds__(32 * kBwdMaxWarps)
     fused_rank_bwd_blocked_kernel(
         const float* __restrict__ m1g, const float* __restrict__ m2g,
@@ -522,18 +483,19 @@ __global__ void __launch_bounds__(32 * kBwdMaxWarps)
         float* __restrict__ dm1g, float* __restrict__ dm2g,
         float* __restrict__ dPl, float* __restrict__ dPr,
         float* __restrict__ dpi_part, float* __restrict__ dw_part, int K,
-        int R, int N, int G, int S) {
+        int R, int N, int Gr, int S) {
   constexpr int AA = A * A;
   constexpr int NV = 2 * AA + A;        // dP_l, dP_r and dpi of one block
   constexpr int NF = halved5(NV);       // values a lane keeps after the sum
   constexpr int CH = 32 * SPL;          // sites a chunk
+  const int G = Dense ? 1 : Gr;
   extern __shared__ float smem[];
   const int k = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int W = blockDim.x >> 5;
   const int GA = G * A, npb = G * AA;
   const size_t slab = (size_t)GA * S;
-  const int tile = 3 * GA * CH;         // one staged chunk: x1, x2, gm
+  const int tile = Dense ? 0 : 3 * GA * CH;  // one staged chunk: x1, x2, gm
   float* pl = smem;
   float* pr = smem + npb;
   float* pv = smem + 2 * npb;
@@ -553,135 +515,150 @@ __global__ void __launch_bounds__(32 * kBwdMaxWarps)
   const float* gm = gmg + (size_t)k * slab;
   float* dm1 = dm1g + (size_t)k * slab;
   float* dm2 = dm2g + (size_t)k * slab;
+  float* dw_row = dw_part ? dw_part + (size_t)k * S : nullptr;
   const int nch = (S + CH - 1) / CH;
-  // this lane's sites of chunk c into stage x (planes-major, CH a plane)
-  auto stage = [&](int c, float* x) {
-    for (int p = 0; p < GA; ++p) {
-#pragma unroll
-      for (int j = 0; j < SPL; ++j) {
-        const int s = c * CH + 32 * j + lane;
-        float* d = x + p * CH + 32 * j + lane;
-        if (s < S) {
-          const size_t at = (size_t)p * S + s;
-          cp_async4(d, m1 + at);
-          cp_async4(d + GA * CH, m2 + at);
-          cp_async4(d + 2 * GA * CH, gm + at);
-        } else {
-          d[0] = d[GA * CH] = d[2 * GA * CH] = 0.f;
-        }
-      }
-    }
-  };
   __syncthreads();                      // the transitions and pi
 
-  for (int c = warp, it = 0; c < nch; c += W, ++it) {
-    const float* x1 = mystage;
-    const float* x2 = x1 + GA * CH;
-    const float* xg = x2 + GA * CH;
-    stage(c, mystage);
-    cp_async_wait_all();
-    const int s0 = c * CH + lane;
-    // pass 1, per site over all G*A planes: max, its ties, site sum
-    float raw[SPL], neq[SPL], site[SPL], gsum[SPL];
-#pragma unroll
-    for (int j = 0; j < SPL; ++j) {
-      raw[j] = __int_as_float(0xff800000);  // -inf
-      neq[j] = site[j] = gsum[j] = 0.f;
-    }
-    for (int g = 0; g < G; ++g) {
-      float plg[AA], prg[AA];
-      load_pblock<A>(pl + g * AA, pr + g * AA, plg, prg);
+  if constexpr (Dense) {
+    float plg[AA], prg[AA];
+    load_pblock<A>(pl, pr, plg, prg);
+    for (int c = warp, it = 0; c < nch; c += W, ++it) {
+      const int s0 = c * CH + lane;
+      float a1[SPL][A], a2[SPL][A], gv[SPL][A], u[SPL][A], v[SPL][A],
+          wp[SPL][A];
 #pragma unroll
       for (int j = 0; j < SPL; ++j) {
-        const int e = 32 * j + lane;
-        float a1[A], a2[A], u[A], v[A], wp[A];
-        load_block<A>(x1, g, CH, e, a1);
-        load_block<A>(x2, g, CH, e, a2);
-        block_merge<A>(a1, a2, plg, prg, u, v, wp);
+        const int s = s0 + 32 * j;
+        const bool ok = s < S;
 #pragma unroll
-        for (int b = 0; b < A; ++b) {
-          const int p = g * A + b;
-          const float x = wp[b];
-          site[j] = __fmaf_rn(x, pv[p], site[j]);
-          gsum[j] = __fmaf_rn(xg[p * CH + e], x, gsum[j]);
-          if (x > raw[j]) {
-            raw[j] = x;
-            neq[j] = 1.f;
-          } else if (x == raw[j]) {
-            neq[j] += 1.f;
-          }
+        for (int a = 0; a < A; ++a) {
+          const size_t at = (size_t)a * S + s;
+          a1[j][a] = ok ? m1[at] : 0.f;
+          a2[j][a] = ok ? m2[at] : 0.f;
+          gv[j][a] = ok ? gm[at] : 0.f;
         }
       }
-    }
-    float inv[SPL], dsite[SPL], draw[SPL];
+      float raw[SPL], neq[SPL], site[SPL], gsum[SPL];
+      float inv[SPL], dsite[SPL], draw[SPL];
 #pragma unroll
-    for (int j = 0; j < SPL; ++j) {
-      const int s = s0 + 32 * j;
-      inv[j] = dsite[j] = draw[j] = 0.f;  // padded sites carry nothing
-      neq[j] = 1.f / neq[j];            // eq / neq for eq in {0, 1}
-      if (s < S) {
-        const float scale = fmaxf(raw[j], FLT_MIN);
-        const float ws = w[s];
-        inv[j] = 1.f / scale;
-        dsite[j] = (grk * ws) / site[j];
-        const float dscale = (glk * ws) / scale - gsum[j] * (inv[j] * inv[j]);
-        // max(raw, tiny): full cotangent above the clamp, half at it
-        draw[j] = dscale * ((raw[j] > FLT_MIN ? 1.f : 0.f) +
-                            (raw[j] == FLT_MIN ? 0.5f : 0.f));
-        dw_part[(size_t)k * S + s] = grk * logf(site[j]) + glk * logf(scale);
+      for (int j = 0; j < SPL; ++j) {
+        raw[j] = __int_as_float(0xff800000);  // -inf
+        neq[j] = site[j] = gsum[j] = 0.f;
+        block_merge<A>(a1[j], a2[j], plg, prg, u[j], v[j], wp[j]);
+        bwd_pass1<A>(wp[j], gv[j], pv, site[j], gsum[j], raw[j], neq[j]);
+        bwd_scalars(raw[j], site[j], gsum[j], neq[j], inv[j], dsite[j],
+                    draw[j], s0 + 32 * j, S, w, grk, glk, dw_row);
       }
-    }
-
-    // pass 2, one rate-category block at a time
-    for (int g = 0; g < G; ++g) {
-      float plg[AA], prg[AA];
-      load_pblock<A>(pl + g * AA, pr + g * AA, plg, prg);
       float acc[NV];
 #pragma unroll
       for (int e = 0; e < NV; ++e) acc[e] = 0.f;
 #pragma unroll
       for (int j = 0; j < SPL; ++j) {
-        const int e = 32 * j + lane, s = s0 + 32 * j;
-        float a1[A], a2[A], u[A], v[A], wp[A], du[A], dv[A];
-        load_block<A>(x1, g, CH, e, a1);
-        load_block<A>(x2, g, CH, e, a2);
-        block_merge<A>(a1, a2, plg, prg, u, v, wp);
+        const int s = s0 + 32 * j;
+        float y1[A], y2[A];
+        bwd_pass2<A>(a1[j], a2[j], u[j], v[j], wp[j], gv[j], pv, plg, prg,
+                     raw[j], neq[j], inv[j], dsite[j], draw[j], acc, y1, y2);
+        if (s < S) {
 #pragma unroll
-        for (int b = 0; b < A; ++b) {
-          const int p = g * A + b;
-          // reduce-max cotangent split evenly among tied planes
-          const float share = (wp[b] == raw[j]) ? neq[j] : 0.f;
-          const float dwp = xg[p * CH + e] * inv[j] + dsite[j] * pv[p] +
-                            draw[j] * share;
-          du[b] = dwp * v[b];
-          dv[b] = dwp * u[b];
-          acc[2 * AA + b] = __fmaf_rn(dsite[j], wp[b], acc[2 * AA + b]);
-        }
-#pragma unroll
-        for (int a = 0; a < A; ++a) {
-          float y1 = du[0] * plg[a * A], y2 = dv[0] * prg[a * A];
-#pragma unroll
-          for (int b = 1; b < A; ++b) {
-            y1 = __fmaf_rn(du[b], plg[a * A + b], y1);
-            y2 = __fmaf_rn(dv[b], prg[a * A + b], y2);
-          }
-          if (s < S) {
-            dm1[(size_t)(g * A + a) * S + s] = y1;
-            dm2[(size_t)(g * A + a) * S + s] = y2;
-          }
-#pragma unroll
-          for (int b = 0; b < A; ++b) {
-            acc[a * A + b] = __fmaf_rn(du[b], a1[a], acc[a * A + b]);
-            acc[AA + a * A + b] = __fmaf_rn(dv[b], a2[a], acc[AA + a * A + b]);
+          for (int a = 0; a < A; ++a) {
+            dm1[(size_t)a * S + s] = y1[a];
+            dm2[(size_t)a * S + s] = y2[a];
           }
         }
       }
       int base = 0, size = NV;
       transpose_sum<NV, 16>(acc, lane, base, size);
-      float* sl = myslot + g * NV + base;
+      float* sl = myslot + base;
 #pragma unroll
       for (int i = 0; i < NF; ++i)
         if (i < size) sl[i] = it ? sl[i] + acc[i] : acc[i];
+    }
+  } else {
+    // this lane's sites of chunk c into stage x (planes-major, CH a plane)
+    auto stage = [&](int c, float* x) {
+      for (int p = 0; p < GA; ++p) {
+#pragma unroll
+        for (int j = 0; j < SPL; ++j) {
+          const int s = c * CH + 32 * j + lane;
+          float* d = x + p * CH + 32 * j + lane;
+          if (s < S) {
+            const size_t at = (size_t)p * S + s;
+            cp_async4(d, m1 + at);
+            cp_async4(d + GA * CH, m2 + at);
+            cp_async4(d + 2 * GA * CH, gm + at);
+          } else {
+            d[0] = d[GA * CH] = d[2 * GA * CH] = 0.f;
+          }
+        }
+      }
+    };
+    for (int c = warp, it = 0; c < nch; c += W, ++it) {
+      const float* x1 = mystage;
+      const float* x2 = x1 + GA * CH;
+      const float* xg = x2 + GA * CH;
+      stage(c, mystage);
+      cp_async_wait_all();
+      const int s0 = c * CH + lane;
+      // pass 1, per site over all G*A planes: max, its ties, site sum
+      float raw[SPL], neq[SPL], site[SPL], gsum[SPL];
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) {
+        raw[j] = __int_as_float(0xff800000);  // -inf
+        neq[j] = site[j] = gsum[j] = 0.f;
+      }
+      for (int g = 0; g < G; ++g) {
+        float plg[AA], prg[AA];
+        load_pblock<A>(pl + g * AA, pr + g * AA, plg, prg);
+#pragma unroll
+        for (int j = 0; j < SPL; ++j) {
+          const int e = 32 * j + lane;
+          float a1[A], a2[A], gv[A], u[A], v[A], wp[A];
+          load_block<A>(x1, g, CH, e, a1);
+          load_block<A>(x2, g, CH, e, a2);
+          load_block<A>(xg, g, CH, e, gv);
+          block_merge<A>(a1, a2, plg, prg, u, v, wp);
+          bwd_pass1<A>(wp, gv, pv + g * A, site[j], gsum[j], raw[j],
+                       neq[j]);
+        }
+      }
+      float inv[SPL], dsite[SPL], draw[SPL];
+#pragma unroll
+      for (int j = 0; j < SPL; ++j)
+        bwd_scalars(raw[j], site[j], gsum[j], neq[j], inv[j], dsite[j],
+                    draw[j], s0 + 32 * j, S, w, grk, glk, dw_row);
+
+      // pass 2, one rate-category block at a time
+      for (int g = 0; g < G; ++g) {
+        float plg[AA], prg[AA];
+        load_pblock<A>(pl + g * AA, pr + g * AA, plg, prg);
+        float acc[NV];
+#pragma unroll
+        for (int e = 0; e < NV; ++e) acc[e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < SPL; ++j) {
+          const int e = 32 * j + lane, s = s0 + 32 * j;
+          float a1[A], a2[A], gv[A], u[A], v[A], wp[A], y1[A], y2[A];
+          load_block<A>(x1, g, CH, e, a1);
+          load_block<A>(x2, g, CH, e, a2);
+          load_block<A>(xg, g, CH, e, gv);
+          block_merge<A>(a1, a2, plg, prg, u, v, wp);
+          bwd_pass2<A>(a1, a2, u, v, wp, gv, pv + g * A, plg, prg, raw[j],
+                       neq[j], inv[j], dsite[j], draw[j], acc, y1, y2);
+          if (s < S) {
+#pragma unroll
+            for (int a = 0; a < A; ++a) {
+              dm1[(size_t)(g * A + a) * S + s] = y1[a];
+              dm2[(size_t)(g * A + a) * S + s] = y2[a];
+            }
+          }
+        }
+        int base = 0, size = NV;
+        transpose_sum<NV, 16>(acc, lane, base, size);
+        float* sl = myslot + g * NV + base;
+#pragma unroll
+        for (int i = 0; i < NF; ++i)
+          if (i < size) sl[i] = it ? sl[i] + acc[i] : acc[i];
+      }
     }
   }
   __syncthreads();
@@ -728,66 +705,16 @@ extern "C" int launch_fused_rank(const float* leaves, float* buf,
   return (int)cudaGetLastError();
 }
 
-extern "C" int launch_fused_rank_bwd_saved(
-    const float* m1, const float* m2, const float* gm, const float* gr,
-    const float* gl, const float* Pl, const float* Pr, const float* pi,
-    const float* w, float* dm1, float* dm2, float* dPl, float* dPr,
-    float* dpi_part, float* dw_part, int K, int A, int S, int tkb,
-    void* stream) {
-  if (K <= 0) return 0;
-  if (tkb <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nb = (K + tkb - 1) / tkb;
-  switch (A) {
-#define PHYLO_K2(AA)                                                       \
-  case AA:                                                                 \
-    fused_rank_bwd_kernel<AA, false><<<nb, kThreads, 0, st>>>(             \
-        m1, m2, nullptr, nullptr, nullptr, gm, gr, gl, Pl, Pr, pi, w, dm1, \
-        dm2, dPl, dPr, dpi_part, dw_part, K, 0, 0, S, tkb);                \
-    break;
-    PHYLO_A_CASES(PHYLO_K2)
-#undef PHYLO_K2
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int launch_fused_rank_bwd(
-    const float* leaves, const float* buf, const int* idx, const float* gm,
-    const float* gr, const float* gl, const float* Pl, const float* Pr,
-    const float* pi, const float* w, float* dm1, float* dm2, float* dPl,
-    float* dPr, float* dpi_part, float* dw_part, int K, int R, int N, int A,
-    int S, int tkb, void* stream) {
-  if (K <= 0) return 0;
-  if (tkb <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nb = (K + tkb - 1) / tkb;
-  switch (A) {
-#define PHYLO_K3(AA)                                                       \
-  case AA:                                                                 \
-    fused_rank_bwd_kernel<AA, true><<<nb, kThreads, 0, st>>>(              \
-        nullptr, nullptr, leaves, buf, idx, gm, gr, gl, Pl, Pr, pi, w,     \
-        dm1, dm2, dPl, dPr, dpi_part, dw_part, K, R, N, S, tkb);           \
-    break;
-    PHYLO_A_CASES(PHYLO_K3)
-#undef PHYLO_K3
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
 static size_t blocked_smem(int G, int A) {
   return (size_t)(2 * G * A * A + G * A) * sizeof(float);
 }
 
-// K3 blocked / K10 backward: transitions, pi, the warps' slots and their
-// staged chunks (3 G A CH floats a warp).
+// The rank backward: transitions, pi, the warps' slots and, blocked, their
+// staged chunks (3 G A CH floats a warp; the dense form stages nothing).
 static size_t bwd_blocked_smem(int G, int A, int warps, int spl) {
   return blocked_smem(G, A) +
          (size_t)warps * G * (2 * A * A + A) * sizeof(float) +
-         (size_t)warps * 3 * G * A * 32 * spl * sizeof(float);
+         (G > 1 ? (size_t)warps * 3 * G * A * 32 * spl * sizeof(float) : 0);
 }
 
 template <typename Kernel>
@@ -821,8 +748,25 @@ extern "C" int launch_fused_rank_blocked(
   return (int)cudaGetLastError();
 }
 
-// spl and warps come from pruning/kernels.py::rank_bwd_plan; spl must
-// be the instantiated kBwdSPL.
+template <int A, bool Gather, int SPL, bool Dense>
+static int launch_bwd_form(
+    const float* m1, const float* m2, const float* leaves, const float* buf,
+    const int* idx, const float* gm, const float* gr, const float* gl,
+    const float* Pl, const float* Pr, const float* pi, const float* w,
+    float* dm1, float* dm2, float* dPl, float* dPr, float* dpi_part,
+    float* dw_part, int K, int R, int N, int G, int S, int warps,
+    size_t smem, cudaStream_t st) {
+  auto kernel = fused_rank_bwd_blocked_kernel<A, Gather, SPL, Dense>;
+  const int err = allow_smem(kernel, smem);
+  if (err) return err;
+  kernel<<<K, 32 * warps, smem, st>>>(m1, m2, leaves, buf, idx, gm, gr, gl,
+                                      Pl, Pr, pi, w, dm1, dm2, dPl, dPr,
+                                      dpi_part, dw_part, K, R, N, G, S);
+  return (int)cudaGetLastError();
+}
+
+// spl and warps come from pruning/kernels.py::rank_bwd_plan: G = 1 runs
+// the dense form at spl = 1 or 2, G > 1 the blocked form at kBwdSPL.  dw_part may be null (no dw wanted).
 template <bool Gather>
 static int launch_bwd_blocked(
     const float* m1, const float* m2, const float* leaves, const float* buf,
@@ -832,27 +776,30 @@ static int launch_bwd_blocked(
     float* dw_part, int K, int R, int N, int G, int A, int S, int spl,
     int warps, void* stream) {
   if (K <= 0 || S <= 0) return 0;
-  if (G <= 0 || spl != kBwdSPL || warps < 1 || warps > kBwdMaxWarps)
+  const bool dense = G == 1;
+  const bool spl_ok =
+      dense ? (spl == 1 || spl == 2) : spl == kBwdSPL;
+  if (G <= 0 || !spl_ok || warps < 1 || warps > kBwdMaxWarps)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = bwd_blocked_smem(G, A, warps, spl);
+#define PHYLO_BWD_ARGS                                                     \
+  m1, m2, leaves, buf, idx, gm, gr, gl, Pl, Pr, pi, w, dm1, dm2, dPl, dPr, \
+      dpi_part, dw_part, K, R, N, G, S, warps, smem, st
   switch (A) {
 #define PHYLO_K10B(AA)                                                     \
-  case AA: {                                                               \
-    auto kernel = fused_rank_bwd_blocked_kernel<AA, Gather, kBwdSPL>;      \
-    const int err = allow_smem(kernel, smem);                              \
-    if (err) return err;                                                   \
-    kernel<<<K, 32 * warps, smem, st>>>(                                   \
-        m1, m2, leaves, buf, idx, gm, gr, gl, Pl, Pr, pi, w, dm1, dm2,     \
-        dPl, dPr, dpi_part, dw_part, K, R, N, G, S);                       \
-    break;                                                                 \
-  }
+  case AA:                                                                 \
+    if (!dense)                                                            \
+      return launch_bwd_form<AA, Gather, kBwdSPL, false>(PHYLO_BWD_ARGS);  \
+    if (spl == 1)                                                          \
+      return launch_bwd_form<AA, Gather, 1, true>(PHYLO_BWD_ARGS);         \
+    return launch_bwd_form<AA, Gather, 2, true>(PHYLO_BWD_ARGS);
     PHYLO_A_CASES(PHYLO_K10B)
 #undef PHYLO_K10B
+#undef PHYLO_BWD_ARGS
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 extern "C" int launch_fused_rank_bwd_saved_blocked(

@@ -24,27 +24,47 @@
 // and dP terms (4 A^2 FMAs more), M times over the same children, so at
 // M=10 it does ~60 A^2 FMAs per site for 4A floats read and 2A written.
 //
-// Design.  One CUDA block per particle, threads over sites, exact FP32
-// FMAs in registers (no tensor cores, no TF32).  The TPU carried the
-// site sums of K8 (rootll, logscale) and of K7 (dP) across a sequential
-// grid axis; blocks run in parallel here, so one block owns every site
-// of its particle and reduces them itself, in a fixed order (no
-// atomics).  K7 keeps kSitesPerThread sites of each thread in registers
-// (children, weights and the dm accumulators) and loops over all M
-// subsamples inside the block, as the TPU's fori_loop did: dm never
-// leaves registers until it is complete, and each m's dP is one block
-// reduction added by thread 0 onto the previous site tile's partial.
-// M is looped whole at any size (the TPU chunked it at 64 for VMEM; the
-// loop here keeps nothing per m).  Ragged site tiles are masked, not
-// padded.  Every entry point returns cudaGetLastError().
+// Design of K8.  One CUDA block per particle, threads over sites, exact
+// FP32 FMAs in registers (no tensor cores, no TF32).  The TPU carried
+// the site sums (rootll, logscale) across a sequential grid axis; blocks
+// run in parallel here, so one block owns every site of its particle and
+// reduces them itself, in a fixed order (no atomics).
+//
+// Design of K7.  The former body (one 128-thread block a row, and for every
+// m a block-wide reduction of the 2 A^2 dP partials: 160 shuffles a warp,
+// two barriers and a serial write by thread 0) spent 3-4x its FMAs on
+// that reduction.  Now a warp owns a (row, chunk of 32 SPL sites), lane l
+// the sites c 32 SPL + 32 j + l (j < SPL), and a block a row: its W warps
+// take the chunks c = w, w + W, ...  At primate rank 0 (M = 10, KC =
+// 2112, S = 256) that is SPL = 2, W = 1: 2,112 warps of 4 chunks each.
+// * P_l[:, k], P_r[:, k] for all M (2 M A^2 floats, 1.3 KB at M = 10,
+//   A = 4) and g[:, k] come into shared memory once a row by cp.async;
+//   a lane reads an m's transitions as float4 broadcasts.
+// * A lane holds its sites' children, weights and dm accumulators in
+//   registers across all M, and writes dm once a site.
+// * Per m, a lane forms the 2 A^2 dP partials of its SPL sites as FMA
+//   chains, and the warp reduces them with one transpose_sum (31
+//   shuffles at A = 4, no barrier); each lane adds its share onto the
+//   warp's (m, entry) slot in shared memory, in chunk order.
+// * After the m loop, one barrier; the block sums the warps' slots in
+//   warp order and writes every dP entry once per (m, row).
+// Ragged site chunks are masked, not padded.  The plan (SPL, W) comes
+// from pruning/kernels.py::twist_narrow_plan: SPL = 2 (115 registers at
+// A = 4; SPL = 4 needs 162 and ran 22% slower), halved on a short grid
+// (later ranks have fewer rows), and as few warps a row as give the grid
+// 16 warps an SM: one warp walking a row's chunks beat two or four.
+// Every entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cfloat>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kSitesPerThread = 2;
+constexpr int kThreads = 128;      // K8
+// K7: warps a row at most (pruning/kernels.py::K7_MAX_WARPS mirrors it)
+// and the launch bound's blocks an SM
+constexpr int kK7MaxWarps = 8;
+constexpr int kK7MinBlocks = 1;
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -73,6 +93,56 @@ __device__ __forceinline__ void block_sum(float (&v)[NV], float* sh) {
       v[i] = warp_sum(x);
     }
   }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Sums the N values v over a warp's 32 lanes by recursive halving (as
+// rank_kernels.cu's transpose_sum): at the xor-O step a lane keeps half
+// of its values, sends the other half to its partner and adds the
+// partner's copy of the half it keeps, so after the five steps lane L
+// holds the warp totals of indices [base, base + size) in v[0, size).
+// Each total is the butterfly sum over lanes (pairs L, L^16 first, then
+// L^8, ...), the same bits in every call; about N shuffles in all.
+template <int N, int O>
+__device__ __forceinline__ void transpose_sum(float* v, int lane, int& base,
+                                              int& size) {
+  constexpr int H = (N + 1) / 2;
+  const bool up = (lane & O) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float lo = v[i];
+    const float hi = (H + i < N) ? v[H + i] : 0.f;
+    const float x = __shfl_xor_sync(0xffffffffu, up ? lo : hi, O);
+    v[i] = (up ? hi : lo) + x;
+  }
+  if (up) {
+    base += H;
+    size -= H;
+  } else {
+    size = min(size, H);
+  }
+  if constexpr (O > 1) transpose_sum<H, O / 2>(v, lane, base, size);
+}
+
+// Values a lane keeps after transpose_sum of n: n ceil-halved five times.
+__host__ __device__ constexpr int halved5(int n) {
+  for (int i = 0; i < 5; ++i) n = (n + 1) / 2;
+  return n;
+}
+
+// Floats of an m's P_l | P_r row in shared memory (16-byte pitch).
+__host__ __device__ constexpr int k7_pitch(int A) {
+  return (2 * A * A + 3) & ~3;
 }
 
 template <int A>
@@ -137,109 +207,151 @@ __global__ void __launch_bounds__(kThreads) merge_loglik_kernel(
   }
 }
 
-template <int A>
-__global__ void __launch_bounds__(kThreads) pair_ll_bwd_kernel(
-    const float* __restrict__ m1g, const float* __restrict__ m2g,
-    const float* __restrict__ Pl, const float* __restrict__ Pr,
-    const float* __restrict__ pi, const float* __restrict__ w,
-    const float* __restrict__ g, float* __restrict__ dm1g,
-    float* __restrict__ dm2g, float* __restrict__ dPl,
-    float* __restrict__ dPr, int KC, int M, int S) {
+// K7: a block a row k, warps over site chunks (see the design above).
+// Shared memory: M rows of P_l[m, k] | P_r[m, k] at pitch k7_pitch(A),
+// g[:, k] (M floats, padded to 4), then each warp's M x 2 A^2 dP slots.
+// MINB: the launch bound's blocks an SM (registers a thread at most
+// 65536 / (256 MINB)); the launcher's is kK7MinBlocks.
+template <int A, int SPL, int MINB = kK7MinBlocks>
+__global__ void __launch_bounds__(32 * kK7MaxWarps, MINB)
+    pair_ll_bwd_narrow_kernel(
+        const float* __restrict__ m1g, const float* __restrict__ m2g,
+        const float* __restrict__ Pl, const float* __restrict__ Pr,
+        const float* __restrict__ pi, const float* __restrict__ w,
+        const float* __restrict__ g, float* __restrict__ dm1g,
+        float* __restrict__ dm2g, float* __restrict__ dPl,
+        float* __restrict__ dPr, int KC, int M, int S) {
   constexpr int AA = A * A;
-  constexpr int NP = 2 * AA;
-  constexpr int SPT = kSitesPerThread;
-  __shared__ float sh[32 * NP];
+  constexpr int NV = 2 * AA;            // dP_l, dP_r entries of one m
+  constexpr int NF = halved5(NV);       // values a lane keeps after the sum
+  constexpr int PP = k7_pitch(A);
+  constexpr int CH = 32 * SPL;          // sites a chunk
+  extern __shared__ float4 smem4[];
+  float* const pm = reinterpret_cast<float*>(smem4);
   const int k = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  float* const gm = pm + (size_t)M * PP;
+  float* const slot = gm + ((M + 3) & ~3);
+  float* const myslot = slot + (size_t)warp * M * NV;
+  for (int e = threadIdx.x; e < M * NV; e += blockDim.x) {
+    const int m = e / NV, c = e - m * NV;
+    const size_t row = (size_t)m * KC + k;
+    cp_async4(pm + m * PP + c,
+              c < AA ? Pl + row * AA + c : Pr + row * AA + (c - AA));
+  }
+  for (int m = threadIdx.x; m < M; m += blockDim.x)
+    gm[m] = g[(size_t)m * KC + k];
+  float pv[A];
+#pragma unroll
+  for (int a = 0; a < A; ++a) pv[a] = pi[a];
   const size_t slab = (size_t)A * S;
   const float* m1 = m1g + (size_t)k * slab;
   const float* m2 = m2g + (size_t)k * slab;
   float* dm1 = dm1g + (size_t)k * slab;
   float* dm2 = dm2g + (size_t)k * slab;
-  float pv[A];
-#pragma unroll
-  for (int a = 0; a < A; ++a) pv[a] = pi[a];
-  const int tile = blockDim.x * SPT;
+  cp_async_wait_all();
+  __syncthreads();                      // P, g of every m are in
 
-  for (int t0 = 0; t0 < S; t0 += tile) {
-    float a1[SPT][A], a2[SPT][A], d1[SPT][A], d2[SPT][A], ws[SPT];
-    bool ok[SPT];
+  const int nch = (S + CH - 1) / CH;
+  for (int c = warp, it = 0; c < nch; c += W, ++it) {
+    float a1[SPL][A], a2[SPL][A], d1[SPL][A], d2[SPL][A], ws[SPL];
+    bool ok[SPL];
 #pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      const int s = t0 + j * blockDim.x + threadIdx.x;
+    for (int j = 0; j < SPL; ++j) {
+      const int s = c * CH + 32 * j + lane;
       ok[j] = s < S;
       ws[j] = ok[j] ? w[s] : 0.f;
 #pragma unroll
       for (int a = 0; a < A; ++a) {
         a1[j][a] = ok[j] ? m1[(size_t)a * S + s] : 0.f;
         a2[j][a] = ok[j] ? m2[(size_t)a * S + s] : 0.f;
-        d1[j][a] = 0.f;
-        d2[j][a] = 0.f;
+        d1[j][a] = d2[j][a] = 0.f;
       }
     }
     for (int m = 0; m < M; ++m) {
-      const size_t row = (size_t)m * KC + k;
       float pl[AA], pr[AA];
+      const float* row = pm + m * PP;
+      if constexpr (AA % 4 == 0) {
 #pragma unroll
-      for (int c = 0; c < AA; ++c) {
-        pl[c] = __ldg(Pl + row * AA + c);
-        pr[c] = __ldg(Pr + row * AA + c);
+        for (int e = 0; e < AA; e += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(row + e);
+          const float4 y = *reinterpret_cast<const float4*>(row + AA + e);
+          pl[e] = x.x; pl[e + 1] = x.y; pl[e + 2] = x.z; pl[e + 3] = x.w;
+          pr[e] = y.x; pr[e + 1] = y.y; pr[e + 2] = y.z; pr[e + 3] = y.w;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < AA; ++e) {
+          pl[e] = row[e];
+          pr[e] = row[AA + e];
+        }
       }
-      const float gk = __ldg(g + row);
-      float dP[NP];
+      const float gk = gm[m];
+      float acc[NV];
 #pragma unroll
-      for (int c = 0; c < NP; ++c) dP[c] = 0.f;
+      for (int e = 0; e < NV; ++e) acc[e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < SPT; ++j) {
-        if (!ok[j]) continue;
+      for (int j = 0; j < SPL; ++j) {
         float u[A], v[A];
         float site = 0.f;
 #pragma unroll
         for (int b = 0; b < A; ++b) {
-          float uu = a1[j][0] * pl[b], vv = a2[j][0] * pr[b];
+          float uu = __fmul_rn(a1[j][0], pl[b]), vv = __fmul_rn(a2[j][0], pr[b]);
 #pragma unroll
           for (int a = 1; a < A; ++a) {
-            uu += a1[j][a] * pl[a * A + b];
-            vv += a2[j][a] * pr[a * A + b];
+            uu = __fmaf_rn(a1[j][a], pl[a * A + b], uu);
+            vv = __fmaf_rn(a2[j][a], pr[a * A + b], vv);
           }
           u[b] = uu;
           v[b] = vv;
-          site = b ? site + (uu * vv) * pv[b] : (uu * vv) * pv[b];
+          site = __fmaf_rn(__fmul_rn(uu, vv), pv[b], site);
         }
-        const float gsite = (gk * ws[j]) / site;
+        // a masked site carries nothing (its 0 / 0 is never used)
+        const float gsite =
+            ok[j] ? __fdiv_rn(__fmul_rn(gk, ws[j]), site) : 0.f;
 #pragma unroll
         for (int b = 0; b < A; ++b) {
-          const float du = gsite * (v[b] * pv[b]);
-          const float dv = gsite * (u[b] * pv[b]);
+          const float du = __fmul_rn(gsite, __fmul_rn(v[b], pv[b]));
+          const float dv = __fmul_rn(gsite, __fmul_rn(u[b], pv[b]));
 #pragma unroll
           for (int a = 0; a < A; ++a) {
-            d1[j][a] += du * pl[a * A + b];
-            d2[j][a] += dv * pr[a * A + b];
-            dP[a * A + b] += du * a1[j][a];
-            dP[AA + a * A + b] += dv * a2[j][a];
+            d1[j][a] = __fmaf_rn(du, pl[a * A + b], d1[j][a]);
+            d2[j][a] = __fmaf_rn(dv, pr[a * A + b], d2[j][a]);
+            acc[a * A + b] = __fmaf_rn(du, a1[j][a], acc[a * A + b]);
+            acc[AA + a * A + b] = __fmaf_rn(dv, a2[j][a], acc[AA + a * A + b]);
           }
         }
       }
-      block_sum<NP>(dP, sh);
-      if (threadIdx.x == 0) {
-        float* ol = dPl + row * AA;
-        float* orr = dPr + row * AA;
+      int base = 0, size = NV;
+      transpose_sum<NV, 16>(acc, lane, base, size);
+      float* sl = myslot + m * NV + base;
 #pragma unroll
-        for (int c = 0; c < AA; ++c) {
-          ol[c] = t0 ? ol[c] + dP[c] : dP[c];
-          orr[c] = t0 ? orr[c] + dP[AA + c] : dP[AA + c];
-        }
-      }
+      for (int i = 0; i < NF; ++i)
+        if (i < size) sl[i] = it ? sl[i] + acc[i] : acc[i];
     }
 #pragma unroll
-    for (int j = 0; j < SPT; ++j) {
+    for (int j = 0; j < SPL; ++j) {
       if (!ok[j]) continue;
-      const int s = t0 + j * blockDim.x + threadIdx.x;
+      const int s = c * CH + 32 * j + lane;
 #pragma unroll
       for (int a = 0; a < A; ++a) {
         dm1[(size_t)a * S + s] = d1[j][a];
         dm2[(size_t)a * S + s] = d2[j][a];
       }
     }
+  }
+  __syncthreads();                      // every warp's slots are in
+  // the warps' slots in warp order: each dP entry written once per (m, k)
+  for (int e = threadIdx.x; e < M * NV; e += blockDim.x) {
+    float t = slot[e];
+    for (int q = 1; q < W; ++q) t += slot[(size_t)q * M * NV + e];
+    const int m = e / NV, c = e - m * NV;
+    const size_t row = (size_t)m * KC + k;
+    if (c < AA)
+      dPl[row * AA + c] = t;
+    else
+      dPr[row * AA + (c - AA)] = t;
   }
 }
 
@@ -270,25 +382,46 @@ extern "C" int launch_merge_loglik(const float* m1, const float* m2,
   return (int)cudaGetLastError();
 }
 
+// Shared-memory bytes of K7 (pruning/kernels.py::k7_smem mirrors it).
+static size_t k7_smem(int M, int A, int warps) {
+  return ((size_t)M * k7_pitch(A) + ((M + 3) & ~3) +
+          (size_t)warps * M * 2 * A * A) * sizeof(float);
+}
+
+// spl (1, 2 or 4) and warps (at most the row's chunks and kK7MaxWarps)
+// come from pruning/kernels.py::twist_narrow_plan.
 extern "C" int launch_pair_ll_bwd(const float* m1, const float* m2,
                                   const float* Pl, const float* Pr,
                                   const float* pi, const float* w,
                                   const float* g, float* dm1, float* dm2,
                                   float* dPl, float* dPr, int KC, int M,
-                                  int A, int S, void* stream) {
+                                  int A, int S, int spl, int warps,
+                                  void* stream) {
   if (KC <= 0) return 0;
-  if (M < 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  if (M < 0 || S <= 0 || (spl != 1 && spl != 2 && spl != 4))
+    return (int)cudaErrorInvalidValue;
+  const int nch = (S + 32 * spl - 1) / (32 * spl);
+  if (warps < 1 || warps > kK7MaxWarps || warps > nch)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = k7_smem(M, A, warps);
+  auto launch = [&](auto kernel) {
+    const int err = smem <= 48 * 1024 ? 0 : (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+    kernel<<<KC, 32 * warps, smem, st>>>(m1, m2, Pl, Pr, pi, w, g, dm1, dm2,
+                                         dPl, dPr, KC, M, S);
+    return (int)cudaGetLastError();
+  };
   switch (A) {
 #define PHYLO_K7(AA)                                                       \
   case AA:                                                                 \
-    pair_ll_bwd_kernel<AA><<<KC, kThreads, 0, st>>>(                       \
-        m1, m2, Pl, Pr, pi, w, g, dm1, dm2, dPl, dPr, KC, M, S);          \
-    break;
+    return spl == 1   ? launch(pair_ll_bwd_narrow_kernel<AA, 1>)           \
+           : spl == 2 ? launch(pair_ll_bwd_narrow_kernel<AA, 2>)           \
+                      : launch(pair_ll_bwd_narrow_kernel<AA, 4>);
     PHYLO_A_CASES(PHYLO_K7)
 #undef PHYLO_K7
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -36,7 +36,9 @@ wide base such as protein + Gamma4, G = 4 x A = 20); CPU tensors run
 the plain versions `_fused_rank_ref` / `_fused_rank_bwd_saved_ref` /
 `_fused_rank_bwd_ref` below, at any A.  A blocked model with A <= 8
 states per block runs on K10 (G <= 32 blocks); above 128 planes (GY94 +
-Gamma4: 244) the card has no rank kernel.  K1, K2, K3 and K9 have no
+Gamma4: 244) the card has no rank kernel.  K2, K3 (A <= 8) and K10's
+backward are one body on the card, `fused_rank_bwd_blocked_kernel`, in
+its dense form for G = 1.  K1, K2, K3 and K9 have no
 autograd rule: only the manual whole-sweep VJP (smc.sweep_vjp) and the
 no-grad sweep call them.  K7 (dense A <= 8) and K8 live in
 csrc/twist_kernels.cu, K7 wide (dense 8 < A <= 64, and blocked), K11b
@@ -67,14 +69,17 @@ SMEM_LIMIT = 232448             # shared-memory bytes of a block (H100)
 MAX_G = 32                      # rate-category blocks on the card
 MAX_WIDE_PLANES = 128           # G*A planes of the wide kernels K9
 WIDE_FWD_THREADS = 256          # K9f: threads a block at most
-BWD_PARTICLES_PER_BLOCK = 8     # K2/K3 dense: particles per CUDA block (dpi/dw
-                                # partials come back one row per block)
 BWD_SITES_PER_LANE = 1          # K3 blocked / K10 bwd: a lane's sites a chunk
-BWD_MAX_WARPS = 8               # K3 blocked / K10 bwd: warps (chunks) a block
+DENSE_BWD_SPL = 2               # K2 / K3 / K11a (A <= 8): a lane's sites at most
+DENSE_BWD_WARPS = 4             # K2 / K3 / K11a: warps a particle on a full grid
+BWD_MAX_WARPS = 8               # the rank backward: warps (chunks) a block
+K7_SPL = 2                      # K7: a lane's sites a chunk at most (A <= 4)
+K7_MAX_WARPS = 8                # K7: warps (chunks) a row
 WIDE_BWD_SITE_TILES = 8         # K9bs / K9b: site tiles of 4 a chunk (32 sites)
 WIDE_BWD_THREADS = 256          # K9bs / K9b: threads a block at most
 MAX_CLUSTER = 8                 # K9f / K9bs / K9b: blocks a particle
 SMS = 132                       # streaming multiprocessors of an H100
+GRID_WARPS = 16 * SMS           # K7, K2 / K3 dense: warps a full grid holds
 # bytes of the (R, K, 2, G*A, S) child residuals the manual-VJP forward
 # may save for K2; above it the reverse pass re-gathers through K3
 SAVE_CHILDREN_CAP = 2 ** 28
@@ -330,32 +335,57 @@ def _fused_rank_bwd_ref(leaves, buf, idx, gm, gr, gl, P_l, P_r, pi,
                                      weights)
 
 
-def _bwd_outputs(K, GA, S, P_shape, dev, rows):
-    """(dm1, dm2, dP_l, dP_r, dpi_part (rows, GA), dw_part (rows, S)): dP
-    shaped as the transitions; the caller sums the partial rows.  K2 / K3
-    dense write one row per block of BWD_PARTICLES_PER_BLOCK particles;
-    K3 blocked, K10's backward and K9bs / K9b one per particle."""
+def _bwd_outputs(K, GA, S, P_shape, dev, dw=True):
+    """(dm1, dm2, dP_l, dP_r, dpi_part (K, GA), dw_part (K, S) or None):
+    dP shaped as the transitions; one partial row a particle, which the
+    caller sums."""
     f = dict(dtype=torch.float32, device=dev)
     return (torch.empty((K, GA, S), **f), torch.empty((K, GA, S), **f),
             torch.empty(P_shape, **f), torch.empty(P_shape, **f),
-            torch.empty((rows, GA), **f), torch.empty((rows, S), **f))
+            torch.empty((K, GA), **f),
+            torch.empty((K, S), **f) if dw else None)
 
 
-def rank_bwd_plan(K, G, A, S, spl=BWD_SITES_PER_LANE, max_warps=None):
-    """Launch of K3 blocked / K10's backward: (sites a lane, warps a
-    block, chunks a particle, blocks, shared-memory bytes).  One block per
-    particle; a chunk is 32 lanes x spl sites, and a warp takes every
-    warps-th chunk, up to BWD_MAX_WARPS warps a particle, so DS1's K =
-    2048 x S = 256 runs 16,384 warps and K = 128 x S = 1949 1,024.  A
-    warp stages a chunk's children and cotangent (3 G A 32 spl floats) in
+def _shrink_spl(rows, S, spl, max_warps):
+    """Halve a lane's sites (spl) while the grid, every chunk of 32 spl
+    sites its own warp (at most max_warps a row), would hold fewer than
+    GRID_WARPS / 2 warps (8 an SM)."""
+    while spl > 1 and (rows * min(_ceil(S, 32 * spl), max_warps)
+                       < GRID_WARPS // 2):
+        spl //= 2
+    return spl
+
+
+def rank_bwd_plan(K, G, A, S, spl=None, max_warps=None):
+    """Launch of the rank backward (csrc/rank_kernels.cu's
+    `fused_rank_bwd_blocked_kernel`): (sites a lane, warps a block, chunks
+    a particle, blocks, shared-memory bytes).  One block per particle; a
+    chunk is 32 lanes x spl sites, and a warp takes every warps-th chunk,
+    up to BWD_MAX_WARPS warps a particle, so DS1's K = 2048 x S = 256
+    runs 16,384 warps and K = 128 x S = 1949 1,024.  Blocked (G > 1, K3
+    blocked and K10's backward): spl = BWD_SITES_PER_LANE, and a warp
+    stages a chunk's children and cotangent (3 G A 32 spl floats) in
     shared memory, beside the transitions, pi and each warp's running
-    2 A^2 + A sums of every block; warps shrink until it fits."""
+    2 A^2 + A sums of every block; warps shrink until it fits.  Dense
+    (G = 1: K2, K3, K11a at A <= 8): nothing staged; spl = DENSE_BWD_SPL
+    (`_shrink_spl`), and on a full grid (GRID_WARPS) each warp takes two
+    chunks or more, at most DENSE_BWD_WARPS warps (primate K = 2048: 2
+    warps at S = 256, 4 at 898, the quickest forms on the H100,
+    tools/torch_k7_forms.py); on a short grid every chunk its own warp
+    (K11a's K = 32 at S = 256: spl 1, 8 warps, 256 in all)."""
+    mw = max_warps or BWD_MAX_WARPS
+    if spl is None:
+        spl = BWD_SITES_PER_LANE if G > 1 else _shrink_spl(
+            K, S, DENSE_BWD_SPL, mw)
     chunks = _ceil(S, 32 * spl)
-    warps = min(chunks, max_warps or BWD_MAX_WARPS)
+    warps = min(chunks, mw)
+    if G == 1 and max_warps is None and K * warps >= GRID_WARPS:
+        warps = min(DENSE_BWD_WARPS, _ceil(chunks, 2))
+    stage = 3 * G * A * 32 * spl if G > 1 else 0
 
     def smem(w):
         return 4 * (2 * G * A * A + G * A + w * G * (2 * A * A + A)
-                    + w * 3 * G * A * 32 * spl)
+                    + w * stage)
 
     while warps > 1 and smem(warps) > SMEM_LIMIT:
         warps -= 1
@@ -478,22 +508,33 @@ def _check_bwd_args(gm, gr, gl, P_l, P_r, pi, weights, K, GA, S):
     return G, A, wide
 
 
-def fused_rank_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights):
+def fused_rank_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights,
+                         want_dw=True):
     """Reverse of one rank's merge from the children saved by the
     forward (K2; K10's backward for blocked P).  gm (K, GA, S)
     merged-message cotangent; gr, gl (K,) rootll / logscale cotangents.
     Returns (dm1, dm2, dP_l, dP_r, dpi_part (n, GA), dw_part (n, S));
-    the caller sums the partials over rows."""
+    the caller sums the partials over rows.  On the card, without
+    want_dw, dw_part is None (the rank body then skips writing it; the
+    wide body writes it all the same)."""
     if not m1.is_cuda:
         return _fused_rank_bwd_saved_ref(m1, m2, gm, gr, gl, P_l, P_r,
                                          pi, weights)
-    return _launch_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights)
+    return _launch_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights,
+                             want_dw=want_dw)
+
+
+def _pointers(outs):
+    """Device pointers of the outputs (None: a null pointer)."""
+    return [None if t is None else t.data_ptr() for t in outs]
 
 
 def _launch_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights,
-                      counter=None):
+                      counter=None, want_dw=True):
     """K2 / K10's backward / K9bs on the card, counted under `counter`
-    (default: the route's own name)."""
+    (default: the route's own name).  K2 is the dense (G = 1) form of
+    K10's backward: P (K, A, A) is the same memory as (K, 1, A, A), and
+    dP comes back in P's own shape."""
     K, GA, S = m1.shape
     G, A, wide = _check_bwd_args(gm, gr, gl, P_l, P_r, pi, weights, K, GA,
                                  S)
@@ -501,11 +542,11 @@ def _launch_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights,
     _ext.require(m2, "m2", torch.float32, shape=(K, GA, S))
     dev = m1.device
     blocked = P_l.ndim == 4
-    rows = K if wide or blocked else _ceil(K, BWD_PARTICLES_PER_BLOCK)
-    outs = _bwd_outputs(K, GA, S, P_l.shape, dev, rows)
+    # the wide body writes dw unconditionally
+    outs = _bwd_outputs(K, GA, S, P_l.shape, dev, want_dw or wide)
     ins = [t.data_ptr() for t in (m1, m2, gm, gr, gl, P_l, P_r, pi,
                                   weights)]
-    out_p = [t.data_ptr() for t in outs]
+    out_p = _pointers(outs)
     if wide:
         sc, cluster, threads, dpt, _, _ = wide_bwd_plan(K, G, A, S)
         fn = _ext.bind("wide_kernels", "launch_wide_rank_bwd_saved", 15, 8)
@@ -513,28 +554,23 @@ def _launch_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights,
         _ext.LAUNCHES[counter or name] += 1
         code = fn(*ins, *out_p, K, G, A, S, sc, cluster, threads, dpt,
                   _ext.stream_ptr(dev))
-    elif blocked:
+    else:
         spl, warps, _, _, _ = rank_bwd_plan(K, G, A, S)
         fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_saved_blocked",
                        15, 6)
-        name = "fused_rank_bwd_saved_blocked"
+        name = "fused_rank_bwd_saved" + ("_blocked" if blocked else "")
         _ext.LAUNCHES[counter or name] += 1
         code = fn(*ins, *out_p, K, G, A, S, spl, warps, _ext.stream_ptr(dev))
-    else:
-        fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_saved", 15, 4)
-        name = "fused_rank_bwd_saved"
-        _ext.LAUNCHES[counter or name] += 1
-        code = fn(*ins, *out_p, K, A, S, BWD_PARTICLES_PER_BLOCK,
-                  _ext.stream_ptr(dev))
     _ext.check(code, counter or name)
-    return outs
+    return outs[:5] + ((outs[5] if want_dw else None),)
 
 
-def fused_rank_bwd(leaves, buf, idx, gm, gr, gl, P_l, P_r, pi, weights):
+def fused_rank_bwd(leaves, buf, idx, gm, gr, gl, P_l, P_r, pi, weights,
+                   want_dw=True):
     """K3: reverse of one rank's merge with both children re-gathered
     from `leaves` (N, GA, S) and the final write-once `buf` (K, R, GA, S)
     by the rank's idx (4, K) (the same contract as fused_rank_update).
-    Same outputs as fused_rank_bwd_saved."""
+    Same outputs as fused_rank_bwd_saved (and its want_dw)."""
     if not buf.is_cuda:
         return _fused_rank_bwd_ref(leaves, buf, idx, gm, gr, gl, P_l, P_r,
                                    pi, weights)
@@ -547,11 +583,10 @@ def fused_rank_bwd(leaves, buf, idx, gm, gr, gl, P_l, P_r, pi, weights):
     _ext.require(idx, "idx", torch.int32, shape=(4, K))
     dev = buf.device
     blocked = P_l.ndim == 4
-    rows = K if wide or blocked else _ceil(K, BWD_PARTICLES_PER_BLOCK)
-    outs = _bwd_outputs(K, GA, S, P_l.shape, dev, rows)
+    outs = _bwd_outputs(K, GA, S, P_l.shape, dev, want_dw or wide)
     ins = [t.data_ptr() for t in (leaves, buf, idx, gm, gr, gl, P_l, P_r,
                                   pi, weights)]
-    out_p = [t.data_ptr() for t in outs]
+    out_p = _pointers(outs)
     if wide:
         sc, cluster, threads, dpt, _, _ = wide_bwd_plan(K, G, A, S)
         fn = _ext.bind("wide_kernels", "launch_wide_rank_bwd", 16, 10)
@@ -559,21 +594,15 @@ def fused_rank_bwd(leaves, buf, idx, gm, gr, gl, P_l, P_r, pi, weights):
         _ext.LAUNCHES[name] += 1
         code = fn(*ins, *out_p, K, R, N, G, A, S, sc, cluster, threads, dpt,
                   _ext.stream_ptr(dev))
-    elif blocked:
+    else:
         spl, warps, _, _, _ = rank_bwd_plan(K, G, A, S)
         fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_blocked", 16, 8)
-        name = "fused_rank_bwd_blocked"
+        name = "fused_rank_bwd" + ("_blocked" if blocked else "")
         _ext.LAUNCHES[name] += 1
         code = fn(*ins, *out_p, K, R, N, G, A, S, spl, warps,
                   _ext.stream_ptr(dev))
-    else:
-        fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd", 16, 6)
-        name = "fused_rank_bwd"
-        _ext.LAUNCHES[name] += 1
-        code = fn(*ins, *out_p, K, R, N, A, S, BWD_PARTICLES_PER_BLOCK,
-                  _ext.stream_ptr(dev))
     _ext.check(code, name)
-    return outs
+    return outs[:5] + ((outs[5] if want_dw else None),)
 
 
 def merge_loglik(m1, m2, P_l, P_r, pi, weights):
@@ -613,20 +642,22 @@ def _merge_bwd_ref(m1, m2, P_l, P_r, pi, weights, gm, gr, gl):
     return out[:4] + (out[4].sum(0), out[5].sum(0))
 
 
-def merge_bwd(m1, m2, P_l, P_r, pi, weights, gm, gr, gl):
+def merge_bwd(m1, m2, P_l, P_r, pi, weights, gm, gr, gl, want_dw=True):
     """K11a: exact cotangents of `_ref_impl` (merge + rescale + root
     log-lik) on explicit dense children (the JAX package's
     `_merge_bwd_pallas`, same signature).  m1, m2 (K, A, S); P_l, P_r
     (K, A, A); gm (K, A, S), gr, gl (K,).  Returns (dm1, dm2, dP_l,
-    dP_r, dpi (A,), dw (S,)).  On the card it runs K2's body (A <= 8) or
-    K9bs dense (8 < A <= 128), which compute exactly these cotangents,
-    counted as `merge_bwd`."""
+    dP_r, dpi (A,), dw (S,), or None on the card without want_dw).  On
+    the card it runs K2's body (the rank backward's dense form, A <= 8)
+    or K9bs dense (8 < A <= 128), which compute exactly these
+    cotangents, counted as `merge_bwd`."""
     if not m1.is_cuda:
         return _merge_bwd_ref(m1, m2, P_l, P_r, pi, weights, gm, gr, gl)
     check_states(m1.shape[1], MAX_WIDE_PLANES, "K11a (merge_bwd)")
     out = _launch_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights,
-                            counter="merge_bwd")
-    return out[:4] + (out[4].sum(0), out[5].sum(0))
+                            counter="merge_bwd", want_dw=want_dw)
+    return out[:4] + (out[4].sum(0),
+                      out[5].sum(0) if want_dw else None)
 
 
 class _FusedMergeLoglik(torch.autograd.Function):
@@ -638,7 +669,8 @@ class _FusedMergeLoglik(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gm, gr, gl):
         return merge_bwd(*ctx.saved_tensors, gm.contiguous(),
-                         gr.contiguous(), gl.contiguous())
+                         gr.contiguous(), gl.contiguous(),
+                         want_dw=ctx.needs_input_grad[5])
 
 
 def fused_merge_loglik(m1, m2, P_l, P_r, pi, weights):
@@ -711,6 +743,40 @@ def twist_bwd_plan(G, Ab, S):
     while sc > 32 and smem(sc) > SMEM_LIMIT:
         sc -= 32
     return sc, _ceil(NGT * sc // 4, 32) * 32, smem(sc)
+
+
+def k7_smem(M, A, warps):
+    """Shared-memory bytes of K7 (csrc/twist_kernels.cu's k7_smem): M
+    rows of P_l | P_r at a 16-byte pitch, g (M floats, padded to 4) and
+    each warp's M x 2 A^2 dP slots."""
+    pitch = 4 * _ceil(2 * A * A, 4)
+    return 4 * (M * pitch + 4 * _ceil(M, 4) + warps * M * 2 * A * A)
+
+
+def twist_narrow_plan(KC, M, A, S, spl=None, max_warps=None):
+    """K7's launch (dense A <= 8): (sites a lane, warps a row, chunks a
+    row, blocks, shared-memory bytes).  A block a row; a chunk is 32
+    lanes x spl sites and warp w takes chunks w, w + warps, ...  spl =
+    K7_SPL (1 above 4 states, where a lane's 2 A^2 dP sums and P fill
+    the registers; `_shrink_spl` on a short grid); warps = as few as give
+    the grid GRID_WARPS, at most the row's chunks and K7_MAX_WARPS, fewer
+    while the dP slots of all M would not fit.  Primate rank 0 (KC =
+    2112, M = 10, S = 256): spl 2, one warp a row walking 4 chunks; 6
+    taxa left (KC = 480): 4 warps; the last rank (KC = 32): spl 1, 8
+    warps -- the quickest forms on the H100 (tools/torch_k7_forms.py; 2
+    warps of 4 sites a lane, 162 registers, ran 22% slower at rank 0)."""
+    mw = max_warps or K7_MAX_WARPS
+    if spl is None:
+        spl = _shrink_spl(KC, S, K7_SPL if A <= 4 else 1, mw)
+    chunks = _ceil(S, 32 * spl)
+    warps = min(chunks, mw, _ceil(GRID_WARPS, KC))
+    while warps > 1 and k7_smem(M, A, warps) > SMEM_LIMIT:
+        warps -= 1
+    if k7_smem(M, A, warps) > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"K7 keeps M x 2 A^2 dP sums in shared memory: M={M} at A={A} "
+            f"needs {k7_smem(M, A, 1)} bytes, over {SMEM_LIMIT}")
+    return spl, warps, chunks, KC, k7_smem(M, A, warps)
 
 
 def _as_blocks(P):
@@ -877,9 +943,10 @@ def pair_ll_bwd(m1, m2, P_l, P_r, pi, weights, g, want_dw=True):
                       stream)
         else:
             name = "pair_ll_bwd"
-            fn = _ext.bind("twist_kernels", "launch_pair_ll_bwd", 11, 4)
+            spl, warps, _, _, _ = twist_narrow_plan(K, M, A, S)
+            fn = _ext.bind("twist_kernels", "launch_pair_ll_bwd", 11, 6)
             _ext.LAUNCHES[name] += 1
-            code = fn(*ins, K, M, A, S, stream)
+            code = fn(*ins, K, M, A, S, spl, warps, stream)
     _ext.check(code, name)
     if t_field:
         dPl, dPr = _dp_from_t(dPl, P_l, P_r, pi)

@@ -278,6 +278,7 @@ def _messages_bwd(aux, P_all, pi, g_rootll, g_dlsc, N, pending=None):
     dPl_out = [None] * R
     dPr_out = [None] * R
     dpi = torch.zeros_like(pi)
+    want_dw = False      # the reverse pass never reads dw
     for r in range(R - 1, -1, -1):
         ids, rows = ids_all[r], rows_all[r]
         cts = (pending[r], g_rootll[r].contiguous(), g_dlsc[r].contiguous(),
@@ -285,16 +286,16 @@ def _messages_bwd(aux, P_all, pi, g_rootll, g_dlsc, N, pending=None):
         if aux["explicit_children"]:
             # the twist's merges ran on explicit dense children: K11a
             dm1, dm2, dPl, dPr, dpi_p, _ = merge_bwd(
-                child_l[r], child_r[r], *cts[3:], *cts[:3])
+                child_l[r], child_r[r], *cts[3:], *cts[:3], want_dw)
             dpi_p = dpi_p[None]
         elif child_l[r] is not None:
-            dm1, dm2, dPl, dPr, dpi_p, _dw_p = fused_rank_bwd_saved(
-                child_l[r], child_r[r], *cts)
+            dm1, dm2, dPl, dPr, dpi_p, _ = fused_rank_bwd_saved(
+                child_l[r], child_r[r], *cts, want_dw)
         else:
             idx4 = torch.stack([rows[:, 0], ids[:, 0], rows[:, 1],
                                 ids[:, 1]]).to(torch.int32).contiguous()
-            dm1, dm2, dPl, dPr, dpi_p, _dw_p = fused_rank_bwd(
-                leaves_sm, buf, idx4, *cts)
+            dm1, dm2, dPl, dPr, dpi_p, _ = fused_rank_bwd(
+                leaves_sm, buf, idx4, *cts, want_dw)
         dPl_out[r], dPr_out[r] = dPl, dPr
         dpi = dpi + torch.sum(dpi_p, dim=0)
         if r:

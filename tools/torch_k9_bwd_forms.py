@@ -6,8 +6,10 @@
   and the cluster of 8, 4, 2 or 1 blocks a particle (1: one block
   walking all of a particle's chunks, the former grid).
 * K3 blocked and K10's backward (csrc/rank_kernels.cu,
-  `fused_rank_bwd_blocked_kernel<4, Gather, SPL>`): SPL = 1, 2, 4 sites
-  a lane per chunk, warps a block up to 8 (the plan) or 4.
+  `fused_rank_bwd_blocked_kernel<4, Gather, SPL, false>`, the blocked
+  form): SPL = 1, 2, 4 sites a lane per chunk, warps a block up to 8
+  (the plan) or 4.  The body's dense form (G = 1: K2, K3, K11a at A <=
+  8) has its own tool, tools/torch_k7_forms.py.
 
 A shim per source includes it and exports every form the shapes need;
 nvcc builds both shims with -Xptxas -v, and the script prints each
@@ -21,8 +23,7 @@ Shapes: GY94 betacorona1 K=128, A=61 (K9bs at S=256, K9b at S=1086),
 K11a at K=32, A=16, S=256, protein + Gamma4 (G=4, A=20) K9b blocked at
 K=256 and K9bs blocked at K=64, S=256, on the child index of the last
 rank of a real sweep; DS1 GTR+Gamma4 K=2048 (G=4 blocks of 4) at S=256
-(K3 blocked and K10's backward) and S=1949 (K3 blocked); and the blocked
-body at G = 1 against K2 / K3 dense at primate's K=2048, S=256 and 898.
+(K3 blocked and K10's backward) and S=1949 (K3 blocked).
 
     python tools/torch_k9_bwd_forms.py [--only wide|rank] [--clocks]
 
@@ -67,7 +68,7 @@ K3_SHIM = """
 template <bool Gather, int SPL>
 static int run_k3(%s, int K, int R, int N, int G, int S, int warps,
                   void* stream) {
-  auto kernel = fused_rank_bwd_blocked_kernel<4, Gather, SPL>;
+  auto kernel = fused_rank_bwd_blocked_kernel<4, Gather, SPL, false>;
   const size_t smem = bwd_blocked_smem(G, 4, warps, SPL);
   const int err = allow_smem(kernel, smem);
   if (err) return err;
@@ -421,56 +422,8 @@ def main(argv=None):
                         "plan (spl, warps, chunks, blocks, smem)": plan})
             del ins, buf, leaves, m1, m2, ref
             torch.cuda.empty_cache()
-    if args.only != "wide":
-        g1_ab(gen, dev)
     print(cs.card_line())
     return 0
-
-
-def g1_ab(gen, dev):
-    """The blocked body at G = 1 against K2 / K3 dense (their own body) at
-    primate's shapes (K = 2048, S = 256 and 898): the same inputs, the
-    dense wrapper and the blocked launcher on P viewed as (K, 1, A, A),
-    timed in turns dense, blocked, blocked, dense."""
-    for S in (cs.S_BATCH, cs.S_FULL):
-        buf, leaves, idx, _, P_l, P_r, pi, w = cs.rank_inputs(gen, S, dev)
-        m1, m2 = (t.contiguous() for t in kernels.gather_children(
-            leaves, buf, idx))
-        cts = cs.bwd_cotangents(gen, dev, cs.K, cs.A, S)
-        Pb_l, Pb_r = P_l[:, None].contiguous(), P_r[:, None].contiguous()
-        R, Nd = buf.shape[1], leaves.shape[0]
-        spl, warps, _, _, _ = kernels.rank_bwd_plan(cs.K, 1, cs.A, S)
-        for gather in (0, 1):
-            name = "launch_fused_rank_bwd" + ("_blocked" if gather else
-                                              "_saved_blocked")
-            fn = _ext.bind("rank_kernels", name, 16 if gather else 15,
-                           8 if gather else 6)
-            head = (leaves, buf, idx) if gather else (m1, m2)
-
-            def blocked(fn=fn, gather=gather, head=head):
-                outs = kernels._bwd_outputs(cs.K, cs.A, S, Pb_l.shape, dev,
-                                            cs.K)
-                p = [t.data_ptr() for t in (*head, *cts, Pb_l, Pb_r, pi, w,
-                                            *outs)]
-                dims = ((cs.K, R, Nd) if gather else (cs.K,)) + (
-                    1, cs.A, S, spl, warps)
-                _ext.check(fn(*p, *dims, _ext.stream_ptr(dev)), name)
-                return outs
-
-            def dense(gather=gather, head=head):
-                return (kernels.fused_rank_bwd if gather else
-                        kernels.fused_rank_bwd_saved)(*head, *cts, P_l, P_r,
-                                                      pi, w)
-            got, want = blocked(), dense()
-            e = err([t.reshape(d.shape) for t, d in zip(got[:4], want[:4])]
-                    + list(got[4:]), want)
-            cs.require(e <= 1e-4, f"G=1 blocked vs dense: {e}")
-            ms = {"dense": [], "blocked": []}
-            for k in ("dense", "blocked", "blocked", "dense"):
-                ms[k].append(cs.time_ms(dense if k == "dense" else blocked))
-            print(json.dumps({"shape": "primate G=1 " + (
-                "K3" if gather else "K2"), "K": cs.K, "A": cs.A, "S": S,
-                "max_rel_err": e, "ms": ms}), flush=True)
 
 
 if __name__ == "__main__":
