@@ -25,7 +25,12 @@ script exits non-zero without printing a result:
    4, as the twist takes a rate mixture) and dense (the same
    transitions as 16 block-diagonal states), each in an A/B against the
    plain forward, K7 wide blocked and dense and K11c at DS1 KC=896 and
-   timed at KC=11,232, the blocked forms against the dense ones (1e-6)
+   timed at KC=11,232, K11c (K7's bodies in their T-field form) also at
+   primate rank 0 (A=4, KC=2,112, where phase 4 launches it), untimed
+   at the later ranks' KC=480 and 32 (4 and 8 warps a row) and small,
+   each K11c shape called twice through its launcher (the same bits)
+   and once captured (one device kernel), the blocked forms against the
+   dense ones (1e-6)
    with their A/B, dense A=20 and 61 and blocked 5 x 4, 2 x 20, 3 x 7
    and 4 x 4 over two site chunks small; K11a at A=4 and 16), with the
    tolerances printed, and
@@ -42,9 +47,10 @@ script exits non-zero without printing a result:
    K10's saved backward, K9f, K9bs and K9b (dense and blocked), K11a
    (A=4 and 16, with and without dw), K7 (primate rank 0, ragged S=300,
    the last rank's KC=32, and A=3 and 8 small; the launcher alone) and
-   K5 each also called twice (the same bits) and once captured as a CUDA
-   graph (one device kernel a wrapper call, of the named body), their
-   times printed beside the former design's;
+   K5 and K8 each also called twice (the same bits) and once captured
+   as a CUDA graph (one device kernel a wrapper call, of the named body),
+   their times printed beside the former design's, K8's beside the launch
+   floor (an empty kernel on the same sleep-held stream);
 3. fixed-decision ELBO: the sweep in float32 on the card through the
    kernels against float64 on the CPU through the plain path, with the
    same numpy-made decisions (1e-3 relative, BASELINE.md's bar), and
@@ -59,7 +65,8 @@ script exits non-zero without printing a result:
    blocked; K=256, all 500 sites: K9b blocked), and VNCSMC K=32, M=10
    (primate with the defaults: K11b, K7, K11a; with the plain forward;
    with the T-field backward K11c; GTR+G4 on DS1's first 10 taxa at
-   S=256: K11b and K7 wide blocked, K11a at 16 dense states);
+   S=256: K11b and K7 wide blocked, K11a at 16 dense states, and again
+   with the T-field backward: K11b dense and K11c at 16 states);
 4. the main paths: two epochs each of VCSMC training on primate (N=12,
    S=898) at K=2048, of VNCSMC (twisted) training at K=32, M=10, of
    GTR+G4 VCSMC training on DS1 (N=27, S=1949) at K=2048, of GY94
@@ -69,13 +76,14 @@ script exits non-zero without printing a result:
    16 x 500 protein alignment that the script simulates from seed 0, of
    VNCSMC GTR+G4 on DS1 at K=32, M=10 (K11b and K7 wide blocked, K11a;
    the ELBOs and seconds per epoch beside PR 6's), and of
-   primate VNCSMC again with the T-field backward K11c,
+   primate VNCSMC again with the T-field backward K11c (66 launches),
    site batch 256, through phylo_tpu_torch.cli.runner, with every
    kernel's launch counter set to 0 before each path and read after;
 5. where the time of one epoch of each path goes, under torch.profiler
    (K4f's, K4b's, K9f's and K5's device time and launches on every path,
    and the rank backwards' (K2, K3, K3 blocked / K10's backward and K11a
-   at 4 states: one body; the wide body of K9bs, K9b and K11a) and K7's;
+   at 4 states: one body; the wide body of K9bs, K9b and K11a), K7's,
+   K11c's and K8's;
    for VNCSMC GTR+G4 on DS1, K11b's, K7 wide's and
    K4's device time beside their earlier designs').
 
@@ -139,7 +147,15 @@ FORMER_MS = {("K2", K, 4, 256): 0.0489, ("K3", K, 4, 256): 0.0373,
           ("K9f blocked", 256, 20, 500): 0.1456,
           ("K5", 2048, 1, 1): 0.0170,
           # K7 (a 128-thread block a row, a block-wide dP sum per m)
-          ("K7", 2112, 4, 256): 0.1497}
+          ("K7", 2112, 4, 256): 0.1497,
+          # K11c (the former tile body: 256 threads a row, 32-site
+          # tiles, T in global memory, dP from T by two matmuls in the
+          # wrapper; at primate's shape first timed by the one-call A/B
+          # of tools/torch_k11c_k8_forms.py --parent, through its wrapper)
+          ("K11c", 896, 16, 256): 1.0867, ("K11c", 11232, 16, 256): 12.176,
+          ("K11c", 2112, 4, 256): 0.4650,
+          # K8 (128 threads a particle walking its sites)
+          ("K8", 32, 4, 256): 0.0037, ("K8", 32, 4, 898): 0.0067}
 
 
 def log(msg):
@@ -1011,9 +1027,11 @@ def check_k5(rk, gen, dev, Kd=K):
                 library_ms=lib)
 
 
-def check_k8(kern, gen, dev, S):
+def check_k8(kern, gen, dev, S, A=A, timed=True):
     """K8 on the VNCSMC path's chosen merges: K=32 particles, explicit
-    children, S=256 (SGD steps) or 898 (eval sweeps)."""
+    children, S=256 (SGD steps) or 898 (eval sweeps); untimed at other
+    alphabets and sizes (above 4 states at most 512 threads, so a thread
+    takes two sites at S=898, over two passes)."""
     f = dict(dtype=torch.float32, device=dev)
     Kt = K_TWIST
     m1 = torch.rand((Kt, A, S), generator=gen, **f) * 0.95 + 0.05
@@ -1031,19 +1049,28 @@ def check_k8(kern, gen, dev, S):
             "rootll": max_rel(got[1], want[1]),
             "logscale": max_rel(got[2], want[2])}
     tol = 1e-5   # f32 site sums of S logs, summed in another order
-    log(f"  K8 fused_merge_loglik K={Kt} S={S}: " + ", ".join(
+    log(f"  K8 fused_merge_loglik K={Kt} A={A} S={S}: " + ", ".join(
         f"{k} err {v:.3e}" for k, v in errs.items()) + f" (tol {tol:g})")
     for k, v in errs.items():
         require(v <= tol, f"K8 {k} error {v} > {tol}")
+    repeat_checks(f"K8 K={Kt} A={A} S={S} (plan: "
+                  f"{kern.merge_ll_plan(S, A)} threads a particle)",
+                  lambda: kern.merge_loglik(*args),
+                  kernel="merge_loglik_kernel")
+    if not timed:
+        return None
     ms = time_ms(lambda: kern.merge_loglik(*args))
     plain = time_ms(lambda: kern._ref_impl(*args))
+    floor = time_ms(lambda: torch.cuda._sleep(0))
     slab = Kt * A * S * 4
     nbytes = 3 * slab + 2 * Kt * A * A * 4 + A * 4 + S * 4 + 2 * Kt * 4
     nops = Kt * S * (4 * A * A + 4 * A + 2)
     b_ms, b_by = bound(nbytes, nops)
-    log(f"  K8 S={S}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}); library: null (no single PyTorch call "
-        "merges, rescales and reduces the root log-likelihood)")
+    log(f"  K8 S={S}: kernel {ms:.4f} ms ({former('K8', Kt, A, S)}), "
+        f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); the launch "
+        f"floor (an empty kernel, the same sleep-held stream) {floor:.4f} "
+        "ms; library: null (no single PyTorch call merges, rescales and "
+        "reduces the root log-likelihood)")
     return dict(max_abs_err=max(max_abs(a, b) for a, b in zip(got, want)),
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
@@ -1239,11 +1266,38 @@ def check_k11b(kern, ins, label, timed=True):
                 library_ms=None)
 
 
+def t_field_launch(kern, ins, g):
+    """One K11c launch through its C entry point at the wrapper's plan
+    (K7's body in its T-field form at A <= 8, K7 wide's above), without
+    the wrapper's dpi ops; returns (the outputs, the kernel's name)."""
+    M_, KC = ins[2].shape[:2]
+    A_, S = ins[0].shape[1:]
+    if A_ > kern.MAX_A:
+        fn = kern._ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_t",
+                            11, 7)
+        plan = kern.twist_bwd_plan(1, A_, S, t_field=True)
+        name = "pair_ll_bwd_t_wide_kernel"
+    else:
+        fn = kern._ext.bind("twist_kernels", "launch_pair_ll_bwd_t", 11, 6)
+        plan = kern.twist_narrow_plan(KC, M_, A_, S, t_field=True)[:2]
+        name = "pair_ll_bwd_t_narrow_kernel"
+
+    def launch():
+        o = [torch.empty_like(t) for t in ins[:4]]
+        code = fn(*[t.data_ptr() for t in (*ins, g, *o)], KC, M_, A_, S,
+                  *plan, torch.cuda.current_stream().cuda_stream)
+        require(code == 0, f"K11c launch error {code}")
+        return o
+    return launch, name, plan
+
+
 def check_twist_bwd(kern, gen, ins, label, t_field, timed=True,
                     full=None):
     """K7 wide, dense or blocked (t_field False), or K11c (the T-field
-    backward, with its dP products) against its plain version; timed at
-    these inputs, and the kernel alone at the `full` rank-0 inputs."""
+    backward, dP formed from T in the kernel) against its plain version;
+    K11c also called twice through its launcher (the same bits) and once
+    captured (one device kernel); timed at these inputs, and the kernel
+    alone at the `full` rank-0 inputs."""
     M_, KC = ins[2].shape[:2]
     f = dict(dtype=torch.float32, device=ins[0].device)
     g = torch.randn((M_, KC), generator=gen, **f)
@@ -1264,21 +1318,33 @@ def check_twist_bwd(kern, gen, ins, label, t_field, timed=True,
             + f" (tol {tol:g})")
         for n, v in errs.items():
             require(v <= tol, f"{label} {n} relative error {v} > {tol}")
+        if t_field:
+            launch, kname, plan = t_field_launch(kern, ins, g)
+            repeat_checks(f"{label} M={M_} KC={KC} (launcher, plan {plan})",
+                          launch, kernel=kname)
         if not timed:
             return None
         ms = time_ms(lambda: kern.pair_ll_bwd(*ins, g, want_dw=False))
         plain_ms = time_ms(lambda: plain(*ins, g), iters=3)
         b_ms, b_by = twist_bound(ins, kind)
-        log(f"  {label} KC={KC}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, bound {b_ms:.4f} ms ({b_by}); library: null (no single "
+        A_, S = ins[0].shape[1:]
+        alone = ""
+        if t_field:
+            alone = (f" (the launch alone {time_ms(launch):.4f}; "
+                     f"{former('K11c', KC, A_, S)})")
+        log(f"  {label} KC={KC}: kernel {ms:.4f} ms{alone}, "
+            f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{b_ms / ms:.0%} of it reached); library: null (no single "
             "PyTorch call computes this vector-Jacobian product)")
         if full is not None:
             gf = torch.randn(full[2].shape[:2], generator=gen, **f)
             ms_f = time_ms(lambda: kern.pair_ll_bwd(*full, gf,
                                                     want_dw=False))
             bf, bfy = twist_bound(full, kind)
-            log(f"  {label} at rank 0's KC={full[2].shape[1]}: kernel "
-                f"{ms_f:.4f} ms, bound {bf:.4f} ms ({bfy})")
+            KCf = full[2].shape[1]
+            was = f" ({former('K11c', KCf, A_, S)})" if t_field else ""
+            log(f"  {label} at rank 0's KC={KCf}: kernel {ms_f:.4f} ms"
+                f"{was}, bound {bf:.4f} ms ({bfy})")
     finally:
         kern.TWIST_BWD_V2 = old
     return dict(max_abs_err=max(max_abs(a, b) for a, b in zip(got, want)),
@@ -1335,7 +1401,8 @@ def check_forms(kern, gen, ins, label, timed=True):
 def check_twist_kernels(kernels, gen, dev):
     """Phase 2's pair-loglik kernels (K11b, K7 wide, K11c), dense and
     blocked; returns the kernels line's entries (K11b dense, K11b
-    blocked, K7 wide dense, K7 wide blocked, K11c)."""
+    blocked, K7 wide dense, K7 wide blocked, K11c at primate's launched
+    shape)."""
     # VNCSMC's pair log-likelihoods at rank 0 (all candidate pairs):
     # K11b dense on primate (A=4, KC = 32 x 66); on DS1 GTR+G4 (KC = 32 x
     # 351) blocked, as the twist takes a rate mixture (G=4 blocks of 4),
@@ -1349,6 +1416,16 @@ def check_twist_kernels(kernels, gen, dev):
     twist_p = twist_inputs(gen, dev, "primate", None, N * (N - 1) // 2,
                            S_BATCH)
     check_k11b(kernels, twist_p, "primate")
+    # K11c where phase 4 launches it: primate rank 0 (A=4, KC = 32 x 66),
+    # K7's narrow body in its T-field form
+    k11c = check_twist_bwd(kernels, gen, twist_p, "K11c pair_ll_bwd_t "
+                           "primate", True)
+    # and at later ranks' row counts, where the plan puts 4 warps (KC=480)
+    # and 8 warps of a site a lane (KC=32) on a row: the T slots summed
+    # over warps before dP is formed
+    for KC_ in (480, 32):
+        check_twist_bwd(kernels, gen, first_rows(twist_p, KC_),
+                        f"K11c primate KC={KC_}", True, timed=False)
     del twist_p
     twist_b = twist_inputs(gen, dev, "hohna_data_1", "gtr+g4",
                            N_DS1 * (N_DS1 - 1) // 2, S_BATCH, blocked=True)
@@ -1361,8 +1438,8 @@ def check_twist_kernels(kernels, gen, dev):
                            full=twist_b)
     k7w = check_twist_bwd(kernels, gen, rows_d, "K7 wide dense", False,
                           full=twist_d)
-    k11c = check_twist_bwd(kernels, gen, rows_d, "K11c pair_ll_bwd_t", True,
-                           full=twist_d)
+    check_twist_bwd(kernels, gen, rows_d, "K11c pair_ll_bwd_t DS1 dense",
+                    True, full=twist_d)
     check_forms(kernels, gen, rows_b, "DS1 gtr+g4 KC=896")
     check_forms(kernels, gen, twist_b, "DS1 gtr+g4 rank 0")
     del twist_b, twist_d, rows_b, rows_d
@@ -1698,9 +1775,10 @@ PATHS = {
                    "torch: K4 backward 93 ms"),
     # primate VNCSMC again with the T-field backward K11c
     # (PHYLO_TWIST_BWD_V2=1) in place of K7: 3 SGD steps an epoch, 11
-    # ranks each
+    # ranks each; profiled, so that K11c's device time on its path is on
+    # record
     "vncsmc_t_field": dict(
-        dataset="primate_data", band=(-8000.0, -5500.0), profile=False,
+        dataset="primate_data", band=(-8000.0, -5500.0),
         bwd_v2=True, train=dict(nested=True, M=M_TWIST, n_particles=K_TWIST),
         argv=["--nested=True", f"--M={M_TWIST}",
               f"--n_particles={K_TWIST}"],
@@ -1812,10 +1890,13 @@ def profile_epoch(name):
 
     from phylo_tpu_torch.train import TrainConfig, train
 
+    from phylo_tpu_torch.pruning import kernels
+
     path = PATHS[name]
     ds = load(path["dataset"], path.get("codons", False))
     cfg = TrainConfig(batch_size=S_BATCH, num_epoch=1, save_artifacts=False,
                       log_every=0, device="cuda", **path["train"])
+    kernels.TWIST_BWD_V2 = path.get("bwd_v2", False)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1823,8 +1904,10 @@ def profile_epoch(name):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         t1 = time.perf_counter()
+    kernels.TWIST_BWD_V2 = False
     rows = []
-    named = {k: [0.0, 0] for k in ("K11b", "K7 wide", "K7", "K4f", "K4b",
+    named = {k: [0.0, 0] for k in ("K11b", "K7 wide", "K7", "K11c", "K8",
+                                   "K4f", "K4b",
                                    "rank bwd (K2, K3, K10 bwd, K11a A<=8)",
                                    "K9b / K9bs / K11a", "K9f", "K5")}
     for e in prof.key_averages():
@@ -1836,6 +1919,8 @@ def profile_epoch(name):
             for kname, fn in (("K11b", "pair_ll_fwd_kernel"),
                               ("K7 wide", "pair_ll_bwd_wide_kernel"),
                               ("K7", "pair_ll_bwd_narrow_kernel"),
+                              ("K11c", "pair_ll_bwd_t_"),
+                              ("K8", "merge_loglik_kernel"),
                               ("K4f", "expm_fwd_kernel"),
                               ("K4b", "expm_bwd_kernel"),
                               ("rank bwd (K2, K3, K10 bwd, K11a A<=8)",
@@ -1863,10 +1948,10 @@ def profile_epoch(name):
         f"{k} {named[k][0]:.2f} ms over {named[k][1]} launches"
         for k in ("K4f", "K4b"))
         + f" ({path.get('k4_profile', 'earlier: not recorded')})")
-    log(f"phase 5 {name} rank backwards and K7: " + ", ".join(
-        f"{k} {named[k][0]:.2f} ms over {named[k][1]} launches"
+    log(f"phase 5 {name} rank backwards, K7, K11c and K8: " + ", ".join(
+        f"{k} {named[k][0]:.3f} ms over {named[k][1]} launches"
         for k in ("rank bwd (K2, K3, K10 bwd, K11a A<=8)",
-                  "K9b / K9bs / K11a", "K7")))
+                  "K9b / K9bs / K11a", "K7", "K11c", "K8")))
     log(f"phase 5 {name} K9f and K5: " + ", ".join(
         f"{k} {named[k][0]:.2f} ms over {named[k][1]} launches"
         for k in ("K9f", "K5")))
@@ -1949,6 +2034,8 @@ def main(argv):
     check_k7(kernels, gen, dev, KC=4, M_=2, S=40, A_=8, timed=False)
     k8 = check_k8(kernels, gen, dev, S_BATCH)
     check_k8(kernels, gen, dev, S_FULL)
+    check_k8(kernels, gen, dev, S_FULL, A=7, timed=False)
+    check_k8(kernels, gen, dev, 2 * S_FULL + 3, A=8, timed=False)
     k11b, k11b_blk, k7w, k7wb, k11c = check_twist_kernels(kernels, gen,
                                                           dev)
     check_k11a(kernels, gen, dev, A)
@@ -2012,6 +2099,12 @@ def main(argv):
                          dataset="hohna_data_1", S=S_BATCH, Nd=10,
                          route=("pair_loglik_fwd_blocked",
                                 "pair_ll_bwd_wide_blocked", "merge_bwd"))
+    # the same with the T-field backward: 16 dense states through K11b
+    # dense and K7 wide's body in its T-field form
+    fixed_decision_check(dev, twist=True, spec="gtr+g4",
+                         dataset="hohna_data_1", S=S_BATCH, Nd=10,
+                         bwd_v2=True, route=("pair_loglik_fwd",
+                                             "pair_ll_bwd_t", "merge_bwd"))
     # GTR+G4: under the cap (K10's saved-children backward), over it (K3)
     fixed_decision_check(dev, spec="gtr+g4", Kd=512, S=S_BATCH,
                          route="fused_rank_bwd_saved_blocked")
@@ -2075,7 +2168,7 @@ def main(argv):
         ("pair_loglik_fwd_blocked",
          "phylo_tpu_torch/csrc/twist_wide_kernels.cu",
          "phylo_tpu/pruning/kernels.py:588", k11b_blk),
-        ("pair_ll_bwd_t", "phylo_tpu_torch/csrc/twist_wide_kernels.cu",
+        ("pair_ll_bwd_t", "phylo_tpu_torch/csrc/twist_kernels.cu",
          "phylo_tpu/pruning/kernels.py:1037", k11c),
         ("merge_bwd", "phylo_tpu_torch/csrc/wide_kernels.cu",
          "phylo_tpu/pruning/kernels.py:395", k11a),

@@ -25,11 +25,12 @@
 // K7 for dense A <= 8): given g[m, k] = d loss / d ll[m, k], dm1, dm2
 // (KC, G*A_b, S) summed over m and dP_l, dP_r in P's shape, summed over
 // sites.  K11c replaces the same function's T-field body _kernel_ll_bwd2
-// (PHYLO_TWIST_BWD_V2, dense only): dm1, dm2 through vbar_a = sum_b
-// P_l[a, b] pi_b v_b and ubar likewise, and the bilinear form T[m, k, a,
-// a'] = sum_s gsite m1[a] m2[a'] in place of dP, from which the wrapper
-// forms dP_l = (T P_r) pi and dP_r = (T^T P_l) pi.  dpi and dw stay in
-// the wrapper, as in the JAX package.
+// (PHYLO_TWIST_BWD_V2, dense only; twist_kernels.cu holds it at A <= 8):
+// the same dm1, dm2, and dP through the bilinear form T[m, k, a, a'] =
+// sum_s gsite m1[a] m2[a'] (gsite = g w / site): dP_l = (T P_r) pi and
+// dP_r = (T^T P_l) pi.  The JAX package forms dP from T outside its
+// kernel; here the kernel does, and returns dP as K7 wide does.  dpi and
+// dw stay in the wrapper, as in the JAX package.
 //
 // What bounds them on an H100.  Per (m, k, s) the forward does
 // 2 A^2 / G FMAs (DS1 GTR+Gamma4 blocked: 128, dense 512) against 2 G A_b
@@ -43,8 +44,8 @@
 // What held PR 6's bodies back was shared memory: one broadcast load per
 // FMA (K11b), two operands per FMA plus a global read-modify-write of
 // every dP partial per (m, 32-site tile) and five barriers per (m, tile)
-// (K7 wide); and the zero off-block terms, 3/4 of a GTR+Gamma4 twist's
-// FMAs.
+// (K7 wide and K11c); and the zero off-block terms, 3/4 of a GTR+Gamma4
+// twist's FMAs.
 //
 // Design.
 // * K11b: one block per (row k, site tile); each thread owns SPT = 2
@@ -88,11 +89,13 @@
 //   v; columns for dm), double-buffered across m.  A_b at run time, with
 //   compile-time instances for A_b = 4 (DNA blocks) and 16 (dense
 //   GTR+Gamma4), ~15% quicker.
-// * K11c (unchanged from PR 6): one block of 256 threads per row k
-//   looping over tiles of 32 sites, M inside; per m, u, v into shared
-//   memory, gsite, pi u, pi v, the dm terms in registers and the A^2 T
-//   sums over the tile added onto the earlier tiles' total in global
-//   memory.
+// * K11c (8 < A <= 64, dense): K7 wide's body at G = 1 in its T-field
+//   form.  Phases A and B are K7 wide's; phase C sums the NPG^2 (4 x 4)
+//   tiles of T over the chunk (half of K7 wide's 2 NPG^2 dP tiles) from
+//   the chunk's m1, m2 and gsite in shared memory and stages T there;
+//   after a fourth barrier, phase D forms each dP entry from T and the
+//   staged P (A FMAs, then pi_b) and writes it once per (m, row), or
+//   adds it in chunk order above SC sites.
 // Every entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -110,10 +113,6 @@ constexpr int kBwdMaxThreads = 512;   // K7 wide
 constexpr int kBwdMaxSC = 256;        // K7 wide: sites per chunk
 constexpr int kBwdMaxKS = 32;         // K7 wide: threads per dP tile
 constexpr int kSmemMax = 232448;      // a block's shared memory on an H100
-constexpr int kTThreads = 256;        // K11c
-constexpr int kWarps = kTThreads / 32;
-constexpr int kTile = 32;             // K11c: sites per tile
-constexpr int kPitch = kTile + 1;
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -368,9 +367,10 @@ __device__ __forceinline__ void stage_bwd(float* d, const float* sl,
 
 // grid (KC,), blockDim.x >= NGT * SC / 4; dPl, dPr (M, KC, G, Ab, Ab).
 // FIXED_AB: Ab as a compile-time constant (4: DNA blocks; 16: dense
-// GTR+Gamma4), or 0 for any Ab at run time.
-template <int FIXED_AB>
-__global__ void __launch_bounds__(kBwdMaxThreads) pair_ll_bwd_wide_kernel(
+// GTR+Gamma4), or 0 for any Ab at run time.  TF: the T-field form
+// (K11c; G = 1), which also stages T (A x ABP) after pi.
+template <int FIXED_AB, bool TF>
+__device__ __forceinline__ void bwd_wide_body(
     const float* __restrict__ m1g, const float* __restrict__ m2g,
     const float* __restrict__ Pl, const float* __restrict__ Pr,
     const float* __restrict__ pi, const float* __restrict__ w,
@@ -391,13 +391,15 @@ __global__ void __launch_bounds__(kBwdMaxThreads) pair_ll_bwd_wide_kernel(
   float* gs = sp + NGT * SCP;          // gsite = g w / site
   float* pb = gs + SCP;                // [buffer][4][PM]
   float* pis = pb + 8 * PM;            // pi
+  float* tsm = pis + ((GA + 3) & ~3);  // K11c: the chunk's T of one m
   const int k = blockIdx.x, t = threadIdx.x, nthr = blockDim.x;
   // phases A and B: the (4 planes x 4 sites) tile (q, sg) of thread t
   const bool item = t < NGT * SG;
   const int q = t / SG, sg = t - q * SG, js = 4 * sg;
   const int g = q / NPG, c0 = (q - g * NPG) * 4;
-  // phase C: TC (side, block, a-group, b-group) tiles, KS threads each
-  const int TC = 2 * G * NPG * NPG;
+  // phase C: TC (side, block, a-group, b-group) tiles, KS threads each;
+  // K11c: (a-group, a'-group) tiles of T
+  const int TC = (TF ? 1 : 2 * G) * NPG * NPG;
   int KS = 1;
   while (KS < kBwdMaxKS && 2 * KS * TC <= nthr) KS *= 2;
   const int kl = t & (KS - 1), tstride = nthr / KS;
@@ -534,7 +536,8 @@ __global__ void __launch_bounds__(kBwdMaxThreads) pair_ll_bwd_wide_kernel(
       __syncthreads();                 // (3) gsite visible
 
       // (C) dP_l[a, b] = sum_s m1[a] du_b, dP_r[a, b] = sum_s m2[a] dv_b
-      // over the chunk, one (4 x 4) tile per KS threads
+      // over the chunk, one (4 x 4) tile per KS threads; K11c: T[a, a'] =
+      // sum_s m1[a] (gsite m2[a']) into shared memory
       for (int base = 0; base < TC; base += tstride) {
         const int tile = base + t / KS;
         const bool live = tile < TC;
@@ -553,7 +556,8 @@ __global__ void __launch_bounds__(kBwdMaxThreads) pair_ll_bwd_wide_kernel(
         const int na = min(4, Ab - 4 * ta), nb = min(4, Ab - 4 * tb);
         if (live) {
           const float* X = (side ? x2 : x1) + (tg * Ab + 4 * ta) * SCP;
-          const float* D = (side ? pus : pvs) + (tg * Ab + 4 * tb) * SCP;
+          const float* D = (TF ? x2 : side ? pus : pvs) +
+                           (tg * Ab + 4 * tb) * SCP;
           for (int j = 4 * kl; j < SC; j += 4 * KS) {
             const float4 gq = lds4(gs + j);
             float dd[4][4];
@@ -589,7 +593,15 @@ __global__ void __launch_bounds__(kBwdMaxThreads) pair_ll_bwd_wide_kernel(
               acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], o);
           }
         }
-        if (live && kl == 0) {
+        if (TF && live && kl == 0) {
+#pragma unroll
+          for (int ia = 0; ia < 4; ++ia) {
+#pragma unroll
+            for (int jb = 0; jb < 4; ++jb)
+              if (ia < na && jb < nb)
+                tsm[(4 * ta + ia) * ABP + 4 * tb + jb] = acc[ia][jb];
+          }
+        } else if (live && kl == 0) {
           float* out = (side ? dPr : dPl) + row * BB + (size_t)tg * Ab * Ab
                        + (4 * ta) * Ab + 4 * tb;
 #pragma unroll
@@ -602,6 +614,28 @@ __global__ void __launch_bounds__(kBwdMaxThreads) pair_ll_bwd_wide_kernel(
               }
             }
           }
+        }
+      }
+      if constexpr (TF) {
+        __syncthreads();               // (4) T staged
+        // (D) dP_l[a, b] = pi_b sum_a' T[a, a'] P_r[a', b], dP_r[a', b] =
+        // pi_b sum_a T[a, a'] P_l[a, b]: chains over a' (a) ascending
+        for (int e = t; e < 2 * BB; e += nthr) {
+          const int side = e >= BB, c = side ? e - BB : e;
+          const int a = c / Ab, b = c - a * Ab;
+          float x;
+          if (side) {                  // a is a'
+            x = __fmul_rn(tsm[a], psl[b]);
+            for (int i = 1; i < Ab; ++i)
+              x = __fmaf_rn(tsm[i * ABP + a], psl[i * ABP + b], x);
+          } else {
+            x = __fmul_rn(tsm[a * ABP], psr[b]);
+            for (int i = 1; i < Ab; ++i)
+              x = __fmaf_rn(tsm[a * ABP + i], psr[i * ABP + b], x);
+          }
+          x = __fmul_rn(x, pis[b]);
+          float* o = (side ? dPr : dPl) + row * BB + c;
+          *o = s0 ? *o + x : x;
         }
       }
     }
@@ -625,143 +659,30 @@ __global__ void __launch_bounds__(kBwdMaxThreads) pair_ll_bwd_wide_kernel(
   }
 }
 
-// ------------------------------------------------------------------ K11c
-// grid (KC,); NJ = ceil(A / kWarps) planes a thread owns; T (M, KC, A, A)
-template <int NJ>
-__global__ void __launch_bounds__(kTThreads) pair_ll_bwd_t_kernel(
-    const float* __restrict__ m1g, const float* __restrict__ m2g,
-    const float* __restrict__ Pl, const float* __restrict__ Pr,
-    const float* __restrict__ pi, const float* __restrict__ w,
-    const float* __restrict__ g, float* __restrict__ dm1g,
-    float* __restrict__ dm2g, float* __restrict__ out, int KC, int M,
-    int A, int S) {
-  extern __shared__ float smem[];
-  const int AA = A * A, tp = A * kPitch;
-  float* pl = smem;
-  float* pr = pl + AA;
-  float* pv = pr + AA;
-  float* x1 = pv + A;
-  float* x2 = x1 + tp;
-  float* us = x2 + tp;                 // u, then pi u
-  float* vs = us + tp;                 // v, then pi v
-  float* gsh = vs + tp;                // kTile gsite values
-  float* wsh = gsh + kTile;            // kTile site weights
-  const int k = blockIdx.x;
-  const int s = threadIdx.x & 31, bw = threadIdx.x >> 5;
-  const size_t slab = (size_t)A * S;
-  const float* m1 = m1g + (size_t)k * slab;
-  const float* m2 = m2g + (size_t)k * slab;
-  float* dm1 = dm1g + (size_t)k * slab;
-  float* dm2 = dm2g + (size_t)k * slab;
-  for (int c = threadIdx.x; c < A; c += blockDim.x) pv[c] = pi[c];
+#define PHYLO_BWD_ARGS                                                     \
+  const float *__restrict__ m1g, const float *__restrict__ m2g,            \
+      const float *__restrict__ Pl, const float *__restrict__ Pr,          \
+      const float *__restrict__ pi, const float *__restrict__ w,           \
+      const float *__restrict__ gg, float *__restrict__ dm1g,              \
+      float *__restrict__ dm2g, float *__restrict__ dPl,                   \
+      float *__restrict__ dPr, int KC, int M, int G, int Ab_, int S,       \
+      int SC, bool vecM
+#define PHYLO_BWD_CALL                                                     \
+  m1g, m2g, Pl, Pr, pi, w, gg, dm1g, dm2g, dPl, dPr, KC, M, G, Ab_, S, SC, \
+      vecM
 
-  for (int s0 = 0; s0 < S; s0 += kTile) {
-    __syncthreads();                   // the last tile's readers are done
-    for (int e = threadIdx.x; e < A * kTile; e += blockDim.x) {
-      const int a = e / kTile, ss = e - a * kTile, gs = s0 + ss;
-      const bool in = gs < S;
-      x1[a * kPitch + ss] = in ? m1[(size_t)a * S + gs] : 0.f;
-      x2[a * kPitch + ss] = in ? m2[(size_t)a * S + gs] : 0.f;
-    }
-    if (threadIdx.x < kTile)
-      wsh[threadIdx.x] = s0 + threadIdx.x < S ? w[s0 + threadIdx.x] : 0.f;
-    float d1[NJ], d2[NJ];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      d1[j] = 0.f;
-      d2[j] = 0.f;
-    }
+// K7 wide
+template <int FIXED_AB>
+__global__ void __launch_bounds__(kBwdMaxThreads)
+    pair_ll_bwd_wide_kernel(PHYLO_BWD_ARGS) {
+  bwd_wide_body<FIXED_AB, false>(PHYLO_BWD_CALL);
+}
 
-    for (int m = 0; m < M; ++m) {
-      const size_t row = (size_t)m * KC + k;
-      __syncthreads();                 // the last m's readers are done
-      for (int c = threadIdx.x; c < AA; c += blockDim.x) {
-        pl[c] = Pl[row * AA + c];
-        pr[c] = Pr[row * AA + c];
-      }
-      __syncthreads();
-
-      // u[b, s], v[b, s]: one FMA chain each, a ascending
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int b = bw + j * kWarps;
-        if (b < A) {
-          float u = 0.f, v = 0.f;
-          for (int a = 0; a < A; ++a) {
-            u = __fmaf_rn(x1[a * kPitch + s], pl[a * A + b], u);
-            v = __fmaf_rn(x2[a * kPitch + s], pr[a * A + b], v);
-          }
-          us[b * kPitch + s] = u;
-          vs[b * kPitch + s] = v;
-        }
-      }
-      __syncthreads();
-
-      if (threadIdx.x < kTile) {       // warp 0: one lane per site
-        float site = 0.f;
-        for (int b = 0; b < A; ++b)
-          site = __fmaf_rn(__fmul_rn(us[b * kPitch + s], vs[b * kPitch + s]),
-                           pv[b], site);
-        // padded sites have weight 0, so gsite = 0 and add nothing
-        gsh[s] = s0 + s < S ? (__ldg(g + row) * wsh[s]) / site : 0.f;
-      }
-      __syncthreads();
-
-      const float gsite = gsh[s];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int b = bw + j * kWarps;
-        if (b < A) {
-          us[b * kPitch + s] *= pv[b];
-          vs[b * kPitch + s] *= pv[b];
-        }
-      }
-      __syncthreads();
-
-      // dm1[a, s] += gsite * sum_b P_l[a, b] pi_b v[b, s]; dm2 mirrored
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int a = bw + j * kWarps;
-        if (a < A) {
-          const float* pla = pl + a * A;
-          const float* pra = pr + a * A;
-          float vbar = 0.f, ubar = 0.f;
-          for (int b = 0; b < A; ++b) {
-            vbar = __fmaf_rn(pla[b], vs[b * kPitch + s], vbar);
-            ubar = __fmaf_rn(pra[b], us[b * kPitch + s], ubar);
-          }
-          d1[j] = __fmaf_rn(gsite, vbar, d1[j]);
-          d2[j] = __fmaf_rn(gsite, ubar, d2[j]);
-        }
-      }
-
-      // T[a, a'] = sum_s gsite m1[a, s] m2[a', s] over this tile, onto
-      // the earlier tiles' total
-      for (int e = threadIdx.x; e < AA; e += blockDim.x) {
-        const int a = e / A, b = e - a * A;
-        const float* y1 = x1 + a * kPitch;
-        const float* z2 = x2 + b * kPitch;
-        float* o = out + row * AA + e;
-        float t = 0.f;
-#pragma unroll 8
-        for (int ss = 0; ss < kTile; ++ss)
-          t = __fmaf_rn(gsh[ss] * y1[ss], z2[ss], t);
-        *o = s0 ? *o + t : t;
-      }
-    }
-
-    const int gs = s0 + s;
-    if (gs < S) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int a = bw + j * kWarps;
-        if (a < A) {
-          dm1[(size_t)a * S + gs] = d1[j];
-          dm2[(size_t)a * S + gs] = d2[j];
-        }
-      }
-    }
-  }
+// K11c above 8 states: K7 wide's body in its T-field form (G = 1)
+template <int FIXED_AB>
+__global__ void __launch_bounds__(kBwdMaxThreads)
+    pair_ll_bwd_t_wide_kernel(PHYLO_BWD_ARGS) {
+  bwd_wide_body<FIXED_AB, true>(PHYLO_BWD_CALL);
 }
 
 // ----------------------------------------------------------------- host
@@ -826,18 +747,41 @@ int run_fwd(const float* m1, const float* m2, const float* Pl,
                                         G, Ab, S, threads, tiles, st);
 }
 
-template <int NJ>
-int run_bwd_t(const float* m1, const float* m2, const float* Pl,
-              const float* Pr, const float* pi, const float* w,
-              const float* g, float* dm1, float* dm2, float* T, int KC,
-              int M, int A, int S, cudaStream_t st) {
-  const size_t smem =
-      (size_t)(2 * A * A + A + 4 * A * kPitch + 2 * kTile) * sizeof(float);
-  auto kernel = pair_ll_bwd_t_kernel<NJ>;
-  const int err = allow_smem(kernel, smem);
+// Shared-memory bytes K7 wide (tf false) and K11c (tf true) need at a
+// chunk of SC sites (pruning/kernels.py::twist_bwd_plan mirrors it).
+size_t bwd_smem(int G, int Ab, int SC, bool tf) {
+  const int NPG = (Ab + 3) / 4, NGT = G * NPG, GA = G * Ab;
+  return ((size_t)(4 * GA + NGT + 1) * (SC + 4) +
+          (8 + (tf ? 1 : 0)) * (size_t)GA * 4 * NPG + ((GA + 3) & ~3)) *
+         sizeof(float);
+}
+
+int launch_bwd(const float* m1, const float* m2, const float* Pl,
+               const float* Pr, const float* pi, const float* w,
+               const float* g, float* dm1, float* dm2, float* dPl,
+               float* dPr, int KC, int M, int G, int Ab, int S, int SC,
+               int threads, int smem, bool tf, void* stream) {
+  if (KC <= 0) return 0;
+  if (M < 0 || S <= 0 || G < 1 || G > kMaxG || Ab < 1 ||
+      G * Ab > kMaxPlanes || SC < 4 || SC % 4 || SC > kBwdMaxSC ||
+      (tf && G != 1))
+    return (int)cudaErrorInvalidValue;
+  const int NGT = G * ((Ab + 3) / 4);
+  if (threads % 32 || threads > kBwdMaxThreads || threads < NGT * (SC / 4) ||
+      smem > kSmemMax || (size_t)smem < bwd_smem(G, Ab, SC, tf))
+    return (int)cudaErrorInvalidValue;
+  auto kernel =
+      tf ? (Ab == 16 ? pair_ll_bwd_t_wide_kernel<16>
+                     : pair_ll_bwd_t_wide_kernel<0>)
+         : (Ab == 4    ? pair_ll_bwd_wide_kernel<4>
+            : Ab == 16 ? pair_ll_bwd_wide_kernel<16>
+                       : pair_ll_bwd_wide_kernel<0>);
+  const int err = allow_smem(kernel, (size_t)smem);
   if (err) return err;
-  kernel<<<KC, kTThreads, smem, st>>>(m1, m2, Pl, Pr, pi, w, g, dm1, dm2, T,
-                                      KC, M, A, S);
+  const bool vecM = S % 4 == 0 && aligned(m1, 16) && aligned(m2, 16);
+  kernel<<<KC, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      m1, m2, Pl, Pr, pi, w, g, dm1, dm2, dPl, dPr, KC, M, G, Ab, S, SC,
+      vecM);
   return (int)cudaGetLastError();
 }
 
@@ -895,49 +839,21 @@ extern "C" int launch_pair_ll_bwd_wide(const float* m1, const float* m2,
                                        int KC, int M, int G, int Ab, int S,
                                        int SC, int threads, int smem,
                                        void* stream) {
-  if (KC <= 0) return 0;
-  if (M < 0 || S <= 0 || G < 1 || G > kMaxG || Ab < 1 ||
-      G * Ab > kMaxPlanes || SC < 4 || SC % 4 || SC > kBwdMaxSC)
-    return (int)cudaErrorInvalidValue;
-  const int NPG = (Ab + 3) / 4, NGT = G * NPG, GA = G * Ab;
-  const size_t need = ((size_t)(4 * GA + NGT + 1) * (SC + 4) +
-                       8 * (size_t)GA * 4 * NPG + ((GA + 3) & ~3)) *
-                      sizeof(float);
-  if (threads % 32 || threads > kBwdMaxThreads || threads < NGT * (SC / 4) ||
-      smem > kSmemMax || (size_t)smem < need)
-    return (int)cudaErrorInvalidValue;
-  auto kernel = Ab == 4    ? pair_ll_bwd_wide_kernel<4>
-                : Ab == 16 ? pair_ll_bwd_wide_kernel<16>
-                           : pair_ll_bwd_wide_kernel<0>;
-  const int err = allow_smem(kernel, (size_t)smem);
-  if (err) return err;
-  const bool vecM = S % 4 == 0 && aligned(m1, 16) && aligned(m2, 16);
-  kernel<<<KC, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      m1, m2, Pl, Pr, pi, w, g, dm1, dm2, dPl, dPr, KC, M, G, Ab, S, SC,
-      vecM);
-  return (int)cudaGetLastError();
+  return launch_bwd(m1, m2, Pl, Pr, pi, w, g, dm1, dm2, dPl, dPr, KC, M, G,
+                    Ab, S, SC, threads, smem, false, stream);
 }
 
-// K11c (dense, A <= 64)
+// K11c above 8 states (at A <= 8: twist_kernels.cu's launch_pair_ll_bwd_t):
+// dense, A <= 64; SC, threads and smem from twist_bwd_plan's T-field
+// plan.  The same outputs as K7 wide, dP_l and dP_r formed from T in the
+// kernel.
 extern "C" int launch_pair_ll_bwd_t(const float* m1, const float* m2,
                                     const float* Pl, const float* Pr,
                                     const float* pi, const float* w,
                                     const float* g, float* dm1, float* dm2,
-                                    float* T, int KC, int M, int A, int S,
-                                    void* stream) {
-  if (KC <= 0) return 0;
-  if (M < 0 || S <= 0 || A < 1 || A > kMaxPlanes)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (A <= kWarps)
-    return run_bwd_t<1>(m1, m2, Pl, Pr, pi, w, g, dm1, dm2, T, KC, M, A, S,
-                        st);
-  if (A <= 2 * kWarps)
-    return run_bwd_t<2>(m1, m2, Pl, Pr, pi, w, g, dm1, dm2, T, KC, M, A, S,
-                        st);
-  if (A <= 4 * kWarps)
-    return run_bwd_t<4>(m1, m2, Pl, Pr, pi, w, g, dm1, dm2, T, KC, M, A, S,
-                        st);
-  return run_bwd_t<8>(m1, m2, Pl, Pr, pi, w, g, dm1, dm2, T, KC, M, A, S,
-                      st);
+                                    float* dPl, float* dPr, int KC, int M,
+                                    int A, int S, int SC, int threads,
+                                    int smem, void* stream) {
+  return launch_bwd(m1, m2, Pl, Pr, pi, w, g, dm1, dm2, dPl, dPr, KC, M, 1,
+                    A, S, SC, threads, smem, true, stream);
 }

@@ -6,7 +6,8 @@ further down K8, the same merge on explicit children
 (::fused_merge_loglik), and K11a, its backward (::_merge_bwd_pallas);
 the VNCSMC pair log-likelihoods' forward K11b (::fused_pair_loglik) and
 backwards K7 / K7 wide and K11c (::pair_loglik's `_pair_ll_bwd_pallas`,
-its T-field form under PHYLO_TWIST_BWD_V2).
+its T-field form under PHYLO_TWIST_BWD_V2: K7's and K7 wide's bodies in
+their T_FIELD form on the card, dP formed from T in the kernel).
 
 One rank of the sweep, per particle k:
 
@@ -40,9 +41,9 @@ Gamma4: 244) the card has no rank kernel.  K2, K3 (A <= 8) and K10's
 backward are one body on the card, `fused_rank_bwd_blocked_kernel`, in
 its dense form for G = 1.  K1, K2, K3 and K9 have no
 autograd rule: only the manual whole-sweep VJP (smc.sweep_vjp) and the
-no-grad sweep call them.  K7 (dense A <= 8) and K8 live in
+no-grad sweep call them.  K7 and K11c (dense A <= 8) and K8 live in
 csrc/twist_kernels.cu, K7 wide (dense 8 < A <= 64, and blocked), K11b
-(dense and blocked) and K11c (dense) for up to 64 planes in
+(dense and blocked) and K11c (dense 8 < A <= 64) in
 csrc/twist_wide_kernels.cu; K11a is a named entry over K2's body (A <= 8)
 and K9bs dense (A <= 128).  The twist's pair log-likelihoods take P dense
 (M, K, A, A) or, for a rate mixture (`twist_blocks`), blocked (M, K, G,
@@ -62,6 +63,7 @@ from phylo_tpu_torch.models.expm import exact_matmul
 
 MAX_A = 8                       # states per block of K1-K3, K7, K8, K10
 MAX_TWIST_A = 64                # planes of K7 wide, K11b, K11c
+MERGE_MAX_THREADS = 1024        # K8: threads a block at most (A <= 4)
 FWD_MAX_THREADS = 256           # K11b: threads per CUDA block
 BWD_MAX_THREADS = 512           # K7 wide: threads per CUDA block
 BWD_MAX_SC = 256                # K7 wide: sites per chunk
@@ -605,10 +607,23 @@ def fused_rank_bwd(leaves, buf, idx, gm, gr, gl, P_l, P_r, pi, weights,
     return outs[:5] + ((outs[5] if want_dw else None),)
 
 
+def merge_ll_plan(S, A=4):
+    """K8's threads a block (a block a particle): a thread a site, S
+    rounded up to warps, at most MERGE_MAX_THREADS (half above 4 states:
+    the kernel's launch bound allows 128 registers a thread there).
+    Thread t owns the sites t + j threads (j = 0, 1, ...), one a pass.  At
+    K = 32 on the H100 this beat a cluster of 2-8 blocks a particle summed
+    through distributed shared memory by 1.1-1.5x at S = 256 and 898, and
+    2 sites a thread a pass by 1.1x (tools/torch_k11c_k8_forms.py)."""
+    top = MERGE_MAX_THREADS if A <= 4 else MERGE_MAX_THREADS // 2
+    return min(top, _ceil(S, 32) * 32)
+
+
 def merge_loglik(m1, m2, P_l, P_r, pi, weights):
     """K8: merge + rescale + root log-lik on explicit (K, A, S) children,
     no autograd.  Returns (merged_scaled (K, A, S), rootll (K,),
-    logscale (K,)); rootll is the log-lik of the unscaled merge."""
+    logscale (K,)); rootll is the log-lik of the unscaled merge.  On the
+    card its launch is `merge_ll_plan`'s."""
     if not m1.is_cuda:
         return _ref_impl(m1, m2, P_l, P_r, pi, weights)
     K, A, S = m1.shape
@@ -624,12 +639,13 @@ def merge_loglik(m1, m2, P_l, P_r, pi, weights):
     merged = torch.empty((K, A, S), dtype=f32, device=dev)
     rootll = torch.empty((K,), dtype=f32, device=dev)
     logscale = torch.empty((K,), dtype=f32, device=dev)
-    fn = _ext.bind("twist_kernels", "launch_merge_loglik", 9, 3)
+    threads = merge_ll_plan(S, A)
+    fn = _ext.bind("twist_kernels", "launch_merge_loglik", 9, 4)
     _ext.LAUNCHES["fused_merge_loglik"] += 1
     _ext.check(fn(m1.data_ptr(), m2.data_ptr(), P_l.data_ptr(),
                   P_r.data_ptr(), pi.data_ptr(), weights.data_ptr(),
                   merged.data_ptr(), rootll.data_ptr(), logscale.data_ptr(),
-                  K, A, S, _ext.stream_ptr(dev)),
+                  K, A, S, threads, _ext.stream_ptr(dev)),
                "fused_merge_loglik")
     return merged, rootll, logscale
 
@@ -724,18 +740,23 @@ def twist_fwd_plan(G, Ab, S):
     return spt, threads, _ceil(S, threads * spt)
 
 
-def twist_bwd_plan(G, Ab, S):
-    """K7 wide's launch: (SC sites a chunk, threads, shared-memory bytes).
-    A thread owns a (4 planes x 4 sites) tile, so a chunk needs NGT SC / 4
-    threads (NGT = G ceil(A_b / 4) plane groups, up to 512 threads); SC is
-    at most 256, a multiple of 32, and shrinks until the chunk's m1, m2,
-    pi v, pi u (pitch SC + 4), site partials, gsite and the double-
-    buffered P in both layouts fit a block's 227 KB."""
+def twist_bwd_plan(G, Ab, S, t_field=False):
+    """K7 wide's launch, or K11c's above 8 states (t_field, G = 1): (SC
+    sites a chunk, threads, shared-memory bytes).  A thread owns a (4
+    planes x 4 sites) tile, so a chunk needs NGT SC / 4 threads (NGT = G
+    ceil(A_b / 4) plane groups, up to 512 threads); SC is at most 256, a
+    multiple of 32, and shrinks until the chunk's m1, m2, pi v, pi u
+    (pitch SC + 4), site partials, gsite and the double-buffered P in
+    both layouts (and K11c's staged T) fit a block's 227 KB
+    (csrc/twist_wide_kernels.cu's bwd_smem).  K11c at DS1's 16 dense
+    states, S = 256: SC = 256 the quickest, 128 3% slower, 32 2.3-3x
+    (tools/torch_k11c_k8_forms.py)."""
     NPG = _ceil(Ab, 4)
     NGT, GA = G * NPG, G * Ab
 
     def smem(sc):
-        return 4 * ((4 * GA + NGT + 1) * (sc + 4) + 8 * GA * 4 * NPG
+        return 4 * ((4 * GA + NGT + 1) * (sc + 4)
+                    + (9 if t_field else 8) * GA * 4 * NPG
                     + _ceil(GA, 4) * 4)
 
     sc = min(BWD_MAX_SC, (4 * BWD_MAX_THREADS // NGT) // 32 * 32,
@@ -745,15 +766,18 @@ def twist_bwd_plan(G, Ab, S):
     return sc, _ceil(NGT * sc // 4, 32) * 32, smem(sc)
 
 
-def k7_smem(M, A, warps):
-    """Shared-memory bytes of K7 (csrc/twist_kernels.cu's k7_smem): M
-    rows of P_l | P_r at a 16-byte pitch, g (M floats, padded to 4) and
-    each warp's M x 2 A^2 dP slots."""
+def k7_smem(M, A, warps, t_field=False):
+    """Shared-memory bytes of K7, or of K11c at A <= 8 (t_field)
+    (csrc/twist_kernels.cu's k7_smem): M rows of P_l | P_r at a 16-byte
+    pitch, g (M floats, padded to 4) and each warp's M x 2 A^2 dP slots
+    (K11c: M x A^2 T slots)."""
     pitch = 4 * _ceil(2 * A * A, 4)
-    return 4 * (M * pitch + 4 * _ceil(M, 4) + warps * M * 2 * A * A)
+    nv = A * A if t_field else 2 * A * A
+    return 4 * (M * pitch + 4 * _ceil(M, 4) + warps * M * nv)
 
 
-def twist_narrow_plan(KC, M, A, S, spl=None, max_warps=None):
+def twist_narrow_plan(KC, M, A, S, spl=None, max_warps=None,
+                      t_field=False):
     """K7's launch (dense A <= 8): (sites a lane, warps a row, chunks a
     row, blocks, shared-memory bytes).  A block a row; a chunk is 32
     lanes x spl sites and warp w takes chunks w, w + warps, ...  spl =
@@ -764,19 +788,22 @@ def twist_narrow_plan(KC, M, A, S, spl=None, max_warps=None):
     2112, M = 10, S = 256): spl 2, one warp a row walking 4 chunks; 6
     taxa left (KC = 480): 4 warps; the last rank (KC = 32): spl 1, 8
     warps -- the quickest forms on the H100 (tools/torch_k7_forms.py; 2
-    warps of 4 sites a lane, 162 registers, ran 22% slower at rank 0)."""
+    warps of 4 sites a lane, 162 registers, ran 22% slower at rank 0).
+    t_field: K11c's launch at A <= 8, the same body in its T-field form,
+    with M x A^2 slots a warp; the same forms were K11c's quickest at
+    those three row counts (tools/torch_k11c_k8_forms.py)."""
     mw = max_warps or K7_MAX_WARPS
     if spl is None:
         spl = _shrink_spl(KC, S, K7_SPL if A <= 4 else 1, mw)
     chunks = _ceil(S, 32 * spl)
     warps = min(chunks, mw, _ceil(GRID_WARPS, KC))
-    while warps > 1 and k7_smem(M, A, warps) > SMEM_LIMIT:
+    while warps > 1 and k7_smem(M, A, warps, t_field) > SMEM_LIMIT:
         warps -= 1
-    if k7_smem(M, A, warps) > SMEM_LIMIT:
+    if k7_smem(M, A, warps, t_field) > SMEM_LIMIT:
         raise NotImplementedError(
             f"K7 keeps M x 2 A^2 dP sums in shared memory: M={M} at A={A} "
-            f"needs {k7_smem(M, A, 1)} bytes, over {SMEM_LIMIT}")
-    return spl, warps, chunks, KC, k7_smem(M, A, warps)
+            f"needs {k7_smem(M, A, 1, t_field)} bytes, over {SMEM_LIMIT}")
+    return spl, warps, chunks, KC, k7_smem(M, A, warps, t_field)
 
 
 def _as_blocks(P):
@@ -876,7 +903,7 @@ def _dp_from_t(T, P_l, P_r, pi):
     """dP_l[a, b] = pi_b sum_a' T[a, a'] P_r[a', b] and dP_r[a', b] =
     pi_b sum_a T[a, a'] P_l[a, b] (per (m, k) A x A products, full
     float32 on the card, as the JAX package forms them outside its
-    kernel)."""
+    kernel; K11c forms them inside its kernel)."""
     return (exact_matmul(T, P_r) * pi,
             exact_matmul(T.transpose(-1, -2), P_l) * pi)
 
@@ -907,8 +934,10 @@ def pair_ll_bwd(m1, m2, P_l, P_r, pi, weights, g, want_dw=True):
     dense K7 (A <= 8), K7 wide (8 < A <= 64, and every blocked P, counted
     as `pair_ll_bwd_wide_blocked`), or K11c, the T-field form, for dense P
     when TWIST_BWD_V2 is set (PHYLO_TWIST_BWD_V2=1, the JAX package's
-    knob).  Returns (dm1, dm2 (K, A, S), dP_l, dP_r in P's shape, dpi
-    (A,), dw (S,) or None without want_dw)."""
+    knob): on the card K7's body (A <= 8) or K7 wide's (A > 8) in their
+    T-field form, which return dP_l, dP_r as K7 does, on K7's plans.
+    Returns (dm1, dm2 (K, A, S), dP_l, dP_r in P's shape, dpi (A,), dw
+    (S,) or None without want_dw)."""
     blocked = P_l.ndim == 5
     t_field = TWIST_BWD_V2 and not blocked
     if not m1.is_cuda:
@@ -921,18 +950,22 @@ def pair_ll_bwd(m1, m2, P_l, P_r, pi, weights, g, want_dw=True):
     dm1 = torch.empty((K, A, S), dtype=f32, device=dev)
     dm2 = torch.empty((K, A, S), dtype=f32, device=dev)
     dPl = torch.empty(P_l.shape, dtype=f32, device=dev)
+    dPr = torch.empty(P_r.shape, dtype=f32, device=dev)
     ins = [t.data_ptr() for t in (m1, m2, P_l, P_r, pi, weights, g, dm1,
-                                  dm2, dPl)]
+                                  dm2, dPl, dPr)]
     stream = _ext.stream_ptr(dev)
     if t_field:
-        # dPl holds T; dP_l, dP_r follow from it outside the kernel
         name = "pair_ll_bwd_t"
-        fn = _ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_t", 10, 4)
+        if A > MAX_A:
+            fn = _ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_t", 11,
+                           7)
+            plan = twist_bwd_plan(1, A, S, t_field=True)
+        else:
+            fn = _ext.bind("twist_kernels", "launch_pair_ll_bwd_t", 11, 6)
+            plan = twist_narrow_plan(K, M, A, S, t_field=True)[:2]
         _ext.LAUNCHES[name] += 1
-        code = fn(*ins, K, M, A, S, stream)
+        code = fn(*ins, K, M, A, S, *plan, stream)
     else:
-        dPr = torch.empty(P_r.shape, dtype=f32, device=dev)
-        ins.append(dPr.data_ptr())
         if blocked or A > MAX_A:
             name = ("pair_ll_bwd_wide_blocked" if blocked
                     else "pair_ll_bwd_wide")
@@ -948,8 +981,6 @@ def pair_ll_bwd(m1, m2, P_l, P_r, pi, weights, g, want_dw=True):
             _ext.LAUNCHES[name] += 1
             code = fn(*ins, K, M, A, S, spl, warps, stream)
     _ext.check(code, name)
-    if t_field:
-        dPl, dPr = _dp_from_t(dPl, P_l, P_r, pi)
     # dpi_b = sum_{m,k,a} dP_l[m,k,a,b] P_l[m,k,a,b] / pi_b over b's block:
     # P does not depend on the site, so it factors out of dP_l's site sum
     dpi = torch.sum(_as_blocks(dPl * P_l), dim=(0, 1, 3)).reshape(A) / pi
