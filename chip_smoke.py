@@ -11,7 +11,9 @@ script exits non-zero without printing a result:
    paths' shapes (VCSMC: K=2048 particles, S=256 and 898 sites, 45,056
    transition matrices; VNCSMC: K=32 chosen merges, M=10 subsamples of
    32 x 66 candidate pairs; GTR+G4 on DS1: K=2048, G=4 rate blocks of
-   A=4, S=256 and 1949, and G=5 (+I); K4 on primate's 45,056 matrices,
+   A=4, S=256 and 1949, and G=5 (+I), the rank forward also untimed at
+   G=2 and 3 blocks of 4 and at 8 states (G=1 and 4 blocks); K4 on
+   primate's 45,056 matrices,
    DS1 GTR+G4's 425,984 a step and the twist's DS1 rank-0 898,560 and
    last-rank 7,680, each with every fourth branch past the clamp too,
    and untimed at B = 1, 7, 255, 257, 4,099, at (order, squarings) =
@@ -41,13 +43,16 @@ script exits non-zero without printing a result:
    saved-children route (K10 saving + K10's backward) against the
    re-gather route (K10 + K3) at the DS1 step shape, the trade
    SAVE_CHILDREN_CAP decides (also at primate's K=2048, S=256: K1 saving
-   + K2 against K1 + K3, both backwards now one body); the rank
+   + K2 against K1 + K3, both backwards now one body); the rank forward
+   K1 and K10 (one body, `fused_rank_fwd_kernel`) with the L2 -> SM
+   bytes of its one pass beside the DRAM byte bound; the rank
    backwards K2 and K3 (the dense form of K3 blocked's body, the
    all-planes-tied case too), K3 blocked (timed at DS1 S=256 and 1949),
    K10's saved backward, K9f, K9bs and K9b (dense and blocked), K11a
    (A=4 and 16, with and without dw), K7 (primate rank 0, ragged S=300,
    the last rank's KC=32, and A=3 and 8 small; the launcher alone) and
-   K5 and K8 each also called twice (the same bits) and once captured
+   K1, K10's forward, K5 and K8 each also called twice (the same bits)
+   and once captured
    as a CUDA graph (one device kernel a wrapper call, of the named body),
    their times printed beside the former design's, K8's beside the launch
    floor (an empty kernel on the same sleep-held stream);
@@ -81,8 +86,9 @@ script exits non-zero without printing a result:
    kernel's launch counter set to 0 before each path and read after;
 5. where the time of one epoch of each path goes, under torch.profiler
    (K4f's, K4b's, K9f's and K5's device time and launches on every path,
-   and the rank backwards' (K2, K3, K3 blocked / K10's backward and K11a
-   at 4 states: one body; the wide body of K9bs, K9b and K11a), K7's,
+   the rank forward's (K1, K10), and the rank backwards' (K2, K3, K3
+   blocked / K10's backward and K11a at 4 states: one body; the wide
+   body of K9bs, K9b and K11a), K7's,
    K11c's and K8's;
    for VNCSMC GTR+G4 on DS1, K11b's, K7 wide's and
    K4's device time beside their earlier designs').
@@ -125,6 +131,8 @@ PROT_DAT = os.path.join(PROT_DIR, "protein_seed0.dat")
 SLEEP_CYCLES = 100_000_000         # ~50 ms at the H100's ~2 GHz clock
 # the rank backward's one body (K2, K3, K11a at A <= 8: its dense form)
 RANK_BWD_KERNEL = "fused_rank_bwd_blocked_kernel"
+# the rank forward's one body (K1: its dense form; K10's forward)
+RANK_FWD_KERNEL = "fused_rank_fwd_kernel"
 # Phase-2 times of the redesigned kernels on their former design (ms,
 # PERF.md's kernel table: this script on an NVIDIA H100 80GB HBM3 at
 # 700 W), keyed by (kernel, particles, states a block, sites)
@@ -155,7 +163,12 @@ FORMER_MS = {("K2", K, 4, 256): 0.0489, ("K3", K, 4, 256): 0.0373,
           ("K11c", 896, 16, 256): 1.0867, ("K11c", 11232, 16, 256): 12.176,
           ("K11c", 2112, 4, 256): 0.4650,
           # K8 (128 threads a particle walking its sites)
-          ("K8", 32, 4, 256): 0.0037, ("K8", 32, 4, 898): 0.0067}
+          ("K8", 32, 4, 256): 0.0037, ("K8", 32, 4, 898): 0.0067,
+          # K1 and K10's forward (a thread a site striding by 128; K10
+          # reading a blocked site's children twice)
+          ("K1 save", K, 4, 256): 0.0120, ("K1", K, 4, 898): 0.0219,
+          ("K10 save", K, 4, 256): 0.0443, ("K10", K, 4, 256): 0.0266,
+          ("K10 G=5 save", K, 4, 256): 0.0532, ("K10", K, 4, 1949): 0.2631}
 
 
 def log(msg):
@@ -288,11 +301,12 @@ def last_rank_idx(gen, dev, S, dataset="primate", spec=None, Kd=K,
         torch.int32).contiguous()
 
 
-def rank_inputs(gen, S, dev, G=1, idx=None):
+def rank_inputs(gen, S, dev, G=1, idx=None, A=A):
     """One rank's inputs at the main paths' shapes: primate (N=12) with
     dense (K, A, A) transitions for G=1, DS1 (N=27) with (K, G, A, A)
     blocks otherwise; G=5 makes block 0 the identity, the +I rate-0
-    category, whose merged planes tie."""
+    category, whose merged planes tie.  A: states a block (the main
+    paths' 4 by default)."""
     f = dict(dtype=torch.float32, device=dev)
     Nd = N if G == 1 else N_DS1
     Rd = Nd - 1
@@ -328,11 +342,15 @@ def k1_slabs_read(idx, Nd=N):
     return n_leaf, n_int
 
 
-def check_k1(kern, gen, dev, S, save, G=1, idx=None):
-    """K1 (G=1, primate) or K10's forward (G > 1, DS1 blocks)."""
-    buf, leaves, idx, outc, P_l, P_r, pi, w = rank_inputs(gen, S, dev, G, idx)
+def check_k1(kern, gen, dev, S, save, G=1, idx=None, A_=A, timed=True):
+    """K1 (G=1, primate) or K10's forward (G > 1, DS1 blocks), A_ states
+    a block.  Untimed: the checks alone, for the forms no main-path shape
+    launches (the register form's padded blocks at G = 2, 3; 8 states)."""
+    buf, leaves, idx, outc, P_l, P_r, pi, w = rank_inputs(gen, S, dev, G, idx,
+                                                          A_)
     fn = kern.fused_rank_update
     b_k, b_p = buf.clone(), buf.clone()
+    b_k[:, outc] = float("nan")         # a site the kernel misses shows
     got = fn(leaves, b_k, idx, outc, P_l, P_r, pi, w, save_children=save)
     want = kern._fused_rank_ref(leaves, b_p, idx, outc, P_l, P_r, pi, w,
                                 save_children=save)
@@ -343,15 +361,25 @@ def check_k1(kern, gen, dev, S, save, G=1, idx=None):
         errs["children"] = max(max_abs(got[2], want[2]),
                                max_abs(got[3], want[3]))
     tol = {"buf": 1e-5, "rootll": 1e-5, "logscale": 1e-5, "children": 0.0}
-    label = "K1 fused_rank_update" if G == 1 else \
-        f"K10 fused_rank_update_blocked G={G}"
+    label = ("K1 fused_rank_update" if G == 1 else
+             f"K10 fused_rank_update_blocked G={G}") + (
+        f" A={A_}" if A_ != A else "")
     log(f"  {label} S={S} save={save}: "
         + ", ".join(f"{k} err {v:.3e} (tol {tol[k]:g})"
                     for k, v in errs.items()))
     for k, v in errs.items():
         require(v <= tol[k], f"{label} {k} error {v} > {tol[k]}")
-    ms = time_ms(lambda: fn(leaves, b_k, idx, outc, P_l, P_r, pi, w,
-                            save_children=save))
+
+    def call():
+        return fn(leaves, b_k, idx, outc, P_l, P_r, pi, w,
+                  save_children=save)
+    repeat_checks(f"{label} S={S} save={save} (plan (spl, warps, chunks, "
+                  f"blocks, smem) {kern.rank_fwd_plan(K, G, A_, S)}, "
+                  f"register blocks {kern.fwd_blocks(G, A_)})", call,
+                  state=b_k, kernel=RANK_FWD_KERNEL)
+    if not timed:
+        return None
+    ms = time_ms(call)
     plain = time_ms(lambda: kern._fused_rank_ref(
         leaves, b_p, idx, outc, P_l, P_r, pi, w, save_children=save),
         iters=3 if G > 1 else 20)
@@ -364,10 +392,17 @@ def check_k1(kern, gen, dev, S, save, G=1, idx=None):
         + 2 * K * G * A * A * 4 + S * 4 + GA * 4 + 4 * K * 4 + 2 * K * 4
     nops = K * S * (4 * G * A * A + 4 * GA + 2)
     b_ms, b_by = bound(nbytes, nops)
-    log(f"  {label.split()[0]} S={S}: last-rank idx of a real sweep reads "
+    name = label.split()[0]
+    key = name + (" G=5" if G == G_GAMMA + 1 else "") + (
+        " save" if save else "")
+    log(f"  {name} S={S}: last-rank idx of a real sweep reads "
         f"{n_leaf} leaf + {n_int} internal slabs for {2 * K} children; "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
+        f"kernel {ms:.4f} ms ({former(key, K, A, S)}), plain {plain:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB from and "
+        f"to DRAM; {b_ms / ms:.0%} of it reached); L2 -> SM "
+        f"{2 * K * slab / 1e6:.1f} MB a launch (each child value read "
+        f"once); plan (spl, warps, chunks, blocks, smem) "
+        f"{kern.rank_fwd_plan(K, G, A, S)}")
     return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None), \
         (leaves, buf, idx, P_l, P_r, pi, w)
@@ -1730,7 +1765,11 @@ PATHS = {
         train=dict(n_particles=K),
         argv=[f"--n_particles={K}"],
         kernels=("fused_rank_update", "fused_rank_bwd_saved", "expm_fwd",
-                 "expm_bwd", "categorical")),
+                 "expm_bwd", "categorical"),
+        # 11 ranks of the initial eval and, each epoch, 3 SGD steps and
+        # the eval sweep
+        exact={"fused_rank_update": R * (1 + 2 * (S_FULL // S_BATCH + 1)),
+               "fused_rank_update_blocked": 0}),
     "vncsmc": dict(
         dataset="primate_data", band=(-8000.0, -5500.0),
         train=dict(nested=True, M=M_TWIST, n_particles=K_TWIST),
@@ -1743,7 +1782,11 @@ PATHS = {
         train=dict(n_particles=K, substitution_model="gtr+g4"),
         argv=["--model=gtr+g4", f"--n_particles={K}"],
         kernels=("fused_rank_update_blocked", "fused_rank_bwd_blocked",
-                 "expm_fwd", "expm_bwd", "categorical")),
+                 "expm_fwd", "expm_bwd", "categorical"),
+        exact={"fused_rank_update_blocked": (N_DS1 - 1) * (
+            1 + 2 * (S_DS1 // S_BATCH + 1)), "fused_rank_update": 0},
+        fwd_profile="the former K10 forward design: 11.52 ms over 208 "
+                    "launches"),
     # VNCSMC with GTR+G4 on DS1 (the twist scores its candidates through
     # G=4 blocks of 4 states): 7 SGD steps of 256 sites + the 1949-site
     # eval sweep, 26 ranks each, one pair chunk per rank; K11b blocked in
@@ -1907,7 +1950,7 @@ def profile_epoch(name):
     kernels.TWIST_BWD_V2 = False
     rows = []
     named = {k: [0.0, 0] for k in ("K11b", "K7 wide", "K7", "K11c", "K8",
-                                   "K4f", "K4b",
+                                   "K4f", "K4b", "rank fwd (K1, K10)",
                                    "rank bwd (K2, K3, K10 bwd, K11a A<=8)",
                                    "K9b / K9bs / K11a", "K9f", "K5")}
     for e in prof.key_averages():
@@ -1923,6 +1966,7 @@ def profile_epoch(name):
                               ("K8", "merge_loglik_kernel"),
                               ("K4f", "expm_fwd_kernel"),
                               ("K4b", "expm_bwd_kernel"),
+                              ("rank fwd (K1, K10)", RANK_FWD_KERNEL),
                               ("rank bwd (K2, K3, K10 bwd, K11a A<=8)",
                                RANK_BWD_KERNEL),
                               ("K9b / K9bs / K11a", "wide_rank_bwd_kernel"),
@@ -1948,6 +1992,10 @@ def profile_epoch(name):
         f"{k} {named[k][0]:.2f} ms over {named[k][1]} launches"
         for k in ("K4f", "K4b"))
         + f" ({path.get('k4_profile', 'earlier: not recorded')})")
+    log(f"phase 5 {name} rank forward (K1, K10): "
+        f"{named['rank fwd (K1, K10)'][0]:.3f} ms over "
+        f"{named['rank fwd (K1, K10)'][1]} launches"
+        + (f" ({path['fwd_profile']})" if "fwd_profile" in path else ""))
     log(f"phase 5 {name} rank backwards, K7, K11c and K8: " + ", ".join(
         f"{k} {named[k][0]:.3f} ms over {named[k][1]} launches"
         for k in ("rank bwd (K2, K3, K10 bwd, K11a A<=8)",
@@ -1993,11 +2041,15 @@ def main(argv):
     log("phase 2 kernels against their plain versions on the card:")
     k1, k1_inputs = check_k1(kernels, gen, dev, S_BATCH, save=True)
     check_k1(kernels, gen, dev, S_FULL, save=False)
+    # the dense form at 8 states, which no main path launches
+    check_k1(kernels, gen, dev, S_BATCH, save=True, idx=k1_inputs[2], A_=8,
+             timed=False)
     k2 = check_k2(kernels, gen, dev, k1_inputs)
     k3 = check_k3(kernels, gen, dev, k1_inputs)
     check_k3(kernels, gen, dev, k1_inputs, ties=True)
-    # the former dense body and its launchers are gone from the library
-    for gone in ("launch_fused_rank_bwd_saved", "launch_fused_rank_bwd"):
+    # the former bodies and their launchers are gone from the library
+    for gone in ("launch_fused_rank_bwd_saved", "launch_fused_rank_bwd",
+                 "launch_fused_rank", "launch_fused_rank_blocked"):
         require(not hasattr(_ext.lib("rank_kernels"), gone),
                 f"rank_kernels still exports {gone}")
     cap_trade(kernels, gen, dev, k1_inputs, "primate", "K1", "K2", "K3")
@@ -2008,6 +2060,11 @@ def main(argv):
                                 G=G_GAMMA, idx=idx_b)
     check_k1(kernels, gen, dev, S_BATCH, save=False, G=G_GAMMA, idx=idx_b)
     check_k1(kernels, gen, dev, S_BATCH, save=True, G=G_GAMMA + 1, idx=idx_b)
+    # the forms no main-path shape launches: the register form's padded
+    # blocks (G = 2, 3) and the staged form at 8 states a block
+    for G_, A_ in ((2, A), (3, A), (G_GAMMA, 8)):
+        check_k1(kernels, gen, dev, S_BATCH, save=True, G=G_, idx=idx_b,
+                 A_=A_, timed=False)
     k10b = check_k2(kernels, gen, dev, blk_inputs, G=G_GAMMA)
     k3b = check_k3(kernels, gen, dev, blk_inputs, G=G_GAMMA)
     check_k3(kernels, gen, dev, blk_inputs, G=G_GAMMA, ties=True)

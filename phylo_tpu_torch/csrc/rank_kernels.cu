@@ -23,29 +23,33 @@
 // card's FP32 rate.  K2 reads children and the cotangent (3A floats)
 // and writes two child cotangents (2A floats); K3 reads the same, its
 // children from wherever the index points.  Blocked, every count is per
-// plane of G*A and the arithmetic ~4 G A^2.
+// plane of G*A and the arithmetic ~4 G A^2.  Most particles share a few
+// child slabs (DS1's last rank: 6 slabs for 4,096 children), so the
+// children come from L2 and the DRAM byte bound does not see their reads.
 //
-// Design: one CUDA block per particle, threads (K1) or warps (the
-// backward) striding over sites so neighbouring threads read
-// neighbouring addresses of each plane (coalesced).  Each block reads
-// its own idx entries (the TPU kernel scalar-prefetched them).  The
-// 4x4 contraction runs in exact FP32 FMAs in registers (no tensor
-// cores, no TF32).  K1 writes the rescaled column straight into
-// buf[:, outc] IN PLACE (the TPU kernel aliased the buffer); the column
-// written is never among the columns read.  Site sums (rootll,
-// logscale, dP) are block reductions in a fixed order.  dpi and dw are
-// sums over particles: instead of carrying them across a sequential
-// grid as the TPU did, each block writes a partial row and the wrapper
-// sums the rows with torch.sum (deterministic, no atomics).
+// Common design: one CUDA block per particle, warps striding over chunks
+// of 32 SPL sites so neighbouring lanes read neighbouring addresses of
+// each plane (coalesced).  Each block reads its own idx entries (the TPU
+// kernel scalar-prefetched them).  The contractions run in exact FP32
+// FMAs in registers (no tensor cores, no TF32), by block_merge's fixed
+// chains in both directions.  The forward writes the rescaled column
+// straight into buf[:, outc] IN PLACE (the TPU kernel aliased the
+// buffer); the column written is never among the columns read.  Site
+// sums (rootll, logscale, dP) are lane chains, warp reductions and the
+// warps in warp order.  dpi and dw are sums over particles: instead of
+// carrying them across a sequential grid as the TPU did, each block
+// writes a partial row and the wrapper sums the rows with torch.sum
+// (deterministic, no atomics).
 //
-// The blocked kernels take G at run time and keep only one block's A
-// planes in registers: a site's scale is the max over ALL G*A planes,
-// so each site is done in two passes over the blocks, the second
-// re-reading its children (from L1/L2) and recomputing the block's
-// merge bit for bit (explicit __fmaf_rn / __fmul_rn, never contracted
-// differently).  The transitions sit in shared memory (2 G A^2 floats).
-// Ties of the max are counted across all G*A planes in the first pass.
-//
+// The forward (K1: the dense form, G = 1; K10's forward: the blocked
+// form), fused_rank_fwd_kernel, takes one pass: a site's merged planes
+// stay in registers (or the warp's shared-memory stage) until its max over
+// all G*A planes is known, so every child value is read once.  On the
+// H100 its time sits within about 25% of the sum of two probes of the
+// same launch, the children's reads alone and the column's writes alone:
+// the reads from L2 and the writes to DRAM hardly overlap (PERF.md).
+// rank_fwd_plan sizes the lane's sites and the warps.
+
 // The backward (K2, K3, K11a at A <= 8: the dense form, G = 1; K3
 // blocked, K10's: the blocked form).  Bytes bound it (DS1
 // GTR+Gamma4, K = 2048, S = 256: 0.0308 ms), so the card has to keep
@@ -73,14 +77,21 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+// The rank forward: warps a block at most, and the rate blocks and states
+// a block of its register form at most (pruning/kernels.py mirrors them)
+constexpr int kFwdMaxWarps = 8;
+constexpr int kFwdRegBlocks = 4;
+constexpr int kFwdRegStates = 4;
 // The rank backward: sites a lane holds per chunk (blocked form), warps a
 // block (pruning/kernels.py::rank_bwd_plan mirrors both)
 constexpr int kBwdSPL = 1;
 constexpr int kBwdMaxWarps = 8;
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+// The sum of v over a warp's 32 lanes, in every lane: a butterfly (pairs
+// L, L ^ 16 first, then L ^ 8, ...), the same bits in every lane and call.
+__device__ __forceinline__ float warp_allsum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -97,30 +108,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Block-wide sums of NV per-thread values; the result is valid in
-// thread 0.  `sh` holds 32 * NV floats.  Every thread must call it.
-template <int NV>
-__device__ __forceinline__ void block_sum(float (&v)[NV], float* sh) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) v[i] = warp_sum(v[i]);
-  __syncthreads();  // a previous call's readers are done with sh
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) sh[warp * NV + i] = v[i];
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const float x = lane < nwarps ? sh[lane * NV + i] : 0.f;
-      v[i] = warp_sum(x);
-    }
-  }
-}
-
 __device__ __forceinline__ const float* child_slab(
     const float* leaves, const float* buf, int row, int node, int N, int R,
     size_t slab) {
@@ -128,82 +115,9 @@ __device__ __forceinline__ const float* child_slab(
                   : buf + ((size_t)row * R + (node - N)) * slab;
 }
 
-template <int A>
-__global__ void __launch_bounds__(kThreads) fused_rank_kernel(
-    const float* __restrict__ leaves, float* buf,
-    const int* __restrict__ idx, const float* __restrict__ Pl,
-    const float* __restrict__ Pr, const float* __restrict__ pi,
-    const float* __restrict__ w, float* __restrict__ rootll,
-    float* __restrict__ logscale, float* __restrict__ c1,
-    float* __restrict__ c2, int K, int R, int N, int S, int outc) {
-  __shared__ float sh[32 * 2];
-  const int k = blockIdx.x;
-  const size_t slab = (size_t)A * S;
-  const float* m1 = child_slab(leaves, buf, idx[k], idx[K + k], N, R, slab);
-  const float* m2 =
-      child_slab(leaves, buf, idx[2 * K + k], idx[3 * K + k], N, R, slab);
-  float pl[A * A], pr[A * A], pv[A];
-#pragma unroll
-  for (int c = 0; c < A * A; ++c) {
-    pl[c] = Pl[(size_t)k * A * A + c];
-    pr[c] = Pr[(size_t)k * A * A + c];
-  }
-#pragma unroll
-  for (int a = 0; a < A; ++a) pv[a] = pi[a];
-  float* out = buf + ((size_t)k * R + outc) * slab;
-  float* s1 = c1 ? c1 + (size_t)k * slab : nullptr;
-  float* s2 = c2 ? c2 + (size_t)k * slab : nullptr;
-
-  float acc[2] = {0.f, 0.f};
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    float a1[A], a2[A];
-#pragma unroll
-    for (int a = 0; a < A; ++a) {
-      a1[a] = m1[(size_t)a * S + s];
-      a2[a] = m2[(size_t)a * S + s];
-    }
-    if (s1) {
-#pragma unroll
-      for (int a = 0; a < A; ++a) {
-        s1[(size_t)a * S + s] = a1[a];
-        s2[(size_t)a * S + s] = a2[a];
-      }
-    }
-    float wv[A];
-#pragma unroll
-    for (int b = 0; b < A; ++b) {
-      float u = a1[0] * pl[b], v = a2[0] * pr[b];
-#pragma unroll
-      for (int a = 1; a < A; ++a) {
-        u += a1[a] * pl[a * A + b];
-        v += a2[a] * pr[a * A + b];
-      }
-      wv[b] = u * v;
-    }
-    float raw = wv[0];
-#pragma unroll
-    for (int b = 1; b < A; ++b) raw = fmaxf(raw, wv[b]);
-    const float scale = fmaxf(raw, FLT_MIN);
-    float site = wv[0] * pv[0];
-#pragma unroll
-    for (int b = 0; b < A; ++b) {
-      out[(size_t)b * S + s] = wv[b] / scale;
-      if (b) site += wv[b] * pv[b];
-    }
-    const float ws = w[s];
-    acc[0] += logf(site) * ws;
-    acc[1] += logf(scale) * ws;
-  }
-  block_sum<2>(acc, sh);
-  if (threadIdx.x == 0) {
-    rootll[k] = acc[0];
-    logscale[k] = acc[1];
-  }
-}
-
 // One rate-category block of the merge: u = Pl_g^T a1, v = Pr_g^T a2,
 // w = u * v, in a fixed operation order (no FMA contraction choices), so
-// the two passes of the blocked kernels get the same bits.
+// the forward and the backward's passes get the same bits.
 template <int A>
 __device__ __forceinline__ void block_merge(const float* a1, const float* a2,
                                             const float* pl, const float* pr,
@@ -261,71 +175,255 @@ __device__ __forceinline__ void load_transitions(
   }
 }
 
-// K10 forward: K1 with transitions (K, G, A, A) and G*A-plane messages.
-template <int A>
-__global__ void __launch_bounds__(kThreads) fused_rank_blocked_kernel(
-    const float* __restrict__ leaves, float* buf,
-    const int* __restrict__ idx, const float* __restrict__ Pl,
-    const float* __restrict__ Pr, const float* __restrict__ pi,
-    const float* __restrict__ w, float* __restrict__ rootll,
-    float* __restrict__ logscale, float* __restrict__ c1,
-    float* __restrict__ c2, int K, int R, int N, int G, int S, int outc) {
+// The rank forward: K1 (G = 1, transitions (K, A, A)) and K10's forward
+// (G > 1 rate-category blocks of A <= 8 states, transitions (K, G, A,
+// A)), `_kernel_rank`'s math: per particle k and site s the children m1,
+// m2 (a leaf, or a column of the write-once buffer), the merge w = (P_l^T
+// m1) * (P_r^T m2) by block_merge's chains (the rank backward's bits: its
+// max and ties are the forward's), scale = max(max_p w_p, FLT_MIN), the
+// column w / scale written to buf[k, outc], rootll_k = sum_s weight_s
+// log(sum_p pi_p w_p) and logscale_k = sum_s weight_s log(scale_s).  One
+// pass: every child value is read once, and w is kept until the site's
+// max is known.
+// One CUDA block per particle, `blockDim.x / 32` warps; warp w owns the
+// site chunks c = w, w + W, ... of CH = 32 SPL sites (neighbouring warps
+// write neighbouring chunks at about the same time), lane l the sites
+// c CH + 32 j + l (j < SPL).  A lane's log terms form one chain over its
+// sites in order (fused multiply-adds); the warp sums its lanes by a
+// butterfly (xor 16, 8, 4, 2, 1) and the block its warps in warp order:
+// the same bits in every call, no atomics.
+// Two forms, chosen by fwd_blocks:
+// * Registers (NG blocks at compile time: NG = 1 is the dense form, K1;
+//   NG = kFwdRegBlocks serves every 1 < G <= NG at run time, the padded
+//   blocks skipped): a lane loads its sites' 2 G A child values straight
+//   into registers, every load of a chunk issued before the first store,
+//   and keeps w there.  Dense, the transitions and pi sit in registers;
+//   blocked, in shared memory, one block's A^2 pair at a time in
+//   registers (float4 broadcasts).
+// * Staged (NG = 0, 1 < G at run time: more planes than registers hold): a
+//   warp stages its chunk's children (2 G A CH floats) in its own shared
+//   memory by cp.async, every copy in flight at once, merges block by
+//   block and writes each block's w over its own staged m1 values (a lane
+//   only ever touches the sites it copied, so no barrier guards the
+//   stage), then scales them into the column.
+// The children are read through const __restrict__ views (leaves, bin)
+// and the column written through bout: the same buffer, but column outc is
+// never among the children read, so the views do not overlap and the
+// loads need not wait behind the stores.  One reciprocal of the scale a
+// site multiplies the planes (the plain version divides each, at most an
+// ulp apart; a division a plane ran 19% slower at DS1's step shape), and,
+// blocked, the column and saved children go out as streaming
+// (evict-first) stores, which the L2 drains to DRAM while the children's
+// reads go on (6-21% quicker blocked; dense, from 3% quicker to 6%
+// slower, so plain there).  tools/torch_k1_k10_forms.py times both
+// choices on the H100 from patched copies of this file.
+template <int A, int SPL, int NG>
+__global__ void __launch_bounds__(32 * kFwdMaxWarps) fused_rank_fwd_kernel(
+    const float* __restrict__ leaves, const float* __restrict__ bin,
+    float* __restrict__ bout, const int* __restrict__ idx,
+    const float* __restrict__ Pl, const float* __restrict__ Pr,
+    const float* __restrict__ pi, const float* __restrict__ w,
+    float* __restrict__ rootll, float* __restrict__ logscale,
+    float* __restrict__ c1, float* __restrict__ c2, int K, int R, int N,
+    int Gr, int S, int outc) {
+  constexpr int AA = A * A;
+  constexpr int CH = 32 * SPL;          // sites a chunk
+  constexpr int NP = NG * A;            // register form: planes held
+  const int G = NG == 1 ? 1 : Gr;
   extern __shared__ float smem[];
-  __shared__ float sh[32 * 2];
   const int k = blockIdx.x;
-  const int GA = G * A, npb = G * A * A;
-  float* pl = smem;
-  float* pr = smem + npb;
-  float* pv = smem + 2 * npb;
-  load_transitions(pl, pr, Pl, Pr, k, npb);
-  for (int c = threadIdx.x; c < GA; c += blockDim.x) pv[c] = pi[c];
-  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  const int GA = G * A, npb = G * AA;
   const size_t slab = (size_t)GA * S;
-  const float* m1 = child_slab(leaves, buf, idx[k], idx[K + k], N, R, slab);
+  // blocked: Pl, Pr (G A^2 each), pi (G A); then the warps' sums (2 W)
+  // and, staged, each warp's stage (2 G A CH)
+  float* pl = smem;
+  float* pr = pl + npb;
+  float* pv = pr + npb;
+  float* slot = NG == 1 ? smem : pv + GA;
+  float* x1 = slot + 2 * W + (size_t)warp * 2 * GA * CH;
+  float* x2 = x1 + GA * CH;
+  const float* m1 = child_slab(leaves, bin, idx[k], idx[K + k], N, R, slab);
   const float* m2 =
-      child_slab(leaves, buf, idx[2 * K + k], idx[3 * K + k], N, R, slab);
-  float* out = buf + ((size_t)k * R + outc) * slab;
+      child_slab(leaves, bin, idx[2 * K + k], idx[3 * K + k], N, R, slab);
+  float* out = bout + ((size_t)k * R + outc) * slab;
   float* s1 = c1 ? c1 + (size_t)k * slab : nullptr;
   float* s2 = c2 ? c2 + (size_t)k * slab : nullptr;
+  const int nch = (S + CH - 1) / CH;
+  float lr = 0.f, ls = 0.f;             // the lane's rootll, logscale chains
 
-  float acc[2] = {0.f, 0.f};
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    float raw = __int_as_float(0xff800000), site = 0.f;  // -inf
-    for (int g = 0; g < G; ++g) {          // pass 1: max and site sum
-      float a1[A], a2[A], u[A], v[A], wv[A];
-      load_block<A>(m1, g, S, s, a1);
-      load_block<A>(m2, g, S, s, a2);
-      if (s1) {
+  // blocked, streaming (evict-first) stores; dense, plain ones
+  constexpr bool Stream = NG != 1;
+  auto store = [](float* at, float x) {
+    if (Stream) __stcs(at, x); else *at = x;
+  };
+  if constexpr (NG != 1) {
+    load_transitions(pl, pr, Pl, Pr, k, npb);
+    for (int c = threadIdx.x; c < GA; c += blockDim.x) pv[c] = pi[c];
+    __syncthreads();                    // the transitions and pi
+  }
+  if constexpr (NG >= 1) {
+    float pld[NG == 1 ? AA : 1], prd[NG == 1 ? AA : 1], pvd[NG == 1 ? A : 1];
+    if constexpr (NG == 1) {
 #pragma unroll
-        for (int a = 0; a < A; ++a) {
-          s1[(size_t)(g * A + a) * S + s] = a1[a];
-          s2[(size_t)(g * A + a) * S + s] = a2[a];
+      for (int c = 0; c < AA; ++c) {
+        pld[c] = Pl[(size_t)k * AA + c];
+        prd[c] = Pr[(size_t)k * AA + c];
+      }
+#pragma unroll
+      for (int a = 0; a < A; ++a) pvd[a] = pi[a];
+    }
+    for (int c = warp; c < nch; c += W) {
+      const int s0 = c * CH + lane;
+      float a1[SPL][NP], a2[SPL][NP], ws[SPL];
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) {
+        const int s = s0 + 32 * j;
+        const bool ok = s < S;
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const bool on = ok && (NG == 1 || p < GA);
+          const size_t at = (size_t)p * S + s;
+          a1[j][p] = on ? __ldg(m1 + at) : 0.f;
+          a2[j][p] = on ? __ldg(m2 + at) : 0.f;
+        }
+        ws[j] = ok ? w[s] : 0.f;
+      }
+      float wv[SPL][NP], raw[SPL], site[SPL];
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) {
+        raw[j] = __int_as_float(0xff800000);  // -inf
+        site[j] = 0.f;
+      }
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        if (NG > 1 && g >= G) continue;
+        float plg[AA], prg[AA], pvg[A];
+        if constexpr (NG == 1) {
+#pragma unroll
+          for (int e = 0; e < AA; ++e) {
+            plg[e] = pld[e];
+            prg[e] = prd[e];
+          }
+#pragma unroll
+          for (int b = 0; b < A; ++b) pvg[b] = pvd[b];
+        } else {
+          load_pblock<A>(pl + g * AA, pr + g * AA, plg, prg);
+#pragma unroll
+          for (int b = 0; b < A; ++b) pvg[b] = pv[g * A + b];
+        }
+#pragma unroll
+        for (int j = 0; j < SPL; ++j) {
+          float u[A], v[A];
+          block_merge<A>(a1[j] + g * A, a2[j] + g * A, plg, prg, u, v,
+                         wv[j] + g * A);
+#pragma unroll
+          for (int b = 0; b < A; ++b) {
+            raw[j] = fmaxf(raw[j], wv[j][g * A + b]);
+            site[j] = __fmaf_rn(wv[j][g * A + b], pvg[b], site[j]);
+          }
         }
       }
-      block_merge<A>(a1, a2, pl + g * A * A, pr + g * A * A, u, v, wv);
 #pragma unroll
-      for (int b = 0; b < A; ++b) {
-        raw = fmaxf(raw, wv[b]);
-        site = __fmaf_rn(wv[b], pv[g * A + b], site);
+      for (int j = 0; j < SPL; ++j) {
+        const int s = s0 + 32 * j;
+        if (s >= S) continue;
+        const float scale = fmaxf(raw[j], FLT_MIN);
+        const float inv = 1.f / scale;
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          if (NG > 1 && p >= GA) continue;
+          const size_t at = (size_t)p * S + s;
+          if (s1) {
+            store(s1 + at, a1[j][p]);
+            store(s2 + at, a2[j][p]);
+          }
+          store(out + at, wv[j][p] * inv);
+        }
+        lr = __fmaf_rn(logf(site[j]), ws[j], lr);
+        ls = __fmaf_rn(logf(scale), ws[j], ls);
       }
     }
-    const float scale = fmaxf(raw, FLT_MIN);
-    for (int g = 0; g < G; ++g) {          // pass 2: the rescaled column
-      float a1[A], a2[A], u[A], v[A], wv[A];
-      load_block<A>(m1, g, S, s, a1);
-      load_block<A>(m2, g, S, s, a2);
-      block_merge<A>(a1, a2, pl + g * A * A, pr + g * A * A, u, v, wv);
+  } else {
+    for (int c = warp; c < nch; c += W) {
+      const int s0 = c * CH + lane;
+      // this lane's sites of chunk c into the stage (planes-major, CH a
+      // plane), padded sites zero
+      for (int p = 0; p < GA; ++p) {
 #pragma unroll
-      for (int b = 0; b < A; ++b) out[(size_t)(g * A + b) * S + s] = wv[b] / scale;
+        for (int j = 0; j < SPL; ++j) {
+          const int s = s0 + 32 * j, e = p * CH + 32 * j + lane;
+          if (s < S) {
+            const size_t at = (size_t)p * S + s;
+            cp_async4(x1 + e, m1 + at);
+            cp_async4(x2 + e, m2 + at);
+          } else {
+            x1[e] = x2[e] = 0.f;
+          }
+        }
+      }
+      float ws[SPL], raw[SPL], site[SPL];
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) {
+        const int s = s0 + 32 * j;
+        ws[j] = s < S ? w[s] : 0.f;
+        raw[j] = __int_as_float(0xff800000);  // -inf
+        site[j] = 0.f;
+      }
+      cp_async_wait_all();
+      for (int g = 0; g < G; ++g) {
+        float plg[AA], prg[AA];
+        load_pblock<A>(pl + g * AA, pr + g * AA, plg, prg);
+#pragma unroll
+        for (int j = 0; j < SPL; ++j) {
+          const int e = 32 * j + lane, s = s0 + 32 * j;
+          float a1[A], a2[A], u[A], v[A], wv[A];
+          load_block<A>(x1, g, CH, e, a1);
+          load_block<A>(x2, g, CH, e, a2);
+          if (s1 && s < S) {
+#pragma unroll
+            for (int a = 0; a < A; ++a) {
+              store(s1 + (size_t)(g * A + a) * S + s, a1[a]);
+              store(s2 + (size_t)(g * A + a) * S + s, a2[a]);
+            }
+          }
+          block_merge<A>(a1, a2, plg, prg, u, v, wv);
+#pragma unroll
+          for (int b = 0; b < A; ++b) {
+            x1[(g * A + b) * CH + e] = wv[b];
+            raw[j] = fmaxf(raw[j], wv[b]);
+            site[j] = __fmaf_rn(wv[b], pv[g * A + b], site[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) {
+        const int e = 32 * j + lane, s = s0 + 32 * j;
+        if (s >= S) continue;
+        const float scale = fmaxf(raw[j], FLT_MIN);
+        const float inv = 1.f / scale;
+        for (int p = 0; p < GA; ++p)
+          store(out + (size_t)p * S + s, x1[p * CH + e] * inv);
+        lr = __fmaf_rn(logf(site[j]), ws[j], lr);
+        ls = __fmaf_rn(logf(scale), ws[j], ls);
+      }
     }
-    const float ws = w[s];
-    acc[0] += logf(site) * ws;
-    acc[1] += logf(scale) * ws;
   }
-  block_sum<2>(acc, sh);
-  if (threadIdx.x == 0) {
-    rootll[k] = acc[0];
-    logscale[k] = acc[1];
+  lr = warp_allsum(lr);
+  ls = warp_allsum(ls);
+  if (lane == 0) {
+    slot[2 * warp] = lr;
+    slot[2 * warp + 1] = ls;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {               // the warps in warp order
+    for (int q = 1; q < W; ++q) {
+      lr += slot[2 * q];
+      ls += slot[2 * q + 1];
+    }
+    rootll[k] = lr;
+    logscale[k] = ls;
   }
 }
 
@@ -681,30 +779,6 @@ __global__ void __launch_bounds__(32 * kBwdMaxWarps)
 #define PHYLO_A_CASES(MACRO) \
   MACRO(1) MACRO(2) MACRO(3) MACRO(4) MACRO(5) MACRO(6) MACRO(7) MACRO(8)
 
-extern "C" int launch_fused_rank(const float* leaves, float* buf,
-                                 const int* idx, const float* Pl,
-                                 const float* Pr, const float* pi,
-                                 const float* w, float* rootll,
-                                 float* logscale, float* c1, float* c2,
-                                 int K, int R, int N, int A, int S, int outc,
-                                 void* stream) {
-  if (K <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (A) {
-#define PHYLO_K1(AA)                                                    \
-  case AA:                                                              \
-    fused_rank_kernel<AA><<<K, kThreads, 0, st>>>(                      \
-        leaves, buf, idx, Pl, Pr, pi, w, rootll, logscale, c1, c2, K, R, \
-        N, S, outc);                                                    \
-    break;
-    PHYLO_A_CASES(PHYLO_K1)
-#undef PHYLO_K1
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
 static size_t blocked_smem(int G, int A) {
   return (size_t)(2 * G * A * A + G * A) * sizeof(float);
 }
@@ -724,28 +798,90 @@ static int allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-extern "C" int launch_fused_rank_blocked(
+// The rank forward's shared memory: the warps' two sums and, blocked
+// (G > 1), the transitions and pi and, staged (ng = 0), each warp's stage
+// (2 G A 32 spl floats).
+static size_t fwd_smem(int G, int A, int warps, int spl, int ng) {
+  size_t n = (size_t)2 * warps;
+  if (ng != 1) n += 2 * G * A * A + G * A;
+  if (ng == 0) n += (size_t)warps * 2 * G * A * 32 * spl;
+  return n * sizeof(float);
+}
+
+// The rank forward's form (pruning/kernels.py::fwd_blocks mirrors it):
+// the blocks the register form holds (1: dense; blocked, kFwdRegBlocks
+// blocks of at most kFwdRegStates states, so at most 16 planes, for any
+// G <= kFwdRegBlocks), or 0 for the staged form.
+static int fwd_blocks(int G, int A) {
+  if (G == 1) return 1;
+  return A > kFwdRegStates || G > kFwdRegBlocks ? 0 : kFwdRegBlocks;
+}
+
+template <int A, int SPL, int NG>
+static int launch_fwd_form(const float* leaves, float* buf, const int* idx,
+                           const float* Pl, const float* Pr, const float* pi,
+                           const float* w, float* rootll, float* logscale,
+                           float* c1, float* c2, int K, int R, int N, int G,
+                           int S, int outc, int warps, cudaStream_t st) {
+  auto kernel = fused_rank_fwd_kernel<A, SPL, NG>;
+  const size_t smem = fwd_smem(G, A, warps, SPL, NG);
+  const int err = allow_smem(kernel, smem);
+  if (err) return err;
+  kernel<<<K, 32 * warps, smem, st>>>(leaves, buf, buf, idx, Pl, Pr, pi, w,
+                                      rootll, logscale, c1, c2, K, R, N, G,
+                                      S, outc);
+  return (int)cudaGetLastError();
+}
+
+// The register form's instances of A <= kFwdRegStates states: dense at
+// spl 1 or 2, blocked (kFwdRegBlocks blocks) at spl 1.
+template <int A>
+static int launch_fwd_reg(int ng, int spl, const float* leaves, float* buf,
+                          const int* idx, const float* Pl, const float* Pr,
+                          const float* pi, const float* w, float* rootll,
+                          float* logscale, float* c1, float* c2, int K, int R,
+                          int N, int G, int S, int outc, int warps,
+                          cudaStream_t st) {
+#define PHYLO_FWD_ARGS                                                     \
+  leaves, buf, idx, Pl, Pr, pi, w, rootll, logscale, c1, c2, K, R, N, G, S, \
+      outc, warps, st
+  if (ng == 1 && spl == 1) return launch_fwd_form<A, 1, 1>(PHYLO_FWD_ARGS);
+  if (ng == 1 && spl == 2) return launch_fwd_form<A, 2, 1>(PHYLO_FWD_ARGS);
+  if (ng == 1 || spl != 1) return (int)cudaErrorInvalidValue;
+  return launch_fwd_form<A, 1, kFwdRegBlocks>(PHYLO_FWD_ARGS);
+}
+
+// K1 (G = 1) and K10's forward (G > 1): spl and warps come from
+// pruning/kernels.py::rank_fwd_plan (the register form: dense spl 1 or 2,
+// blocked 1; the staged form 1).  c1, c2 may be null (no saved children).
+extern "C" int launch_fused_rank_fwd(
     const float* leaves, float* buf, const int* idx, const float* Pl,
     const float* Pr, const float* pi, const float* w, float* rootll,
     float* logscale, float* c1, float* c2, int K, int R, int N, int G, int A,
-    int S, int outc, void* stream) {
+    int S, int outc, int spl, int warps, void* stream) {
   if (K <= 0) return 0;
-  if (G <= 0) return (int)cudaErrorInvalidValue;
+  if (G <= 0 || G > 32 || warps < 1 || warps > kFwdMaxWarps)
+    return (int)cudaErrorInvalidValue;
+  const int ng = fwd_blocks(G, A);
+  if (ng == 0 && spl != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = blocked_smem(G, A);
   switch (A) {
-#define PHYLO_K10F(AA)                                                     \
-  case AA:                                                                 \
-    fused_rank_blocked_kernel<AA><<<K, kThreads, smem, st>>>(              \
-        leaves, buf, idx, Pl, Pr, pi, w, rootll, logscale, c1, c2, K, R,   \
-        N, G, S, outc);                                                    \
-    break;
-    PHYLO_A_CASES(PHYLO_K10F)
-#undef PHYLO_K10F
+#define PHYLO_K1(AA)                                                      \
+  case AA:                                                                \
+    if (ng == 0) return launch_fwd_form<AA, 1, 0>(PHYLO_FWD_ARGS);        \
+    if constexpr (AA <= kFwdRegStates) {                                  \
+      return launch_fwd_reg<AA>(ng, spl, PHYLO_FWD_ARGS);                 \
+    } else {                                                              \
+      if (spl == 1) return launch_fwd_form<AA, 1, 1>(PHYLO_FWD_ARGS);     \
+      if (spl == 2) return launch_fwd_form<AA, 2, 1>(PHYLO_FWD_ARGS);     \
+      return (int)cudaErrorInvalidValue;                                  \
+    }
+    PHYLO_A_CASES(PHYLO_K1)
+#undef PHYLO_K1
+#undef PHYLO_FWD_ARGS
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 template <int A, bool Gather, int SPL, bool Dense>

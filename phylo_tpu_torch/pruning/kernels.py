@@ -37,9 +37,12 @@ wide base such as protein + Gamma4, G = 4 x A = 20); CPU tensors run
 the plain versions `_fused_rank_ref` / `_fused_rank_bwd_saved_ref` /
 `_fused_rank_bwd_ref` below, at any A.  A blocked model with A <= 8
 states per block runs on K10 (G <= 32 blocks); above 128 planes (GY94 +
-Gamma4: 244) the card has no rank kernel.  K2, K3 (A <= 8) and K10's
-backward are one body on the card, `fused_rank_bwd_blocked_kernel`, in
-its dense form for G = 1.  K1, K2, K3 and K9 have no
+Gamma4: 244) the card has no rank kernel.  K1 and K10's forward are one
+body on the card, `fused_rank_fwd_kernel` (one pass: each child value
+read once), in its dense form for G = 1, launched on `rank_fwd_plan`;
+K2, K3 (A <= 8) and K10's backward are one body,
+`fused_rank_bwd_blocked_kernel`, in its dense form for G = 1, on
+`rank_bwd_plan`.  K1, K2, K3 and K9 have no
 autograd rule: only the manual whole-sweep VJP (smc.sweep_vjp) and the
 no-grad sweep call them.  K7 and K11c (dense A <= 8) and K8 live in
 csrc/twist_kernels.cu, K7 wide (dense 8 < A <= 64, and blocked), K11b
@@ -71,6 +74,11 @@ SMEM_LIMIT = 232448             # shared-memory bytes of a block (H100)
 MAX_G = 32                      # rate-category blocks on the card
 MAX_WIDE_PLANES = 128           # G*A planes of the wide kernels K9
 WIDE_FWD_THREADS = 256          # K9f: threads a block at most
+FWD_SPL = 2                     # K1: a lane's sites a chunk at most
+FWD_WARP_CHUNKS = 8             # K1 / K10: chunks a warp on a full grid
+FWD_MAX_WARPS = 8               # the rank forward: warps (chunks) a block
+FWD_REG_BLOCKS = 4              # K10's register form: rate blocks at most
+FWD_REG_STATES = 4              # K10's register form: states a block
 BWD_SITES_PER_LANE = 1          # K3 blocked / K10 bwd: a lane's sites a chunk
 DENSE_BWD_SPL = 2               # K2 / K3 / K11a (A <= 8): a lane's sites at most
 DENSE_BWD_WARPS = 4             # K2 / K3 / K11a: warps a particle on a full grid
@@ -222,8 +230,9 @@ def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
     rank, never among the children read); P_l, P_r (K, A, A), or
     (K, G, A, A) blocked (K10); pi (GA,); weights (S,).  Returns (rootll
     (K,), logscale (K,)) and, with save_children, the gathered children
-    (K, GA, S) twice.  On the card: K1, K10 (blocked, A <= 8), K9f (A > 8)
-    or K9f blocked (A > 8, G > 1), one kernel launch each."""
+    (K, GA, S) twice.  On the card: K1 (dense, A <= 8) or K10 (blocked,
+    A <= 8), one body on `rank_fwd_plan`'s launch, K9f (A > 8) or K9f
+    blocked (A > 8, G > 1), one kernel launch each."""
     if not buf.is_cuda:
         return _fused_rank_ref(leaves, buf, idx, outc, P_l, P_r, pi,
                                weights, save_children)
@@ -262,16 +271,13 @@ def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
         _ext.LAUNCHES[name] += 1
         code = fn(*ptrs, K, R, N, G, A, S, outc, sc, cluster, threads,
                   _ext.stream_ptr(dev))
-    elif blocked:
-        fn = _ext.bind("rank_kernels", "launch_fused_rank_blocked", 11, 7)
-        name = "fused_rank_update_blocked"
-        _ext.LAUNCHES[name] += 1
-        code = fn(*ptrs, K, R, N, G, A, S, outc, _ext.stream_ptr(dev))
     else:
-        fn = _ext.bind("rank_kernels", "launch_fused_rank", 11, 6)
-        name = "fused_rank_update"
+        spl, warps, _, _, _ = rank_fwd_plan(K, G, A, S)
+        fn = _ext.bind("rank_kernels", "launch_fused_rank_fwd", 11, 9)
+        name = "fused_rank_update" + ("_blocked" if blocked else "")
         _ext.LAUNCHES[name] += 1
-        code = fn(*ptrs, K, R, N, A, S, outc, _ext.stream_ptr(dev))
+        code = fn(*ptrs, K, R, N, G, A, S, outc, spl, warps,
+                  _ext.stream_ptr(dev))
     _ext.check(code, name)
     rootll, logscale = sums
     if save_children:
@@ -392,6 +398,61 @@ def rank_bwd_plan(K, G, A, S, spl=None, max_warps=None):
     while warps > 1 and smem(warps) > SMEM_LIMIT:
         warps -= 1
     return spl, warps, chunks, K, smem(warps)
+
+
+def fwd_blocks(G, A):
+    """The rank forward's form (csrc/rank_kernels.cu's fwd_blocks): the
+    rate blocks its register form holds, 1 (dense) or, blocked,
+    FWD_REG_BLOCKS for any G <= FWD_REG_BLOCKS at A <= FWD_REG_STATES (at
+    most 16 planes in registers, the padded blocks skipped); 0, the staged
+    form, otherwise."""
+    if G == 1:
+        return 1
+    if A > FWD_REG_STATES or G > FWD_REG_BLOCKS:
+        return 0
+    return FWD_REG_BLOCKS
+
+
+def rank_fwd_smem(G, A, warps, spl, ng=None):
+    """Shared-memory bytes of the rank forward (csrc/rank_kernels.cu's
+    fwd_smem) in form ng (default `fwd_blocks(G, A)`): the warps' two
+    sums; blocked, also the transitions and pi; staged (ng = 0), also
+    each warp's stage of a chunk's children (2 G A 32 spl floats)."""
+    if ng is None:
+        ng = fwd_blocks(G, A)
+    n = 2 * warps
+    if ng != 1:
+        n += 2 * G * A * A + G * A
+    if ng == 0:
+        n += warps * 2 * G * A * 32 * spl
+    return 4 * n
+
+
+def rank_fwd_plan(K, G, A, S, spl=None, warps=None):
+    """Launch of the rank forward (csrc/rank_kernels.cu's
+    `fused_rank_fwd_kernel`, K1 at G = 1 and K10's forward at G > 1):
+    (sites a lane, warps a block, chunks a particle, blocks, shared-memory
+    bytes).  One block per particle; a chunk is 32 lanes x spl sites, and
+    a warp takes every warps-th chunk.  spl = FWD_SPL dense (G = 1),
+    halved while the grid would be short of warps (`_shrink_spl`), and 1
+    blocked.  Every chunk its own warp, up to FWD_MAX_WARPS, but in the
+    register form (`fwd_blocks` > 0) on a full grid (GRID_WARPS) a warp
+    takes about FWD_WARP_CHUNKS chunks while the grid keeps 8 warps an SM
+    (the staged form waits on each chunk's copies, so it keeps a warp a
+    chunk); the staged form sheds warps until a block fits (G = 32 blocks
+    of 8 states: 3).  The quickest forms on the H100 at the main paths'
+    shapes (tools/torch_k1_k10_forms.py)."""
+    if spl is None:
+        spl = _shrink_spl(K, S, FWD_SPL, FWD_MAX_WARPS) if G == 1 else 1
+    chunks = _ceil(S, 32 * spl)
+    if warps is None:
+        warps = min(chunks, FWD_MAX_WARPS)
+        if fwd_blocks(G, A) and K * warps >= GRID_WARPS:
+            warps = min(warps, max(_ceil(chunks, FWD_WARP_CHUNKS),
+                                   _ceil(GRID_WARPS // 2, K)))
+        while warps > 1 and rank_fwd_smem(G, A, warps, spl) > SMEM_LIMIT:
+            warps -= 1
+    return spl, warps, chunks, K, rank_fwd_smem(G, A, warps, spl)
 
 
 def wide_bwd_smem(G, A, nst=WIDE_BWD_SITE_TILES):
