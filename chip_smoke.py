@@ -91,7 +91,22 @@ script exits non-zero without printing a result:
    body of K9bs, K9b and K11a), K7's,
    K11c's and K8's;
    for VNCSMC GTR+G4 on DS1, K11b's, K7 wide's and
-   K4's device time beside their earlier designs').
+   K4's device time beside their earlier designs');
+6. a training run's life cycle at the main path's width (primate VCSMC,
+   K=2048, b256), in a temporary directory: two epochs through the
+   runner with artifacts and a checkpoint an epoch (the main path's
+   kernels launched; the checkpoints, two best-particle Newick strings
+   naming the 12 taxa with 22 finite positive branch lengths, two epochs
+   of 2048 jump chains; the seconds an epoch and, rerun on each epoch's
+   arrays, the host seconds of the best Newick, JAX's decode-all rule,
+   the jump chains and the checkpoint), epoch_2 restored on the card and
+   on the CPU (params and optimizer state the run's to the bit) and its
+   no-grad eval with epoch 2's generator (the run's ELBO to the bit), a
+   resume to 3 epochs (the first two ELBOs the run's to the bit; the
+   third beside an uninterrupted run's), cli.trees on it, train_elastic
+   through an injected fault, two seed replicas, the sweep runner at
+   K=32 and 64, and a torch.profiler trace of one eval sweep naming K1's
+   and K5's kernels.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -102,6 +117,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -2012,6 +2028,259 @@ def profile_epoch(name):
             f"({path['twist_profile']})")
 
 
+# ---------------------------------------------------------------- phase 6
+# the kernels a no-grad eval sweep of the main path must show in a trace
+TRACE_KERNELS = (RANK_FWD_KERNEL, "categorical_kernel")
+
+
+def same_bits(a, b):
+    """Two values (tensors, or a state_dict's nesting of them) equal to
+    the bit, wherever each lives."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape
+                and a.detach().cpu().numpy().tobytes()
+                == b.detach().cpu().numpy().tobytes())
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_bits(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(same_bits(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def newick_leaves(nwk):
+    """(taxon names, branch lengths) of a Newick string with lengths."""
+    names = re.findall(r"(?<=[(,])([^(),:;]+)", nwk)
+    lengths = [float(x) for x in re.findall(r":([^,();]+)", nwk)]
+    return names, lengths
+
+
+def host_costs(ds, hist, params, tmp):
+    """Host seconds, per epoch of the run, of what the trainer does on
+    the host besides the steps: the best particle's Newick (its lineage
+    alone), JAX's rule (decode all K lineages, then pick), the K jump
+    chains, and the checkpoint (torch.save of the history up to that
+    epoch, fsync'd), each rerun on that epoch's own arrays; the strings
+    must be the run's.  Each timing starts after gc.collect(): a
+    collection of the older generations over this script's heap (phase
+    5's profiler events) took 10.7 s inside one timing."""
+    import gc
+
+    from phylo_tpu_torch.train.checkpoint import save_checkpoint
+    from phylo_tpu_torch.train.trainer import (
+        TrainConfig, _optimizer, best_newick, param_tensors,
+    )
+    from phylo_tpu_torch.viz.trees import (
+        decode_genealogy, jump_chain_evolution, to_newick,
+    )
+
+    opt = _optimizer(TrainConfig(), param_tensors(params))
+    out = []
+    for e in range(len(hist["elbo"])):
+        arrs = [hist[k][e] for k in ("ancestors", "merged_nodes",
+                                     "left_branches", "right_branches")]
+        lw = hist["log_weights"][e]
+        upto = {k: v[:e + 1] for k, v in hist.items()}
+
+        def timed(fn):
+            gc.collect()
+            t0 = time.perf_counter()
+            value = fn()
+            return value, time.perf_counter() - t0
+
+        nwk, t_best = timed(lambda: best_newick(ds.taxa, *arrs, lw))
+        nwk_all, t_all = timed(lambda: to_newick(ds.taxa, decode_genealogy(
+            *arrs)[int(np.argmax(lw[-1]))]))
+        chains, t_chains = timed(
+            lambda: jump_chain_evolution(ds.taxa, *arrs[:2]))
+        path, t_ckpt = timed(lambda: save_checkpoint(
+            os.path.join(tmp, "host_costs"), params, opt, e + 1,
+            history=upto))
+        require(nwk == nwk_all == hist["newick_best"][e],
+                f"epoch {e}: the best Newick differs from JAX's rule")
+        require(chains == hist["jump_chain_evolution"][e],
+                f"epoch {e}: the jump chains differ from the run's")
+        out.append({"best_newick_s": t_best, "decode_all_s": t_all,
+                    "jump_chains_s": t_chains, "checkpoint_s": t_ckpt,
+                    "checkpoint_bytes": os.path.getsize(path)})
+    return out
+
+
+def lifecycle(ext, dev, Kd=K):
+    """A training run's life cycle at the main path's width (primate
+    VCSMC, K=2048, b256): a run with artifacts and a checkpoint an epoch,
+    its epoch_2 restored on the card and on the CPU (the same bits) and
+    evaluated again, a resume to 3 epochs, cli.trees on it, train_elastic
+    through an injected fault, two seed replicas, the sweep runner, and a
+    trace of one eval sweep."""
+    import tempfile
+
+    from phylo_tpu_torch.cli import runner, sweep_runner
+    from phylo_tpu_torch.cli import trees as trees_cli
+    from phylo_tpu_torch.train import TrainConfig, train_elastic
+    from phylo_tpu_torch.train.checkpoint import restore_checkpoint
+    from phylo_tpu_torch.train.replicas import train_replicas
+    from phylo_tpu_torch.train.trainer import (
+        _optimizer, _sweep_config, evaluate, init_params, param_tensors,
+        step_generator,
+    )
+    from phylo_tpu_torch.utils.profiling import BlockTimer, device_trace
+
+    dataset = "primate_data"
+    ds = load(dataset)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_life_") as tmp:
+        base = [f"--dataset={dataset}", f"--n_particles={Kd}",
+                f"--batch_size={S_BATCH}", f"--device={dev.type}",
+                f"--results_dir={os.path.join(tmp, 'runs')}"]
+        # 1. two epochs with artifacts and a checkpoint after each
+        ext.reset_launches()
+        with BlockTimer("run", sync=dev) as run_t:
+            res = runner.run(base + ["--num_epoch=2", "--checkpoint_every=1"])
+        launches = dict(ext.LAUNCHES)
+        for kname in PATHS["vcsmc"]["kernels"]:
+            require(launches.get(kname, 0) > 0,
+                    f"phase 6: {kname} never launched")
+        ckpt = os.path.join(res.save_dir, "ckpt")
+        for e in (1, 2):
+            require(os.path.isfile(os.path.join(ckpt, f"epoch_{e}")),
+                    f"phase 6: no checkpoint epoch_{e}")
+        with open(os.path.join(res.save_dir, "results.p"), "rb") as f:
+            rp = pickle.load(f)
+        require(len(rp["newick_best"]) == 2, "phase 6: not 2 newick_best")
+        for nwk in rp["newick_best"]:
+            names, lengths = newick_leaves(nwk)
+            require(sorted(names) == sorted(ds.taxa),
+                    f"phase 6: {nwk} does not name each taxon once")
+            require(len(lengths) == 2 * (ds.N - 1) and all(
+                math.isfinite(b) and b > 0 for b in lengths),
+                f"phase 6: {nwk} lacks {2 * (ds.N - 1)} finite positive "
+                "branch lengths")
+        jce = rp["jump_chain_evolution"]
+        require(len(jce) == 2 and all(len(c) == Kd for c in jce),
+                "phase 6: jump_chain_evolution is not 2 epochs of K chains")
+        hist = res.history
+        log(f"phase 6 run with artifacts and checkpoints: ELBO "
+            f"{json.dumps(hist['elbo'])}; seconds per epoch (steps + eval) "
+            f"{json.dumps(hist['epoch_seconds'])}; runner.run wall "
+            f"{run_t.seconds:.3f} s; launches {json.dumps(launches)}")
+        costs = host_costs(ds, hist, res.params, tmp)
+        log("phase 6 host seconds per epoch at K="
+            f"{Kd} (best Newick, JAX's decode-all rule, jump chains, "
+            f"checkpoint): {json.dumps(costs)}")
+
+        # 2. epoch_2 restored on the card and on the CPU
+        saved = torch.load(os.path.join(ckpt, "epoch_2"), map_location="cpu",
+                           weights_only=False)
+        cfg = TrainConfig(n_particles=Kd, batch_size=S_BATCH,
+                          device=dev.type)
+        restored = {}
+        for where in (dev.type, "cpu"):
+            model, params = init_params(ds, cfg, device=where)
+            opt = _optimizer(cfg, param_tensors(params))
+            epoch, h = restore_checkpoint(ckpt, params, opt)
+            require(epoch == 2 and h["elbo"] == hist["elbo"],
+                    f"phase 6: restored epoch {epoch} / history on {where}")
+            require(same_bits(param_tensors(params),
+                              param_tensors(res.params)),
+                    f"phase 6: the params restored on {where} are not the "
+                    "run's final params to the bit")
+            require(same_bits(opt.state_dict(), saved["optimizer"]),
+                    f"phase 6: the optimizer state restored on {where} is "
+                    "not the saved one to the bit")
+            restored[where] = (model, params)
+        model, params = restored[dev.type]
+        leaves = torch.tensor(ds.genome, dtype=torch.float32, device=dev)
+        again = float(evaluate(model, params, _sweep_config(cfg),
+                               step_generator(cfg.seed, 1, 0, dev),
+                               leaves).elbo)
+        require(again == hist["elbo"][1],
+                f"phase 6: the restored params' eval gives {again!r}, the "
+                f"run's epoch 2 {hist['elbo'][1]!r}")
+        log(f"phase 6 epoch_2 restored on {dev.type} and on the CPU: params "
+            "and optimizer state the run's to the bit; its eval with the "
+            f"(seed, 1, 0) generator repeats epoch 2's ELBO {again!r} to "
+            "the bit")
+
+        # 3. resume to 3 epochs, beside an uninterrupted third epoch
+        res3 = runner.run(base + ["--num_epoch=3", "--checkpoint_every=1",
+                                  f"--resume_from={ckpt}"])
+        e3 = res3.history["elbo"]
+        require(len(e3) == 3 and e3[:2] == hist["elbo"],
+                f"phase 6: resumed ELBOs {e3} do not start with {hist['elbo']}")
+        straight = runner.run(base + ["--num_epoch=3", "--no_artifacts"])
+        log(f"phase 6 resumed to 3 epochs: third ELBO {e3[2]!r}; an "
+            f"uninterrupted run's {straight.history['elbo'][2]!r} (gap "
+            f"{e3[2] - straight.history['elbo'][2]:.6g}; its first two "
+            f"{json.dumps(straight.history['elbo'][:2])})")
+
+        # 4. the posterior over topologies of the resumed run
+        summary = trees_cli.summarize(res3.save_dir, top=5)
+        probs = [t["probability"] for t in summary["topologies"]]
+        require(probs and all(0.0 < p <= 1.0 for p in probs)
+                and sum(probs) <= 1.0 + 1e-6,
+                f"phase 6: topology probabilities {probs}")
+        require(sorted(newick_leaves(summary["consensus"])[0])
+                == sorted(ds.taxa),
+                f"phase 6: consensus {summary['consensus']} does not name "
+                "each taxon once")
+        require(os.path.isfile(summary["nexus"]), "phase 6: no trees.nex")
+        log(f"phase 6 cli.trees: top probabilities {json.dumps(probs)}; "
+            f"consensus {summary['consensus']}")
+
+        # 5. train_elastic through an injected fault at epoch index 1
+        failures = []
+        el = train_elastic(ds, TrainConfig(
+            n_particles=Kd, batch_size=S_BATCH, num_epoch=2,
+            checkpoint_every=1, checkpoint_dir=os.path.join(tmp, "elastic"),
+            fault_injection="raise:1", save_artifacts=False, log_every=0,
+            device=dev.type), max_restarts=2,
+            on_failure=lambda a, e: failures.append(str(e)))
+        require(len(el.history["elbo"]) == 2 and len(failures) == 1
+                and "injected fault" in failures[0],
+                f"phase 6: train_elastic gave {el.history['elbo']} after "
+                f"failures {failures}")
+        log(f"phase 6 train_elastic: one failure ({failures[0]}), ELBO "
+            f"{json.dumps(el.history['elbo'])}")
+
+        # 6. two seed replicas, one epoch
+        rep = train_replicas(ds, TrainConfig(
+            n_particles=Kd, batch_size=S_BATCH, num_epoch=1,
+            save_artifacts=False, log_every=0, device=dev.type), 2)
+        re_elbo = rep["history"]["elbo"]
+        require(re_elbo.shape == (1, 2) and bool(np.isfinite(re_elbo).all())
+                and re_elbo[0, 0] != re_elbo[0, 1],
+                f"phase 6: replica ELBOs {re_elbo}")
+        log(f"phase 6 train_replicas: ELBO {json.dumps(re_elbo.tolist())}")
+
+        # 7. the sweep runner
+        sweep_dir = os.path.join(tmp, "sweep")
+        sweep_runner.main([f"--dataset={dataset}", "--K_list=32,64",
+                           "--num_epoch=1", f"--device={dev.type}",
+                           f"--results_dir={sweep_dir}"])
+        with open(os.path.join(sweep_dir, "sweep_summary.json")) as f:
+            rows = json.load(f)
+        require(len(rows) == 2 and all(
+            math.isfinite(r["final_elbo"]) for r in rows),
+            f"phase 6: sweep summary {rows}")
+        log("phase 6 sweep_runner: " + json.dumps(
+            [{k: r[k] for k in ("K", "seed", "final_elbo", "wall_s")}
+             for r in rows]))
+
+        # 8. a trace of one eval sweep names K1's and K5's kernels
+        trace_dir = os.path.join(tmp, "trace")
+        with device_trace(trace_dir, device=dev.type):
+            evaluate(model, params, _sweep_config(cfg),
+                     step_generator(cfg.seed, 1, 0, dev), leaves)
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            text = f.read()
+        for kname in TRACE_KERNELS:
+            require(kname in text, f"phase 6: the trace names no {kname}")
+        log(f"phase 6 device_trace of one eval sweep: {len(text)} bytes, "
+            f"names {', '.join(TRACE_KERNELS)}")
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2190,6 +2459,8 @@ def main(argv):
         if PATHS[name].get("profile", True):
             profile_epoch(name)
     log(f"phase 5 done at {time.time() - t0:.1f} s")
+    lifecycle(_ext, dev)
+    log(f"phase 6 done at {time.time() - t0:.1f} s")
 
     rows = [
         ("fused_rank_update", "phylo_tpu_torch/csrc/rank_kernels.cu",

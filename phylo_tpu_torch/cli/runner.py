@@ -17,6 +17,9 @@ Usage (on a GPU):
         --gamma_categories=4 --n_particles=256 --batch_size=256
     python -m phylo_tpu_torch.cli.runner --dataset=<protein FASTA> \
         --paml_dat=lg.dat --plus_f=True --gamma_categories=4
+
+Checkpoints go to <run dir>/ckpt every --checkpoint_every epochs;
+--resume_from=<checkpoint or its directory> continues a run from one.
 """
 
 from __future__ import annotations
@@ -99,10 +102,6 @@ def _check_flags(args):
     if args.coordinator or args.num_processes or args.process_id \
             is not None or os.environ.get("JAX_COORDINATOR_ADDRESS"):
         no("multi-host training", "Queue 1 item 16")
-    if args.checkpoint_every:
-        no("--checkpoint_every", "Queue 1 item 9 (checkpoint)")
-    if args.resume_from:
-        no("--resume_from", "Queue 1 item 9 (checkpoint)")
     if args.dtype == "bfloat16":
         no("--dtype=bfloat16", "Queue 1")
 
@@ -152,6 +151,8 @@ def run(argv=None):
         log_params=args.log_params,
         results_dir=args.results_dir,
         save_artifacts=not args.no_artifacts,
+        checkpoint_every=args.checkpoint_every,
+        resume_from=args.resume_from,
         device=args.device,
     )
     res = train(ds, config)

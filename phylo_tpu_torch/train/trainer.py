@@ -9,12 +9,18 @@ torch.Generator seeded from numpy's SeedSequence of that triple, and the
 site batches come from numpy's default_rng((seed, epoch)) exactly as in
 the JAX package.
 
+Checkpoints (train/checkpoint.py) hold the parameters, the optimizer's
+state and the history; with those streams, a run resumed from the
+epoch-e checkpoint replays epochs e.. bit for bit on the CPU.
+
 Runs on ``cuda`` unless TrainConfig.device says "cpu".
 """
 
 from __future__ import annotations
 
 import math
+import os
+import signal
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -30,7 +36,11 @@ from phylo_tpu_torch.models.substitution import (
 from phylo_tpu_torch.params import flatten
 from phylo_tpu_torch.smc.sweep import SweepConfig, sample_phylogenies
 from phylo_tpu_torch.smc.twist import TwistConfig
+from phylo_tpu_torch.train.checkpoint import (
+    latest_checkpoint, restore_checkpoint, save_checkpoint,
+)
 from phylo_tpu_torch.train.minibatch import site_batches
+from phylo_tpu_torch.viz.trees import _lineage, jump_chain_evolution, to_newick
 
 INITIAL_EVAL_STEP = 2 ** 31 - 1
 
@@ -39,8 +49,8 @@ INITIAL_EVAL_STEP = 2 ** 31 - 1
 class TrainConfig:
     """Training configuration; field names mirror the JAX package's
     TrainConfig (reference runner.py:12-58).  Options of later slices
-    (mesh, checkpoints) are not fields yet: the runner rejects their
-    flags.  A gy94 model takes the dataset's F61 codon frequencies."""
+    (mesh) are not fields yet: the runner rejects their flags.  A gy94
+    model takes the dataset's F61 codon frequencies."""
 
     n_particles: int = 128
     batch_size: int = 256            # sites per SGD step
@@ -75,6 +85,24 @@ class TrainConfig:
     carried_weights: bool = False
     results_dir: Optional[str] = None
     save_artifacts: bool = True
+    # the best particle's Newick each epoch (history["newick_best"])
+    collect_trees: bool = True
+    # all K particles' jump chains each epoch (reference
+    # jump_chain_evolution, vcsmc.py:324,424-425,622-642), decoded on the
+    # host only when artifacts are saved
+    collect_jump_chains: bool = True
+    checkpoint_every: int = 0        # epochs; 0 = off
+    # stable checkpoint directory; None = <save_dir>/ckpt (timestamped,
+    # so not found again after a restart: set it for elastic runs)
+    checkpoint_dir: Optional[str] = None
+    # a checkpoint (or its directory) to resume from, or "auto": the
+    # latest one in checkpoint_dir (a fresh run when there is none yet)
+    resume_from: Optional[str] = None
+    # "sigkill:E" kills the process (as a preemption would) and
+    # "raise:E" raises RuntimeError, at the start of epoch E; only when
+    # the run reached E by training (start_epoch < E), so a resumed run
+    # passes the fault point
+    fault_injection: Optional[str] = None
     log_every: int = 1
     log_params: bool = False
     device: Optional[str] = None     # None = cuda
@@ -239,6 +267,16 @@ def train(dataset, config: TrainConfig):
     leaves = torch.tensor(genome, dtype=dtype, device=dev)
     S = dataset.S
 
+    start_epoch, restored_history = 0, None
+    resume_from = config.resume_from
+    if resume_from == "auto":
+        if not config.checkpoint_dir:
+            raise ValueError("resume_from='auto' needs checkpoint_dir")
+        resume_from = latest_checkpoint(config.checkpoint_dir)
+    if resume_from:
+        start_epoch, restored_history = restore_checkpoint(
+            resume_from, params, optimizer)
+
     initial_elbo = None
     if config.log_every:
         res0 = evaluate(model, params, sweep_cfg,
@@ -261,15 +299,26 @@ def train(dataset, config: TrainConfig):
         "left_branches": [], "right_branches": [],
         "log_weights": [], "log_lik": [], "log_lik_R": [],
         "rates_l": [], "rates_r": [], "epoch_seconds": [],
+        "newick_best": [], "jump_chain_evolution": [],
         "ancestors": [], "merged_nodes": [],
     }
+    if restored_history is not None:
+        # keep the epochs before the resume, so results.p indices match
+        # epoch numbers
+        for k, v in restored_history.items():
+            if k in history:
+                history[k] = list(v)
+    ckpt_dir = config.checkpoint_dir or (
+        os.path.join(save_dir, "ckpt") if save_dir else None)
     fixed_batches = None
     if config.fixed_partition:
         fixed_batches = list(site_batches(
             np.random.default_rng(config.seed), S, config.batch_size,
             drop_last=True))
 
-    for epoch in range(config.num_epoch):
+    for epoch in range(start_epoch, config.num_epoch):
+        if config.fault_injection:
+            _inject_fault(config.fault_injection, epoch, start_epoch)
         t0 = time.time()
         batches = fixed_batches if fixed_batches is not None else list(
             site_batches(np.random.default_rng((config.seed, epoch)), S,
@@ -301,6 +350,15 @@ def train(dataset, config: TrainConfig):
             history["epoch_seconds"].append(dt)
             history["ancestors"].append(_np(res.ancestors))
             history["merged_nodes"].append(_np(res.merged_nodes))
+        if config.collect_trees:
+            history["newick_best"].append(best_newick(
+                dataset.taxa, history["ancestors"][-1],
+                history["merged_nodes"][-1], history["left_branches"][-1],
+                history["right_branches"][-1], history["log_weights"][-1]))
+        if config.collect_jump_chains and save_dir:
+            history["jump_chain_evolution"].append(jump_chain_evolution(
+                dataset.taxa, history["ancestors"][-1],
+                history["merged_nodes"][-1]))
 
         if config.log_every and (epoch % config.log_every == 0):
             llr_max = float(np.max(history["log_lik_R"][-1]))
@@ -313,6 +371,11 @@ def train(dataset, config: TrainConfig):
                     print(f"branch rates L: {history['rates_l'][-1]}")
                     print(f"branch rates R: {history['rates_r'][-1]}")
 
+        if (config.checkpoint_every and ckpt_dir
+                and (epoch + 1) % config.checkpoint_every == 0):
+            save_checkpoint(ckpt_dir, params, optimizer, epoch + 1,
+                            history=history)
+
     if save_dir:
         from phylo_tpu_torch.train.results import save_results
 
@@ -320,6 +383,33 @@ def train(dataset, config: TrainConfig):
     final_elbo = history["elbo"][-1] if history["elbo"] else math.nan
     return TrainResult(params=params, history=history, save_dir=save_dir,
                        elbo=final_elbo)
+
+
+def best_newick(taxa, ancestors, merged_nodes, left_branches,
+                right_branches, log_weights):
+    """Newick of the particle with the largest last-rank log weight: the
+    string of JAX's decode_genealogy(...)[best] (phylo_tpu/train/
+    trainer.py:446-457), from that particle's lineage alone, O(R) in
+    place of O(K R)."""
+    k = int(np.argmax(log_weights[-1]))
+    ranks = np.arange(ancestors.shape[0])
+    j = _lineage(ancestors, k)
+    return to_newick(taxa, {
+        "merges": merged_nodes[ranks, j],
+        "branches": np.stack([left_branches[ranks, j],
+                              right_branches[ranks, j]], axis=1)})
+
+
+def _inject_fault(spec, epoch, start_epoch):
+    kind, at = spec.split(":")
+    if epoch != int(at) or start_epoch >= int(at):
+        return
+    if kind == "sigkill":
+        os.kill(os.getpid(), signal.SIGKILL)
+    elif kind == "raise":
+        raise RuntimeError(f"injected fault at epoch {epoch}")
+    else:
+        raise ValueError(f"unknown fault kind {kind!r}")
 
 
 def _np(t):

@@ -69,6 +69,20 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="--device=cpu"):
         runner.main(["--dataset=load_strings", "--n_particles=4",
                      "--num_epoch=1", "--no_artifacts"])
+    from phylo_tpu_torch.cli import sweep_runner
+    from phylo_tpu_torch.train import train_elastic
+    from phylo_tpu_torch.train.replicas import train_replicas
+
+    ds = load_dataset("load_strings")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep_runner.main(["--dataset=load_strings", "--K_list=4",
+                           "--num_epoch=1", "--results_dir=unused"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_elastic(ds, TrainConfig(n_particles=4, num_epoch=1,
+                                      checkpoint_every=1,
+                                      checkpoint_dir="unused"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_replicas(ds, TrainConfig(n_particles=4, num_epoch=1), 2)
 
 
 def test_float64_on_cuda_is_rejected():

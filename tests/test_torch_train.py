@@ -96,8 +96,6 @@ def test_train_is_reproducible_on_cpu():
     ("--model=lg.dat", FileNotFoundError, "PAML .dat file not found"),
     ("--mesh=4", NotImplementedError, "ROADMAP.md"),
     ("--num_processes=2", NotImplementedError, "ROADMAP.md"),
-    ("--checkpoint_every=1", NotImplementedError, "ROADMAP.md"),
-    ("--resume_from=ckpt", NotImplementedError, "ROADMAP.md"),
     ("--dtype=bfloat16", NotImplementedError, "ROADMAP.md"),
     ("--model=lg.dat+f", FileNotFoundError, "PAML .dat file not found"),
 ])
