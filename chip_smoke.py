@@ -34,8 +34,13 @@ script exits non-zero without printing a result:
    and once captured (one device kernel), the blocked forms against the
    dense ones (1e-6)
    with their A/B, dense A=20 and 61 and blocked 5 x 4, 2 x 20, 3 x 7
-   and 4 x 4 over two site chunks small; K11a at A=4 and 16), with the
-   tolerances printed, and
+   and 4 x 4 over two site chunks small; over 64 planes, protein+G4's
+   G=4 blocks of 20 at rank 0 (KC=3,840: K11b blocked in block groups,
+   K7 wide blocked and K11c blocked at KC=896 and timed at 3,840), the
+   plan's block groups against one group and 2 a group (dm to the bit),
+   and 3 x 20, 8 x 20, 4 x 61 and 17 x 4 over two site tiles small;
+   K11a at A=4 and 16, and at 4 blocks of 20), with the tolerances
+   printed, and
    timed beside the plain version, the least time the card could take
    (bound) and, where one exists, a single PyTorch library call; K5 at
    K=2048 and at VNCSMC's K=32, with some particles at weight 0 (-inf,
@@ -71,7 +76,10 @@ script exits non-zero without printing a result:
    (primate with the defaults: K11b, K7, K11a; with the plain forward;
    with the T-field backward K11c; GTR+G4 on DS1's first 10 taxa at
    S=256: K11b and K7 wide blocked, K11a at 16 dense states, and again
-   with the T-field backward: K11b dense and K11c at 16 states);
+   with the T-field backward: K11b and K11c blocked), and VNCSMC
+   protein+G4 and .dat+F+G4 on the simulated alignment's first 6 taxa
+   and 128 sites under both backwards (K11b, K7 wide and K11c blocked,
+   K11a at 80 planes), each against one CPU run;
 4. the main paths: two epochs each of VCSMC training on primate (N=12,
    S=898) at K=2048, of VNCSMC (twisted) training at K=32, M=10, of
    GTR+G4 VCSMC training on DS1 (N=27, S=1949) at K=2048, of GY94
@@ -81,9 +89,12 @@ script exits non-zero without printing a result:
    16 x 500 protein alignment that the script simulates from seed 0, of
    VNCSMC GTR+G4 on DS1 at K=32, M=10 (K11b and K7 wide blocked, K11a;
    the ELBOs and seconds per epoch beside PR 6's), and of
-   primate VNCSMC again with the T-field backward K11c (66 launches),
-   site batch 256, through phylo_tpu_torch.cli.runner, with every
-   kernel's launch counter set to 0 before each path and read after;
+   primate VNCSMC again with the T-field backward K11c (66 launches), of
+   VNCSMC protein+G4 at K=32, M=10 on the simulated alignment (K11b and
+   K7 wide blocked over block groups, K11a at 80 planes; exact launch
+   counts) and again with the T-field backward (K11c blocked), site
+   batch 256, through phylo_tpu_torch.cli.runner, with every kernel's
+   launch counter set to 0 before each path and read after;
 5. where the time of one epoch of each path goes, under torch.profiler
    (K4f's, K4b's, K9f's and K5's device time and launches on every path,
    the rank forward's (K1, K10), and the rank backwards' (K2, K3, K3
@@ -91,7 +102,8 @@ script exits non-zero without printing a result:
    body of K9bs, K9b and K11a), K7's,
    K11c's and K8's;
    for VNCSMC GTR+G4 on DS1, K11b's, K7 wide's and
-   K4's device time beside their earlier designs');
+   K4's device time beside their earlier designs', and for VNCSMC
+   protein+G4 K11b's and K7 wide's);
 6. a training run's life cycle at the main path's width (primate VCSMC,
    K=2048, b256), in a temporary directory: two epochs through the
    runner with artifacts and a checkpoint an epoch (the main path's
@@ -1257,9 +1269,9 @@ def twist_bound(ins, kind):
     A_b planes.  Operations per (m, row, site): u, v (4 A^2 / G, an FMA
     counts 2), the site sum and its log (3 A + 2); the backwards add
     gsite (2), du, dv (4 A) and dm, dP (8 A^2 / G), or pi u, pi v, vbar,
-    ubar and T (6 A^2 + 4 A) and per (m, row) the two A x A products (4
-    A^3).  Bytes: each input read once (P: G A_b^2 floats a matrix),
-    each output written once."""
+    ubar and T (6 A^2 / G + 4 A) and per (m, row) the two A_b x A_b
+    products of each block (4 G A_b^3).  Bytes: each input read once (P:
+    G A_b^2 floats a matrix), each output written once."""
     m1, _, P_l, _, _, w = ins
     M_, KC = P_l.shape[:2]
     G = P_l.shape[2] if P_l.ndim == 5 else 1
@@ -1275,7 +1287,7 @@ def twist_bound(ins, kind):
         nbytes = 4 * slab + 4 * pbytes + M_ * KC * 4 + S * 4 + 2 * A_ * 4
         per = (12 * AA + 7 * A_ + 2 if kind == "bwd"
                else 10 * AA + 7 * A_ + 2)
-        nops = M_ * KC * S * per + (4 * M_ * KC * A_ ** 3
+        nops = M_ * KC * S * per + (4 * M_ * KC * G * (A_ // G) ** 3
                                     if kind == "bwd_t" else 0)
     return bound(nbytes, nops)
 
@@ -1289,8 +1301,10 @@ def ab_ms(fa, fb, iters_a=20, iters_b=20):
     return (a1, a2), (b1, b2)
 
 
-def check_k11b(kern, ins, label, timed=True):
-    """K11b (the pair-loglik forward) against its plain version; timed,
+def check_k11b(kern, ins, label, timed=True, repeat=False):
+    """K11b (the pair-loglik forward) against its plain version; with
+    `repeat`, also called twice (the same bits) and once captured (one
+    device kernel and the wrapper's sum of the tiles' partials); timed,
     the A/B against the plain forward in turns plain, kernel, kernel,
     plain."""
     got = kern.pair_ll_fwd(*ins)
@@ -1302,6 +1316,9 @@ def check_k11b(kern, ins, label, timed=True):
     log(f"  K11b {label} M={M_} KC={KC} P {tuple(ins[2].shape[2:])} "
         f"S={ins[0].shape[-1]}: rel err {err:.3e} (tol {tol:g})")
     require(err <= tol, f"K11b {label} relative error {err} > {tol}")
+    if repeat:
+        repeat_checks(f"K11b {label}", lambda: [kern.pair_ll_fwd(*ins)],
+                      sums=1, kernel="pair_ll_fwd_kernel")
     if not timed:
         return None
     with torch.no_grad():
@@ -1317,27 +1334,39 @@ def check_k11b(kern, ins, label, timed=True):
                 library_ms=None)
 
 
-def t_field_launch(kern, ins, g):
-    """One K11c launch through its C entry point at the wrapper's plan
-    (K7's body in its T-field form at A <= 8, K7 wide's above), without
-    the wrapper's dpi ops; returns (the outputs, the kernel's name)."""
+def bwd_launch(kern, ins, g, t_field, gb=None):
+    """One launch of K7 wide (t_field False: dense A > 8 or blocked) or
+    K11c (K7's body in its T-field form at dense A <= 8, K7 wide's above
+    and blocked) through its C entry point at the wrapper's plan (gb:
+    blocks a group, default the plan's), without the wrapper's dpi ops;
+    returns (the launch, the kernel's name, the plan)."""
     M_, KC = ins[2].shape[:2]
-    A_, S = ins[0].shape[1:]
-    if A_ > kern.MAX_A:
-        fn = kern._ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_t",
-                            11, 7)
-        plan = kern.twist_bwd_plan(1, A_, S, t_field=True)
-        name = "pair_ll_bwd_t_wide_kernel"
+    G = ins[2].shape[2] if ins[2].ndim == 5 else 1
+    Ab, S = ins[2].shape[-1], ins[0].shape[-1]
+    if G > 1 or Ab > kern.MAX_A:
+        gb = gb or kern.twist_bwd_group(G, Ab, S, t_field, M_, KC)
+        entry = "launch_pair_ll_bwd_t" if t_field else \
+            "launch_pair_ll_bwd_wide"
+        fn = kern._ext.bind("twist_wide_kernels", entry, 11, 9)
+        plan = kern.twist_bwd_plan(G, Ab, S, t_field, M_, gb) + (gb,)
+        ints = (KC, M_, G, Ab, S) + plan
+        name = {(False, True): "pair_ll_bwd_wide_kernel",
+                (True, True): "pair_ll_bwd_t_wide_kernel",
+                (False, False): "pair_ll_bwd_wide_groups_kernel",
+                (True, False): "pair_ll_bwd_t_groups_kernel"}[
+                    (t_field, gb == G)]
     else:
+        require(t_field, "K7 at A <= 8 is check_k7's")
         fn = kern._ext.bind("twist_kernels", "launch_pair_ll_bwd_t", 11, 6)
-        plan = kern.twist_narrow_plan(KC, M_, A_, S, t_field=True)[:2]
+        plan = kern.twist_narrow_plan(KC, M_, Ab, S, t_field=True)[:2]
+        ints = (KC, M_, Ab, S) + plan
         name = "pair_ll_bwd_t_narrow_kernel"
 
     def launch():
         o = [torch.empty_like(t) for t in ins[:4]]
-        code = fn(*[t.data_ptr() for t in (*ins, g, *o)], KC, M_, A_, S,
-                  *plan, torch.cuda.current_stream().cuda_stream)
-        require(code == 0, f"K11c launch error {code}")
+        code = fn(*[t.data_ptr() for t in (*ins, g, *o)], *ints,
+                  torch.cuda.current_stream().cuda_stream)
+        require(code == 0, f"{name} launch error {code}")
         return o
     return launch, name, plan
 
@@ -1346,7 +1375,7 @@ def check_twist_bwd(kern, gen, ins, label, t_field, timed=True,
                     full=None):
     """K7 wide, dense or blocked (t_field False), or K11c (the T-field
     backward, dP formed from T in the kernel) against its plain version;
-    K11c also called twice through its launcher (the same bits) and once
+    also called twice through its launcher (the same bits) and once
     captured (one device kernel); timed at these inputs, and the kernel
     alone at the `full` rank-0 inputs."""
     M_, KC = ins[2].shape[:2]
@@ -1369,10 +1398,9 @@ def check_twist_bwd(kern, gen, ins, label, t_field, timed=True,
             + f" (tol {tol:g})")
         for n, v in errs.items():
             require(v <= tol, f"{label} {n} relative error {v} > {tol}")
-        if t_field:
-            launch, kname, plan = t_field_launch(kern, ins, g)
-            repeat_checks(f"{label} M={M_} KC={KC} (launcher, plan {plan})",
-                          launch, kernel=kname)
+        launch, kname, plan = bwd_launch(kern, ins, g, t_field)
+        repeat_checks(f"{label} M={M_} KC={KC} (launcher, plan {plan})",
+                      launch, kernel=kname)
         if not timed:
             return None
         ms = time_ms(lambda: kern.pair_ll_bwd(*ins, g, want_dw=False))
@@ -1449,11 +1477,47 @@ def check_forms(kern, gen, ins, label, timed=True):
         f"{d1:.4f}, {b1:.4f}, {b2:.4f}, {d2:.4f} ms")
 
 
+def group_forms(kern, gen, ins, label):
+    """K7 wide blocked's and K11c blocked's block groups at `ins`: the
+    plan's launch against all G blocks in one group (one pass) and 2 and
+    1 blocks a group (two passes: gsite from a first pass over the
+    groups, u and v again in the second), each through the entry point:
+    dm to the bit (gsite is the one-group chain), dP within 1e-6 (its site
+    sums split among other thread counts); timed in turns first..last,
+    last..first."""
+    M_, KC, G = ins[2].shape[:3]
+    g = torch.randn((M_, KC), generator=gen, dtype=torch.float32,
+                    device=ins[0].device)
+    for t_field in (False, True):
+        what = "K11c" if t_field else "K7 wide"
+        forms = {gb: bwd_launch(kern, ins, g, t_field, gb)
+                 for gb in dict.fromkeys((kern.twist_bwd_group(
+                     G, ins[2].shape[-1], ins[0].shape[-1], t_field, M_,
+                     KC), G, 2, 1))}
+        first, *rest = forms
+        base = forms[first][0]()
+        for gb in rest:
+            got = forms[gb][0]()
+            torch.cuda.synchronize()
+            same = all(bool(torch.equal(a, b)) for a, b in
+                       zip(got[:2], base[:2]))
+            err = max(max_rel(a, b) for a, b in zip(got[2:], base[2:]))
+            log(f"  {what} {label} {gb} blocks a group (plan {forms[gb][2]}"
+                f") against {first} ({forms[first][2]}): dm the same bits: "
+                f"{same}; dP rel err {err:.3e} (tol 1e-6)")
+            require(same and err <= 1e-6, f"{what} {label}: {gb} blocks a "
+                    f"group differ from {first}")
+        order = list(forms) + list(forms)[::-1]
+        times = [(gb, time_ms(forms[gb][0])) for gb in order]
+        log(f"  {what} {label} blocks a group: ms in turns: " + ", ".join(
+            f"{gb}: {ms:.4f}" for gb, ms in times))
+
+
 def check_twist_kernels(kernels, gen, dev):
     """Phase 2's pair-loglik kernels (K11b, K7 wide, K11c), dense and
     blocked; returns the kernels line's entries (K11b dense, K11b
     blocked, K7 wide dense, K7 wide blocked, K11c at primate's launched
-    shape)."""
+    shape, K11c blocked at protein+G4's)."""
     # VNCSMC's pair log-likelihoods at rank 0 (all candidate pairs):
     # K11b dense on primate (A=4, KC = 32 x 66); on DS1 GTR+G4 (KC = 32 x
     # 351) blocked, as the twist takes a rate mixture (G=4 blocks of 4),
@@ -1494,6 +1558,29 @@ def check_twist_kernels(kernels, gen, dev):
     check_forms(kernels, gen, rows_b, "DS1 gtr+g4 KC=896")
     check_forms(kernels, gen, twist_b, "DS1 gtr+g4 rank 0")
     del twist_b, twist_d, rows_b, rows_d
+    # protein+G4 (G=4 blocks of 20 states, 80 planes) at rank 0 of the
+    # simulated 16 x 500 alignment (KC = 32 x 120): K11b blocked in four
+    # block groups of one block of 32 padded states, K7 wide and K11c
+    # blocked a block a group (two passes, SC = 256); the plain backwards
+    # on the first 896 rows, the kernels alone at rank 0; the plan's
+    # groups against all 4 blocks in one (SC = 96) and 2 a group
+    prot = twist_inputs(gen, dev, PROT_FASTA, "reference+g4",
+                        N_PROT * (N_PROT - 1) // 2, S_BATCH, blocked=True)
+    k11b_prot = check_k11b(kernels, prot, "protein+G4 blocked", repeat=True)
+    rows_p = first_rows(prot, K_TWIST * 28)
+    k7wb_prot = check_twist_bwd(kernels, gen, rows_p,
+                                "K7 wide blocked protein+G4", False,
+                                full=prot)
+    k11c_blk = check_twist_bwd(kernels, gen, rows_p,
+                               "K11c blocked protein+G4", True, full=prot)
+    group_forms(kernels, gen, rows_p, "protein+G4 KC=896")
+    # the last ranks' rows (3 and 2 taxa left: 96 and 32), where the grid
+    # holds under two blocks an SM and the plan keeps one group
+    group_forms(kernels, gen, first_rows(rows_p, 96), "protein+G4 KC=96")
+    log("  protein+G4 rank 0 line entries (K11b blocked, K7 wide blocked): "
+        + json.dumps([k11b_prot, k7wb_prot]))
+    del prot, rows_p
+    torch.cuda.empty_cache()
     for A_, S in ((20, 70), (61, 70), (20, 300)):
         small = twist_inputs(gen, dev, None, None, 5, S, A_=A_, Kt=3)
         check_k11b(kernels, small, "small dense", timed=False)
@@ -1507,47 +1594,67 @@ def check_twist_kernels(kernels, gen, dev):
         check_twist_bwd(kernels, gen, small, "K7 wide small blocked", False,
                         timed=False)
         check_forms(kernels, gen, small, "small", timed=False)
-    return k11b, k11b_blk, k7w, k7wb, k11c
+    # over 64 planes (the forms of this slice's block groups): K11b in
+    # groups of 64 padded planes, K7 wide and K11c in one group (3 x 20, 8
+    # x 20, 17 x 4) or in groups of one block (4 x 61, GY94+G4's width);
+    # over two site tiles of K11b and two or more chunks of K7 wide
+    for G_, A_ in ((3, 20), (8, 20), (4, 61), (17, 4)):
+        small = twist_inputs(gen, dev, None, None, 5, 300, A_=A_, Kt=3,
+                             G_=G_)
+        label = f"small {G_} x {A_}"
+        check_k11b(kernels, small, label, timed=False, repeat=True)
+        check_twist_bwd(kernels, gen, small, f"K7 wide {label}", False,
+                        timed=False)
+        check_twist_bwd(kernels, gen, small, f"K11c {label}", True,
+                        timed=False)
+    group_forms(kernels, gen, twist_inputs(gen, dev, None, None, 5, 300,
+                                           A_=20, Kt=3, G_=4), "small")
+    return k11b, k11b_blk, k7w, k7wb, k11c, k11c_blk
 
 
-def check_k11a(kern, gen, dev, A_, S=S_BATCH, Kt=K_TWIST):
+def check_k11a(kern, gen, dev, A_, S=S_BATCH, Kt=K_TWIST, G_=1):
     """K11a (the merge backward on explicit children) at the VNCSMC
     path's chosen merges: K=32 particles, S=256 sites, A_ dense states
-    (K2's body for A <= 8, K9bs dense above)."""
+    (K2's body for A <= 8, K9bs dense above), or G_ > 1 blocks of A_
+    (K9bs blocked's body: protein+G4's 4 x 20)."""
     f = dict(dtype=torch.float32, device=dev)
-    m1, m2 = (torch.rand((Kt, A_, S), generator=gen, **f) * 0.95 + 0.05
+    GA = G_ * A_
+    m1, m2 = (torch.rand((Kt, GA, S), generator=gen, **f) * 0.95 + 0.05
               for _ in range(2))
-    P_l, P_r = (torch.rand((Kt, A_, A_), generator=gen, **f) * 0.95 + 0.05
+    tail = (A_, A_) if G_ == 1 else (G_, A_, A_)
+    P_l, P_r = (torch.rand((Kt,) + tail, generator=gen, **f) * 0.95 + 0.05
                 for _ in range(2))
-    pi = torch.rand((A_,), generator=gen, **f) + 0.1
+    pi = torch.rand((GA,), generator=gen, **f) + 0.1
     pi = (pi / pi.sum()).contiguous()
     w = torch.ones((S,), **f)
-    args = (m1, m2, P_l, P_r, pi, w) + bwd_cotangents(gen, dev, Kt, A_, S)
+    args = (m1, m2, P_l, P_r, pi, w) + bwd_cotangents(gen, dev, Kt, GA, S)
     got = kern.merge_bwd(*args)
     want = kern._merge_bwd_ref(*args)
     torch.cuda.synchronize()
     names = ["dm1", "dm2", "dP_l", "dP_r", "dpi", "dw"]
     errs = {n: max_rel(a, b) for n, a, b in zip(names, got, want)}
     tol = 1e-4
-    log(f"  K11a merge_bwd K={Kt} A={A_} S={S}: " + ", ".join(
+    shape = f"A={A_}" if G_ == 1 else f"G={G_} x A={A_}"
+    log(f"  K11a merge_bwd K={Kt} {shape} S={S}: " + ", ".join(
         f"{n} rel err {v:.3e}" for n, v in errs.items()) + f" (tol {tol:g})")
     for n, v in errs.items():
         require(v <= tol, f"K11a {n} relative error {v} > {tol}")
-    repeat_checks(f"K11a merge_bwd A={A_}", lambda: kern.merge_bwd(*args),
+    repeat_checks(f"K11a merge_bwd {shape}", lambda: kern.merge_bwd(*args),
                   sums=2, kernel=RANK_BWD_KERNEL if A_ <= kern.MAX_A else
                   "wide_rank_bwd_kernel")
-    repeat_checks(f"K11a merge_bwd A={A_} without dw",
+    repeat_checks(f"K11a merge_bwd {shape} without dw",
                   lambda: kern.merge_bwd(*args, want_dw=False)[:5], sums=1)
     ms = time_ms(lambda: kern.merge_bwd(*args))
     ms_no_dw = time_ms(lambda: kern.merge_bwd(*args, want_dw=False))
     plain = time_ms(lambda: kern._merge_bwd_ref(*args))
-    slab = Kt * A_ * S * 4
-    nbytes = 5 * slab + 4 * Kt * A_ * A_ * 4 + 2 * Kt * 4 + 2 * (S + A_) * 4
-    # u, v (4 A^2), dm and dP (8 A^2), the per-site scalars and the max
-    # (about 10 A); an FMA counts 2
-    nops = Kt * S * (12 * A_ * A_ + 10 * A_)
+    slab = Kt * GA * S * 4
+    nbytes = (5 * slab + 4 * Kt * G_ * A_ * A_ * 4 + 2 * Kt * 4
+              + 2 * (S + GA) * 4)
+    # u, v (4 G A^2), dm and dP (8 G A^2), the per-site scalars and the
+    # max (about 10 G A); an FMA counts 2
+    nops = Kt * S * (12 * G_ * A_ * A_ + 10 * GA)
     b_ms, b_by = bound(nbytes, nops)
-    log(f"  K11a A={A_}: kernel {ms:.4f} ms ({former('K11a', Kt, A_, S)}), "
+    log(f"  K11a {shape}: kernel {ms:.4f} ms ({former('K11a', Kt, GA, S)}), "
         f"without dw {ms_no_dw:.4f} ms, plain {plain:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}); library: null (no single PyTorch call "
         "computes this vector-Jacobian product)")
@@ -1626,17 +1733,26 @@ def mixture_tree(model, rng, Nd):
     return tree
 
 
+# the CPU float64 results of fixed_decision_check, by its arguments but
+# the card's backward: one CPU run serves both of the card's backwards
+_CPU_RUNS = {}
+
+
 def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
                          Kd=K, S=None, route=(), codons=False, Nd=None,
-                         use_pallas_ll=True, bwd_v2=False):
+                         use_pallas_ll=True, bwd_v2=False, cpu_bwd_v2=None):
     """The sweep with numpy-made decisions, float32 on the card against
     float64 on the CPU: VCSMC at K=2048, VNCSMC at K=32, M=10, or model
     `spec` (a rate mixture, or GY94 on `dataset` as codons, with the
     alignment's F61 frequencies) on the first S sites (and the first Nd
     taxa) of `dataset` at Kd particles; under twist with the pair
     log-likelihoods' forward on K11b (`use_pallas_ll`) or plain, and the
-    T-field backward K11c (`bwd_v2`, both devices).  `route` names the
-    kernels the card must have launched in the gradient."""
+    T-field backward K11c (`bwd_v2`; on the CPU `cpu_bwd_v2`, default
+    the same: the two plain backwards are one function, which
+    tests/test_torch_twist_mixture_wide.py holds to 1e-12, and at 80
+    planes the T-field one is ~10x quicker on the CPU than autograd of
+    the unrolled forward).  `route` names the kernels the card must have
+    launched in the gradient."""
     from phylo_tpu_torch import _ext
     from phylo_tpu_torch.models.substitution import ReferenceQ, get_model
     from phylo_tpu_torch.params import params_from_numpy
@@ -1647,6 +1763,7 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
         _resolve_codon_frequencies, param_tensors,
     )
 
+    cpu_bwd_v2 = bwd_v2 if cpu_bwd_v2 is None else cpu_bwd_v2
     ds = load(dataset, codons)
     rng = np.random.default_rng(11)
     genome = ds.genome[:Nd, :S]
@@ -1674,7 +1791,8 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
         label = (f"{os.path.basename(dataset)} {spec or 'reference'} "
                  f"VNCSMC N={Nd} K={Kd} M={M_TWIST} S={genome.shape[1]}"
                  f"{'' if use_pallas_ll else ', plain forward'}"
-                 f"{', T-field backward' if bwd_v2 else ''}")
+                 f"{', T-field backward' if bwd_v2 else ''}"
+                 f"{', CPU T-field' if cpu_bwd_v2 and not bwd_v2 else ''}")
     else:
         dec = make_decisions(rng, Nd, Kd, *rates)
         cfg = SweepConfig(K=Kd)
@@ -1682,9 +1800,15 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
                  else f"{os.path.basename(dataset)} {spec} K={Kd} "
                  f"S={genome.shape[1]}")
     out = {}
-    kernels.TWIST_BWD_V2 = bwd_v2
+    key = (twist, spec, dataset, Kd, S, codons, Nd, use_pallas_ll,
+           cpu_bwd_v2)
+    if key in _CPU_RUNS:
+        out["cpu f64"] = _CPU_RUNS[key]
     for name, device, dtype in (("cuda f32", dev, torch.float32),
                                 ("cpu f64", "cpu", torch.float64)):
+        if name in out:
+            continue
+        kernels.TWIST_BWD_V2 = bwd_v2 if device != "cpu" else cpu_bwd_v2
         params = params_from_numpy(tree, dtype=dtype, device=device)
         leaves = torch.tensor(genome, dtype=dtype, device=device)
         d = {k: torch.as_tensor(v, device=device) for k, v in dec.items()}
@@ -1710,6 +1834,7 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
                      res.log_likelihood_R.detach().cpu().double(), grads,
                      named)
         del res, params, leaves
+    _CPU_RUNS[key] = out["cpu f64"]
     kernels.TWIST_BWD_V2 = False
     (e32, llr32, g32, n32), (e64, llr64, g64, n64) = (out["cuda f32"],
                                                       out["cpu f64"])
@@ -1775,6 +1900,16 @@ def spectral_float32_probe(dev):
 # VNCSMC GTR+G4 from a CPU run of the port (K=4, M=2, b256, seed 0:
 # -8038.8 at init, -7723.7 / -7735.2 after epochs 1 / 2)
 VNCSMC_DS1_BAND = (-10500.0, -6500.0)
+VNCSMC_PROT_BAND = (-16000.0, -9000.0)
+# VNCSMC protein+G4: the reverse passes (a step's 15 ranks) and the
+# forwards (the initial eval, each epoch's step and eval sweep, and the
+# reverse pass's re-evaluation)
+PROT_STEPS = (N_PROT - 1) * 2 * (S_PROT // S_BATCH)
+PROT_TWIST_EXACT = {
+    "pair_loglik_fwd_blocked": (N_PROT - 1) * (
+        1 + 2 * (S_PROT // S_BATCH + 1)) + PROT_STEPS,
+    "merge_bwd": PROT_STEPS, "pair_loglik_fwd": 0, "pair_ll_bwd_wide": 0,
+    "pair_ll_bwd_t": 0}
 PATHS = {
     "vcsmc": dict(
         dataset="primate_data", band=(-8000.0, -5500.0),
@@ -1876,6 +2011,40 @@ PATHS = {
             S_PROT // S_BATCH + 1)),
                "fused_rank_bwd_wide_blocked": (N_PROT - 1) * 2 * (
             S_PROT // S_BATCH)}),
+    # VNCSMC protein+Gamma4 (the reference's autorun.sh algorithm under
+    # the most used protein model) on the simulated 16 x 500 alignment: an
+    # epoch is 1 SGD step of 256 sites + the 500-site eval sweep, 15 ranks
+    # each, one pair chunk per rank (rank 0: 32 x 120 candidate pairs x M
+    # = 10); the twist scores its candidates through G=4 blocks of 20
+    # states: K11b blocked (two block groups) in every sweep and in the
+    # reverse pass's re-evaluation, K7 wide blocked and K11a (K9bs
+    # blocked's body, 80 planes) in each step's reverse pass; transitions
+    # by expm_poisson (no expm kernel at 20 states); no dense twist kernel
+    "vncsmc_protein_g4": dict(
+        dataset=PROT_FASTA, band=VNCSMC_PROT_BAND,
+        train=dict(nested=True, M=M_TWIST, n_particles=K_TWIST,
+                   gamma_categories=4),
+        argv=["--gamma_categories=4", "--nested=True", f"--M={M_TWIST}",
+              f"--n_particles={K_TWIST}"],
+        kernels=("pair_loglik_fwd_blocked", "pair_ll_bwd_wide_blocked",
+                 "merge_bwd", "categorical"),
+        exact=PROT_TWIST_EXACT | {"pair_ll_bwd_wide_blocked": PROT_STEPS,
+                                  "pair_ll_bwd_t_blocked": 0},
+        twist_profile="no earlier design: the card refused this path "
+                      "before the block-group forms"),
+    # the same with the T-field backward K11c blocked
+    # (PHYLO_TWIST_BWD_V2=1) in place of K7 wide blocked; not profiled
+    "vncsmc_protein_g4_t_field": dict(
+        dataset=PROT_FASTA, band=VNCSMC_PROT_BAND, bwd_v2=True,
+        profile=False,
+        train=dict(nested=True, M=M_TWIST, n_particles=K_TWIST,
+                   gamma_categories=4),
+        argv=["--gamma_categories=4", "--nested=True", f"--M={M_TWIST}",
+              f"--n_particles={K_TWIST}"],
+        kernels=("pair_loglik_fwd_blocked", "pair_ll_bwd_t_blocked",
+                 "merge_bwd"),
+        exact=PROT_TWIST_EXACT | {"pair_ll_bwd_t_blocked": PROT_STEPS,
+                                  "pair_ll_bwd_wide_blocked": 0}),
     "protein_dat_f_g4": dict(
         dataset=PROT_FASTA, band=(-16000.0, -9000.0), profile=False,
         train=dict(n_particles=K_PROT_SAVED, gamma_categories=4,
@@ -1976,7 +2145,7 @@ def profile_epoch(name):
                 us = getattr(e, "self_cuda_time_total", 0.0)
             rows.append((e.key[:70], float(us) / 1e3, int(e.count)))
             for kname, fn in (("K11b", "pair_ll_fwd_kernel"),
-                              ("K7 wide", "pair_ll_bwd_wide_kernel"),
+                              ("K7 wide", "pair_ll_bwd_wide_"),
                               ("K7", "pair_ll_bwd_narrow_kernel"),
                               ("K11c", "pair_ll_bwd_t_"),
                               ("K8", "merge_loglik_kernel"),
@@ -2362,10 +2531,12 @@ def main(argv):
     check_k8(kernels, gen, dev, S_FULL)
     check_k8(kernels, gen, dev, S_FULL, A=7, timed=False)
     check_k8(kernels, gen, dev, 2 * S_FULL + 3, A=8, timed=False)
-    k11b, k11b_blk, k7w, k7wb, k11c = check_twist_kernels(kernels, gen,
-                                                          dev)
+    k11b, k11b_blk, k7w, k7wb, k11c, k11c_blk = check_twist_kernels(
+        kernels, gen, dev)
     check_k11a(kernels, gen, dev, A)
     k11a = check_k11a(kernels, gen, dev, 4 * G_GAMMA)
+    # protein+G4's chosen merges: K9bs blocked's body, 80 planes
+    check_k11a(kernels, gen, dev, A_PROT, G_=G_GAMMA)
     torch.cuda.empty_cache()
     # K9 on GY94 codons (K=128, A=61): one real child index per site
     # count; the kernels line carries S=256 (the SGD steps) for K9f and
@@ -2425,12 +2596,23 @@ def main(argv):
                          dataset="hohna_data_1", S=S_BATCH, Nd=10,
                          route=("pair_loglik_fwd_blocked",
                                 "pair_ll_bwd_wide_blocked", "merge_bwd"))
-    # the same with the T-field backward: 16 dense states through K11b
-    # dense and K7 wide's body in its T-field form
+    # the same with the T-field backward: the blocked route too, K11b
+    # blocked and K7 wide's body in its blocked T-field form
     fixed_decision_check(dev, twist=True, spec="gtr+g4",
                          dataset="hohna_data_1", S=S_BATCH, Nd=10,
-                         bwd_v2=True, route=("pair_loglik_fwd",
-                                             "pair_ll_bwd_t", "merge_bwd"))
+                         bwd_v2=True, route=("pair_loglik_fwd_blocked",
+                                             "pair_ll_bwd_t_blocked",
+                                             "merge_bwd"))
+    # VNCSMC protein+G4 and .dat+F+G4 (4 blocks of 20 states) on the
+    # simulated alignment's first 6 taxa and 128 sites, under both
+    # backwards, against one CPU run each (its T-field plain backward)
+    for spec in ("reference+g4", f"{PROT_DAT}+f+g4"):
+        for v2 in (False, True):
+            fixed_decision_check(
+                dev, twist=True, spec=spec, dataset=PROT_FASTA, S=128, Nd=6,
+                bwd_v2=v2, cpu_bwd_v2=True, route=(
+                    "pair_loglik_fwd_blocked", "pair_ll_bwd_t_blocked" if v2
+                    else "pair_ll_bwd_wide_blocked", "merge_bwd"))
     # GTR+G4: under the cap (K10's saved-children backward), over it (K3)
     fixed_decision_check(dev, spec="gtr+g4", Kd=512, S=S_BATCH,
                          route="fused_rank_bwd_saved_blocked")
@@ -2498,6 +2680,9 @@ def main(argv):
          "phylo_tpu/pruning/kernels.py:588", k11b_blk),
         ("pair_ll_bwd_t", "phylo_tpu_torch/csrc/twist_kernels.cu",
          "phylo_tpu/pruning/kernels.py:1037", k11c),
+        ("pair_ll_bwd_t_blocked",
+         "phylo_tpu_torch/csrc/twist_wide_kernels.cu",
+         "phylo_tpu/pruning/kernels.py:1037", k11c_blk),
         ("merge_bwd", "phylo_tpu_torch/csrc/wide_kernels.cu",
          "phylo_tpu/pruning/kernels.py:395", k11a),
         ("fused_rank_update_wide", "phylo_tpu_torch/csrc/wide_kernels.cu",

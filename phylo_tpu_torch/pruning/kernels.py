@@ -45,14 +45,15 @@ K2, K3 (A <= 8) and K10's backward are one body,
 `rank_bwd_plan`.  K1, K2, K3 and K9 have no
 autograd rule: only the manual whole-sweep VJP (smc.sweep_vjp) and the
 no-grad sweep call them.  K7 and K11c (dense A <= 8) and K8 live in
-csrc/twist_kernels.cu, K7 wide (dense 8 < A <= 64, and blocked), K11b
-(dense and blocked) and K11c (dense 8 < A <= 64) in
-csrc/twist_wide_kernels.cu; K11a is a named entry over K2's body (A <= 8)
-and K9bs dense (A <= 128).  The twist's pair log-likelihoods take P dense
-(M, K, A, A) or, for a rate mixture (`twist_blocks`), blocked (M, K, G,
-A_b, A_b): the wrappers dispatch on P's rank, and the gradient comes back
-in P's own shape.  `fused_merge_loglik`, `pair_loglik` and
-`fused_pair_loglik` carry torch.autograd.Functions.
+csrc/twist_kernels.cu, K7 wide, K11b and K11c (dense 8 < A <= 64, and
+blocked: G <= 32 blocks of A_b <= 64 states, in block groups where they do
+not fit at once) in csrc/twist_wide_kernels.cu; K11a is a named entry over
+K2's body (A <= 8) and K9bs dense (A <= 128).  The twist's pair
+log-likelihoods take P dense (M, K, A, A) or, for a rate mixture
+(`twist_blocks`), blocked (M, K, G, A_b, A_b): the wrappers dispatch on
+P's rank, and the gradient comes back in P's own shape.
+`fused_merge_loglik`, `pair_loglik` and `fused_pair_loglik` carry
+torch.autograd.Functions.
 """
 
 from __future__ import annotations
@@ -65,7 +66,10 @@ from phylo_tpu_torch import _ext
 from phylo_tpu_torch.models.expm import exact_matmul
 
 MAX_A = 8                       # states per block of K1-K3, K7, K8, K10
-MAX_TWIST_A = 64                # planes of K7 wide, K11b, K11c
+MAX_TWIST_A = 64                # K7 wide, K11b, K11c: dense A, or A_b
+TWIST_FWD_TILE = 64             # K11b: padded planes of one group at most
+TWIST_FWD_GROUP = 32            # K11b: padded planes a group over several
+BWD_ONE_PASS_SC = 128           # K7 wide / K11c: one group's least chunk
 MERGE_MAX_THREADS = 1024        # K8: threads a block at most (A <= 4)
 FWD_MAX_THREADS = 256           # K11b: threads per CUDA block
 BWD_MAX_THREADS = 512           # K7 wide: threads per CUDA block
@@ -767,64 +771,170 @@ def _ceil(a, b):
 
 def twist_blocks(model):
     """(G, A_b) when the twist's pair log-likelihoods take a rate
-    mixture's per-category transitions (K11b blocked, K7 wide blocked):
-    the model has `blocks` with G >= 2 whose padded register tile (A_b
-    and G each up to a power of two) fits K11b's 64 planes.  None keeps
-    the dense (G*A_b)-state route: models without blocks, wider blocks
-    (such as protein + Gamma3, 60 planes), and the T-field backward
-    (TWIST_BWD_V2), whose kernel K11c is dense.  The same on every
-    device."""
+    mixture's per-category transitions (K11b, K7 wide and K11c in their
+    blocked forms): the model has `blocks`, 2 <= G <= MAX_G blocks of A_b
+    <= MAX_TWIST_A states.  None keeps the dense route (models without
+    blocks).  One rule on every device and under either backward."""
     blocks = getattr(model, "blocks", None)
-    if blocks is None or TWIST_BWD_V2:
+    if blocks is None:
         return None
     G, Ab = blocks
-    if G < 2 or G > MAX_G or _pow2(max(Ab, 4)) * _pow2(G) > MAX_TWIST_A:
+    if not 2 <= G <= MAX_G or Ab > MAX_TWIST_A:
         return None
     return G, Ab
 
 
-def twist_fwd_plan(G, Ab, S):
-    """K11b's launch: (sites a thread, threads a block, site tiles).  A
-    thread holds 2 x (padded planes) x SPT message values in registers:
-    SPT = 2 up to 32 padded planes, 1 up to 64 (at 16 planes SPT = 2 ran
-    6-7% quicker than 4 and 16-46% quicker than 1 on the H100:
-    tools/torch_twist_forms.py --spt); a block covers up to 256 threads'
-    sites (S = 256 at SPT = 2: one block of 128 threads per row)."""
-    NG = 1 if G == 1 else _pow2(G)
-    planes = _pow2(max(Ab, 4)) * NG
-    if planes > MAX_TWIST_A:
+def twist_route(model, planes):
+    """The route the twist takes on the card for `model` with messages of
+    `planes` planes: (G, A_b) blocked (`twist_blocks`), or None dense.
+    Raises where the card has no kernel: a dense model above MAX_TWIST_A
+    states.  Needs no tensor (smc.sweep checks it before touching one)."""
+    blocks = twist_blocks(model)
+    if blocks is None:
+        check_states(planes, MAX_TWIST_A,
+                     "the dense twist kernels K7, K11b, K11c")
+    return blocks
+
+
+def _check_twist_shape(G, Ab):
+    """Raises outside the twist kernels' contract: dense (G = 1) A <= 64,
+    blocked G <= 32 blocks of A_b <= 64 states."""
+    check_states(Ab, MAX_TWIST_A, "the twist kernels K7 wide, K11b, K11c")
+    if not 1 <= G <= MAX_G:
         raise NotImplementedError(
-            f"K11b takes at most {MAX_TWIST_A} padded planes, got G={G} x "
-            f"A={Ab}")
-    spt = 2 if planes <= 32 else 1
+            f"the twist kernels take at most {MAX_G} rate-category blocks, "
+            f"got {G}")
+
+
+def twist_fwd_group(G, Ab):
+    """K11b's block group: (AB, NG, groups).  AB is A_b padded to a power
+    of two (at least 4), NG the blocks a group holds padded to a power of
+    two: all G while AB NG <= TWIST_FWD_TILE planes fit a thread's
+    registers (the one-group forms), else groups of TWIST_FWD_GROUP
+    padded planes at two sites a thread (protein+G4: 4 groups of one
+    block of 32 padded states), or of one block of 64 (GY94+G4).  On the
+    H100 the 32-plane groups ran 1.6-1.8x quicker than 64-plane ones at
+    one site a thread (protein+G4 rank 0, 8 x 16, 8 x 20, 17 x 4;
+    PERF.md §6)."""
+    _check_twist_shape(G, Ab)
+    AB = _pow2(max(Ab, 4))
+    if G == 1:
+        NG = 1
+    elif _pow2(G) * AB <= TWIST_FWD_TILE:
+        NG = _pow2(G)
+    else:
+        NG = max(1, TWIST_FWD_GROUP // AB)
+    return AB, NG, _ceil(G, NG)
+
+
+def twist_fwd_smem(G, Ab, M, threads, spt):
+    """Shared-memory bytes of K11b (csrc/twist_wide_kernels.cu's
+    fwd_smem): a group's P double-buffered on both sides, pi, the warps'
+    partials and, over several groups, each thread's M x spt site sums."""
+    AB, NG, groups = twist_fwd_group(G, Ab)
+    multi = groups > 1
+    n = (4 * AB * AB * NG + (4 * _ceil(G * Ab, 4) if multi else AB * NG)
+         + 2 * (FWD_MAX_THREADS // 32))
+    if multi:
+        n += M * spt * threads
+    return 4 * n
+
+
+def twist_fwd_plan(G, Ab, S, M=1):
+    """K11b's launch: (sites a thread, threads a block, site tiles).  A
+    thread holds 2 x (a group's padded planes) x SPT message values in
+    registers: SPT = 2 up to 32 padded planes, 1 up to 64 (at 16 planes
+    SPT = 2 ran 6-7% quicker than 4 and 16-46% quicker than 1 on the H100:
+    tools/torch_twist_forms.py --spt); a block covers up to 256 threads'
+    sites (S = 256 at SPT = 2: one block of 128 threads per row), fewer
+    where several groups' M site sums a thread would not fit the shared
+    memory."""
+    AB, NG, _ = twist_fwd_group(G, Ab)
+    spt = 2 if AB * NG <= 32 else 1
     threads = min(FWD_MAX_THREADS, max(32, _ceil(_ceil(S, spt), 32) * 32))
+    while (threads > 32
+           and twist_fwd_smem(G, Ab, M, threads, spt) > SMEM_LIMIT):
+        threads -= 32
+    if twist_fwd_smem(G, Ab, M, threads, spt) > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"K11b: M={M} site sums of G={G} x A={Ab} do not fit a block")
     return spt, threads, _ceil(S, threads * spt)
 
 
-def twist_bwd_plan(G, Ab, S, t_field=False):
-    """K7 wide's launch, or K11c's above 8 states (t_field, G = 1): (SC
-    sites a chunk, threads, shared-memory bytes).  A thread owns a (4
-    planes x 4 sites) tile, so a chunk needs NGT SC / 4 threads (NGT = G
-    ceil(A_b / 4) plane groups, up to 512 threads); SC is at most 256, a
+def twist_bwd_smem(G, Ab, sc, t_field=False, gb=None, M=1):
+    """Shared-memory bytes of K7 wide, or K11c (t_field), at a chunk of sc
+    sites and gb blocks a group (csrc/twist_wide_kernels.cu's bwd_smem):
+    the group's m1, m2, pi v, pi u (pitch sc + 4), site partials, gsite
+    (one row; M rows over several groups), the double-buffered P in both
+    layouts (and K11c's staged T) and pi."""
+    gb = G if gb is None else gb
+    NPG = _ceil(Ab, 4)
+    GAg = gb * Ab
+    rows = M if gb < G else 1
+    return 4 * ((4 * GAg + gb * NPG + rows) * (sc + 4)
+                + (9 if t_field else 8) * GAg * 4 * NPG
+                + _ceil(G * Ab, 4) * 4)
+
+
+def _bwd_sc(G, Ab, S, t_field, gb, M):
+    """K7 wide's chunk at gb blocks a group: the most sites, at most 256
+    and a multiple of 32, whose tiles fit 512 threads and whose layout
+    fits the shared memory; 0 where none does."""
+    NGT = gb * _ceil(Ab, 4)
+    sc = min(BWD_MAX_SC, (4 * BWD_MAX_THREADS // NGT) // 32 * 32,
+             _ceil(S, 32) * 32)
+    while sc > 32 and twist_bwd_smem(G, Ab, sc, t_field, gb, M) > SMEM_LIMIT:
+        sc -= 32
+    if sc < 32 or twist_bwd_smem(G, Ab, sc, t_field, gb, M) > SMEM_LIMIT:
+        return 0
+    return sc
+
+
+def twist_bwd_group(G, Ab, S, t_field=False, M=1, KC=None):
+    """Blocks a group of K7 wide and K11c for KC rows (a block each; None:
+    a full grid): all G (the one-pass body) while the row's every plane
+    fits a chunk of at least BWD_ONE_PASS_SC sites, or of all S (DS1: 4 x
+    4 at SC = 256; dense A <= 64), or while the grid has fewer than two
+    blocks an SM, where a row's own threads set the time; else one block
+    a group (two passes: gsite from a first pass over the groups,
+    csrc/twist_wide_kernels.cu), at up to 256 sites a chunk (protein+G4,
+    whose one group would take SC = 96; GY94+G4, whose one group does not
+    fit).  On the H100 at 896 rows a block a group beat the one-pass
+    layout at chunks under 128 sites (protein+G4 by 9-10%, 8 x 20 by 2x,
+    5 x 20 by 24%) and lost to it at 128 (3 x 20, by 13%); at 15 rows it
+    ran 1.5-1.7x slower (PERF.md §6)."""
+    _check_twist_shape(G, Ab)
+    sc = _bwd_sc(G, Ab, S, t_field, G, M)
+    if sc and (sc >= min(BWD_ONE_PASS_SC, _ceil(S, 32) * 32)
+               or KC is not None and KC < 2 * SMS):
+        return G
+    if _bwd_sc(G, Ab, S, t_field, 1, M):
+        return 1
+    raise NotImplementedError(
+        f"K7 wide: no block group of G={G} x A={Ab} fits a block at M={M}")
+
+
+def twist_bwd_plan(G, Ab, S, t_field=False, M=1, gb=None):
+    """K7 wide's launch, or K11c's above 8 dense states and blocked
+    (t_field): (SC sites a chunk, threads, shared-memory bytes) at gb
+    blocks a group (default `twist_bwd_group`).  A thread owns a (4
+    planes x 4 sites) tile, so a chunk needs NGT SC / 4 threads (NGT = gb
+    ceil(A_b / 4) plane tiles, up to 512 threads); SC is at most 256, a
     multiple of 32, and shrinks until the chunk's m1, m2, pi v, pi u
     (pitch SC + 4), site partials, gsite and the double-buffered P in
     both layouts (and K11c's staged T) fit a block's 227 KB
-    (csrc/twist_wide_kernels.cu's bwd_smem).  K11c at DS1's 16 dense
-    states, S = 256: SC = 256 the quickest, 128 3% slower, 32 2.3-3x
+    (`twist_bwd_smem`).  K11c at DS1's 16 dense states, S = 256: SC = 256
+    the quickest, 128 3% slower, 32 2.3-3x
     (tools/torch_k11c_k8_forms.py)."""
-    NPG = _ceil(Ab, 4)
-    NGT, GA = G * NPG, G * Ab
-
-    def smem(sc):
-        return 4 * ((4 * GA + NGT + 1) * (sc + 4)
-                    + (9 if t_field else 8) * GA * 4 * NPG
-                    + _ceil(GA, 4) * 4)
-
-    sc = min(BWD_MAX_SC, (4 * BWD_MAX_THREADS // NGT) // 32 * 32,
-             _ceil(S, 32) * 32)
-    while sc > 32 and smem(sc) > SMEM_LIMIT:
-        sc -= 32
-    return sc, _ceil(NGT * sc // 4, 32) * 32, smem(sc)
+    if gb is None:
+        gb = twist_bwd_group(G, Ab, S, t_field, M)
+    sc = _bwd_sc(G, Ab, S, t_field, gb, M)
+    if not sc:
+        raise NotImplementedError(
+            f"K7 wide: {gb} blocks of {Ab} states do not fit a block")
+    NGT = gb * _ceil(Ab, 4)
+    return (sc, _ceil(NGT * sc // 4, 32) * 32,
+            twist_bwd_smem(G, Ab, sc, t_field, gb, M))
 
 
 def k7_smem(M, A, warps, t_field=False):
@@ -910,13 +1020,14 @@ def _dw_ref(m1, m2, P_l, P_r, pi, g):
 
 
 def _twist_args(m1, m2, P_l, P_r, pi, weights, g=None):
-    """Validates a twist kernel's inputs on the card; returns (M, K, G,
-    A_b, S) (G = 1, A_b = A for dense transitions)."""
+    """Validates a twist kernel's inputs on the card, a blocked P per
+    block (G <= 32 blocks of A_b <= 64 states), a dense one at A <= 64;
+    returns (M, K, G, A_b, S) (G = 1, A_b = A for dense transitions)."""
     M, K = P_l.shape[:2]
     G = P_l.shape[2] if P_l.ndim == 5 else 1
     Ab = P_l.shape[-1]
     A, S = G * Ab, m1.shape[-1]
-    check_states(A, MAX_TWIST_A, "the twist kernels K7, K11b, K11c")
+    _check_twist_shape(G, Ab)
     f32 = torch.float32
     _ext.require(m1, "m1", f32, shape=(K, A, S))
     _ext.require(m2, "m2", f32, shape=(K, A, S))
@@ -934,11 +1045,13 @@ def pair_ll_fwd(m1, m2, P_l, P_r, pi, weights):
     """K11b: the (M, K) data log-likelihoods `_pair_ll_ref` computes, one
     kernel launch (M looped inside) plus a fixed-order sum of its
     per-tile partials; no autograd.  Blocked transitions (P of rank 5)
-    launch the blocked form, counted as `pair_loglik_fwd_blocked`."""
+    launch the blocked form, counted as `pair_loglik_fwd_blocked`, in
+    block groups where a thread's registers do not hold them all
+    (`twist_fwd_group`)."""
     if not m1.is_cuda:
         return _pair_ll_ref(m1, m2, P_l, P_r, pi, weights)
     M, K, G, Ab, S = _twist_args(m1, m2, P_l, P_r, pi, weights)
-    spt, threads, tiles = twist_fwd_plan(G, Ab, S)
+    spt, threads, tiles = twist_fwd_plan(G, Ab, S, M)
     part = torch.empty((M, K, tiles), dtype=torch.float32, device=m1.device)
     fn = _ext.bind("twist_wide_kernels", "launch_pair_ll_fwd", 7, 8)
     name = "pair_loglik_fwd_blocked" if P_l.ndim == 5 else "pair_loglik_fwd"
@@ -973,8 +1086,11 @@ def _pair_ll_bwd_t_ref(m1, m2, P_l, P_r, pi, weights, g):
     """Plain version of K11c, term for term `_kernel_ll_bwd2`'s math:
     gsite = g w / site; T[a, a'] = sum_s gsite m1[a] m2[a']; dm1[a] =
     sum_m gsite vbar_a, vbar_a = sum_b P_l[a, b] pi_b v_b (dm2 mirrored);
-    dP from T.  Dense transitions only.  Returns (dm1, dm2, dP_l, dP_r,
-    dpi, dw)."""
+    dP from T.  Blocked transitions (P of rank 5) take the same math per
+    block (`_pair_ll_bwd_t_blocked`).  Returns (dm1, dm2, dP_l, dP_r, dpi,
+    dw)."""
+    if P_l.ndim == 5:
+        return _pair_ll_bwd_t_blocked(m1, m2, P_l, P_r, pi, weights, g)
     u = _apply_t(m1[None], P_l)                       # (M, K, A, S)
     v = _apply_t(m2[None], P_r)
     pu = u * pi[:, None]
@@ -990,17 +1106,43 @@ def _pair_ll_bwd_t_ref(m1, m2, P_l, P_r, pi, weights, g):
     return dm1, dm2, dPl, dPr, dpi, _dw_ref(m1, m2, P_l, P_r, pi, g)
 
 
+def _pair_ll_bwd_t_blocked(m1, m2, P_l, P_r, pi, weights, g):
+    """`_pair_ll_bwd_t_ref` for blocked P (M, K, G, A_b, A_b): u, v, T
+    and dP within each block (T only on the diagonal blocks, where dP
+    lives), the site sum over all G A_b planes in plane order."""
+    M, K, G, Ab = P_l.shape[:4]
+    A, S = m1.shape[1:]
+    mb1 = m1.reshape(K, G, Ab, S)[None]
+    mb2 = m2.reshape(K, G, Ab, S)[None]
+    pib = pi.reshape(G, Ab)
+    u = _apply_t(mb1, P_l)                            # (M, K, G, Ab, S)
+    v = _apply_t(mb2, P_r)
+    pu = u * pib[:, :, None]
+    pv = v * pib[:, :, None]
+    site = torch.sum((u * pv).reshape(M, K, A, S), dim=-2)
+    gsite = ((g[:, :, None] * weights) / site)[:, :, None, None, :]
+    T = exact_matmul(gsite * mb1, mb2.transpose(-1, -2))  # diagonal blocks
+    dm1 = torch.sum(gsite * exact_matmul(P_l, pv), dim=0)
+    dm2 = torch.sum(gsite * exact_matmul(P_r, pu), dim=0)
+    dPl, dPr = _dp_from_t(T, P_l, P_r, pib[:, None, :])
+    dpi = torch.sum(dPl * P_l, dim=(0, 1, 3)).reshape(A) / pi
+    return (dm1.reshape(K, A, S), dm2.reshape(K, A, S), dPl, dPr, dpi,
+            _dw_ref(m1, m2, P_l, P_r, pi, g))
+
+
 def pair_ll_bwd(m1, m2, P_l, P_r, pi, weights, g, want_dw=True):
     """Cotangents of `_pair_ll_ref` for the output cotangent g (M, K):
     dense K7 (A <= 8), K7 wide (8 < A <= 64, and every blocked P, counted
-    as `pair_ll_bwd_wide_blocked`), or K11c, the T-field form, for dense P
-    when TWIST_BWD_V2 is set (PHYLO_TWIST_BWD_V2=1, the JAX package's
-    knob): on the card K7's body (A <= 8) or K7 wide's (A > 8) in their
-    T-field form, which return dP_l, dP_r as K7 does, on K7's plans.
-    Returns (dm1, dm2 (K, A, S), dP_l, dP_r in P's shape, dpi (A,), dw
-    (S,) or None without want_dw)."""
+    as `pair_ll_bwd_wide_blocked`), or K11c, the T-field form, when
+    TWIST_BWD_V2 is set (PHYLO_TWIST_BWD_V2=1, the JAX package's knob): on
+    the card K7's body (dense A <= 8) or K7 wide's (dense A > 8, and
+    blocked P, counted as `pair_ll_bwd_t_blocked`) in their T-field form,
+    which return dP_l, dP_r as K7 does, on K7's plans.  A blocked P runs
+    in block groups where its planes do not fit a block's shared memory
+    at once (`twist_bwd_group`).  Returns (dm1, dm2 (K, A, S), dP_l, dP_r
+    in P's shape, dpi (A,), dw (S,) or None without want_dw)."""
     blocked = P_l.ndim == 5
-    t_field = TWIST_BWD_V2 and not blocked
+    t_field = TWIST_BWD_V2
     if not m1.is_cuda:
         plain = _pair_ll_bwd_t_ref if t_field else _pair_ll_bwd_plain
         return plain(m1, m2, P_l, P_r, pi, weights, g)
@@ -1015,32 +1157,31 @@ def pair_ll_bwd(m1, m2, P_l, P_r, pi, weights, g, want_dw=True):
     ins = [t.data_ptr() for t in (m1, m2, P_l, P_r, pi, weights, g, dm1,
                                   dm2, dPl, dPr)]
     stream = _ext.stream_ptr(dev)
-    if t_field:
-        name = "pair_ll_bwd_t"
-        if A > MAX_A:
-            fn = _ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_t", 11,
-                           7)
-            plan = twist_bwd_plan(1, A, S, t_field=True)
+    if blocked or A > MAX_A:
+        if t_field:
+            name = "pair_ll_bwd_t_blocked" if blocked else "pair_ll_bwd_t"
+            entry = "launch_pair_ll_bwd_t"
         else:
-            fn = _ext.bind("twist_kernels", "launch_pair_ll_bwd_t", 11, 6)
-            plan = twist_narrow_plan(K, M, A, S, t_field=True)[:2]
+            name = ("pair_ll_bwd_wide_blocked" if blocked
+                    else "pair_ll_bwd_wide")
+            entry = "launch_pair_ll_bwd_wide"
+        gb = twist_bwd_group(G, Ab, S, t_field, M, K)
+        fn = _ext.bind("twist_wide_kernels", entry, 11, 9)
+        _ext.LAUNCHES[name] += 1
+        code = fn(*ins, K, M, G, Ab, S,
+                  *twist_bwd_plan(G, Ab, S, t_field, M, gb), gb, stream)
+    elif t_field:
+        name = "pair_ll_bwd_t"
+        fn = _ext.bind("twist_kernels", "launch_pair_ll_bwd_t", 11, 6)
+        plan = twist_narrow_plan(K, M, A, S, t_field=True)[:2]
         _ext.LAUNCHES[name] += 1
         code = fn(*ins, K, M, A, S, *plan, stream)
     else:
-        if blocked or A > MAX_A:
-            name = ("pair_ll_bwd_wide_blocked" if blocked
-                    else "pair_ll_bwd_wide")
-            fn = _ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_wide",
-                           11, 8)
-            _ext.LAUNCHES[name] += 1
-            code = fn(*ins, K, M, G, Ab, S, *twist_bwd_plan(G, Ab, S),
-                      stream)
-        else:
-            name = "pair_ll_bwd"
-            spl, warps, _, _, _ = twist_narrow_plan(K, M, A, S)
-            fn = _ext.bind("twist_kernels", "launch_pair_ll_bwd", 11, 6)
-            _ext.LAUNCHES[name] += 1
-            code = fn(*ins, K, M, A, S, spl, warps, stream)
+        name = "pair_ll_bwd"
+        spl, warps, _, _, _ = twist_narrow_plan(K, M, A, S)
+        fn = _ext.bind("twist_kernels", "launch_pair_ll_bwd", 11, 6)
+        _ext.LAUNCHES[name] += 1
+        code = fn(*ins, K, M, A, S, spl, warps, stream)
     _ext.check(code, name)
     # dpi_b = sum_{m,k,a} dP_l[m,k,a,b] P_l[m,k,a,b] / pi_b over b's block:
     # P does not depend on the site, so it factors out of dP_l's site sum

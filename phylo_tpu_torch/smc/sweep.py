@@ -149,26 +149,33 @@ def transitions(model, model_params, b, blocked, dtype):
     return fn(model_params, b).to(dtype)
 
 
+def card_refusals(config, model, planes):
+    """Raises where the card has no kernel for a sweep of `model` on
+    messages of `planes` planes under `config`; touches no tensor, so a
+    refusal comes before any work.  The twist takes the route
+    `kernels.twist_route` names: a rate mixture's per-category blocks (G
+    <= 32 of up to 64 states: K11b, K7 wide and K11c blocked, in block
+    groups), else dense transitions of up to 64 states (K7 / K7 wide,
+    K11b, K11c).  Outside the twist a rate mixture's rank runs on K10 (A
+    <= 8 a category) or K9 blocked (up to 128 planes): above (protein +
+    Gamma8, GY94 + Gamma4) it raises."""
+    if not config.rescale:
+        raise NotImplementedError(
+            "rescale=False has no CUDA kernel (K1 always rescales)")
+    if config.twist is not None:
+        _kernels.twist_route(model, planes)
+    blocks = getattr(model, "blocks", None)
+    if blocks is not None:
+        _kernels.wide_planes(*blocks, blocked=True)
+
+
 def _check_supported(config, leaves, model):
     if config.resampling not in ("multinomial", "systematic",
                                  "stratified", "none"):
         raise ValueError(
             f"unknown resampling strategy {config.resampling!r}")
-    if leaves.is_cuda and not config.rescale:
-        raise NotImplementedError(
-            "rescale=False has no CUDA kernel (K1 always rescales)")
-    if leaves.is_cuda and config.twist is not None:
-        # the twist enumerates up to 64 planes: a rate mixture's
-        # per-category blocks (kernels.twist_blocks: K11b and K7 wide
-        # blocked), else dense (G*A)-state transitions (K7 / K7 wide,
-        # K11b, and K11c, whose route stays dense)
-        _kernels.check_states(leaves.shape[-1], _kernels.MAX_TWIST_A,
-                               "the twist kernels K7, K11b, K11c")
-    blocks = getattr(model, "blocks", None)
-    if leaves.is_cuda and blocks is not None:
-        # K10 for A <= 8 per category, K9 blocked up to 128 planes; raises
-        # above (GY94 + Gamma4)
-        _kernels.wide_planes(*blocks, blocked=True)
+    if leaves.is_cuda:
+        card_refusals(config, model, leaves.shape[-1])
 
 
 def sample_phylogenies(generator, leaves, model, params, config, *,

@@ -22,10 +22,10 @@ through `_prefix_order`'s inverse.  The proposal law is order-invariant.
 
 A rate mixture (GammaSites, +I, FreeRates) scores its candidates
 through its per-category transitions, (G, A_b, A_b) blocks, and the
-blocked forms of the pair-loglik kernels (`pruning.kernels.twist_blocks`
-says when), which skip the zero off-block terms of the dense (G A_b)-state
-transitions the JAX package enumerates: the same values.  Under
-PHYLO_TWIST_BWD_V2 the route stays dense.
+blocked forms of the pair-loglik kernels (`pruning.kernels.twist_blocks`:
+every mixture of 2 <= G <= 32 blocks of up to 64 states, under either
+backward), which skip the zero off-block terms of the dense (G A_b)-state
+transitions the JAX package enumerates: the same values.
 
 Branch pools are unit-rate exponential draws (R, P, M, K) made once per
 sweep in prefix order, divided by the rank's rate; the manual VJP keeps
@@ -149,8 +149,8 @@ def chunk_loglik(twist, model, model_params, stationary, weights, m_l, m_r,
     K7 wide / K11c on the card (pruning.kernels.pair_ll_bwd).  A rate
     mixture (`kernels.twist_blocks`) takes its per-category transitions
     (`transition_blocks`, (2C, M, K, G, A_b, A_b)) and the blocked forms
-    of those kernels; other models, and every model under TWIST_BWD_V2,
-    the dense (G A_b)-state transitions."""
+    of those kernels, under either backward; other models their dense
+    transitions."""
     C, M, K = bl.shape
     b = torch.cat([bl, br])
     fn = (model.transition_blocks if twist_blocks(model) is not None

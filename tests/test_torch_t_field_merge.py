@@ -455,20 +455,24 @@ def test_cpu_route_under_twist_bwd_v2_is_unchanged(rng, monkeypatch, dtype,
 
 
 def test_t_field_route_is_dense_only(rng, monkeypatch):
-    """Under TWIST_BWD_V2 a blocked P still takes the plain K7 route (the
-    T-field form is dense), and `twist_blocks` sends rate mixtures to
-    the dense route."""
+    """The T-field route is no longer dense only: under TWIST_BWD_V2 a
+    blocked P takes the blocked T-field plain version (K11c blocked on
+    the card), which equals the plain K7 VJP, and `twist_blocks` keeps
+    rate mixtures on the blocked route."""
     m1, m2, _, _, pi, w, g = (torch.tensor(x, dtype=torch.float64) for x in
                               _twist_inputs(rng, 3, 4, 8, 37))
     Pb = torch.tensor(rng.uniform(0.05, 1.0, (4, 3, 2, 4, 4)))
     monkeypatch.setattr(tk, "TWIST_BWD_V2", True)
     got = tk.pair_ll_bwd(m1, m2, Pb, Pb, pi, w, g)
-    for a, b in zip(got, tk._pair_ll_bwd_plain(m1, m2, Pb, Pb, pi, w, g)):
+    for a, b in zip(got, tk._pair_ll_bwd_t_ref(m1, m2, Pb, Pb, pi, w, g)):
         assert torch.equal(a, b)
+    for a, b in zip(got, tk._pair_ll_bwd_plain(m1, m2, Pb, Pb, pi, w, g)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12,
+                                   atol=1e-300)
 
     class Mixture:
         blocks = (4, 4)
-    assert tk.twist_blocks(Mixture()) is None
+    assert tk.twist_blocks(Mixture()) == (4, 4)
 
 
 # ------------------------------------------------------- the sources

@@ -13,10 +13,10 @@ they are held to them at 1e-13:
   form (G = 2 blocks of 4);
 * `smc.twist.chunk_loglik` on GammaSites: the blocked route against the
   dense one in values and in gradients to the model's parameters, with
-  `transition_blocks` taking the place of `transition` unless
-  PHYLO_TWIST_BWD_V2 keeps the route dense;
+  `transition_blocks` taking the place of `transition` under either
+  backward;
 * K7 wide's and K11b's launch plans for every plane count the kernels
-  take.
+  take in one block group.
 The CUDA kernels are held against these plain versions on the card by
 chip_smoke.py."""
 
@@ -151,8 +151,8 @@ def _chunk_ll(model, params, m_l, m_r, bl, br, w, M=2):
 @pytest.mark.parametrize("bwd_v2", [False, True])
 def test_chunk_loglik_blocked_route(bwd_v2, monkeypatch):
     """GammaSites (GTR+G4): chunk_loglik takes `transition_blocks` in
-    place of `transition` (blocked K11b / K7 wide on the card), unless
-    TWIST_BWD_V2 keeps it dense; the blocked route equals the dense one
+    place of `transition` (blocked K11b / K7 wide on the card, and under
+    TWIST_BWD_V2 blocked K11c); the blocked route equals the dense one
     in values and in gradients to log_alpha, the base model's parameters
     and the messages."""
     monkeypatch.setattr(tk, "TWIST_BWD_V2", bwd_v2)
@@ -164,10 +164,9 @@ def test_chunk_loglik_blocked_route(bwd_v2, monkeypatch):
             calls[_name] += 1
             return _fn(*a)
         monkeypatch.setattr(model, name, counted)
-    assert tk.twist_blocks(model) == (None if bwd_v2 else (4, 4))
+    assert tk.twist_blocks(model) == (4, 4)
     got, got_g = _chunk_ll(*case)
-    # the dense transition assembles the blocks, so it calls them too
-    assert calls["transition"] == (1 if bwd_v2 else 0)
+    assert calls["transition"] == 0
     assert calls["transition_blocks"] == 1
     monkeypatch.setattr(tw, "twist_blocks", lambda model: None)
     want, want_g = _chunk_ll(*case)
@@ -178,9 +177,9 @@ def test_chunk_loglik_blocked_route(bwd_v2, monkeypatch):
 
 
 def test_twist_blocks_rule():
-    """The blocked route takes rate mixtures whose padded register tile
-    fits K11b's 64 planes; wider ones (protein + Gamma3, 60 planes) and
-    models without blocks stay dense."""
+    """The blocked route takes every rate mixture of 2 <= G <= 32 blocks
+    of up to 64 states (protein + Gamma3, 60 planes, too: the register
+    tile no longer decides); models without blocks stay dense."""
     assert tk.twist_blocks(get_model("gtr+g4", A=4)) == (4, 4)
     assert tk.twist_blocks(get_model("gtr+g4+i", A=4)) == (5, 4)
     assert tk.twist_blocks(get_model("jc69+r3", A=4)) == (3, 4)
@@ -188,7 +187,7 @@ def test_twist_blocks_rule():
     assert tk.twist_blocks(GammaSites(get_model("reference", A=20), G=2)) \
         == (2, 20)
     assert tk.twist_blocks(GammaSites(get_model("reference", A=20), G=3)) \
-        is None
+        == (3, 20)
 
 
 def test_launch_plans():
@@ -198,13 +197,19 @@ def test_launch_plans():
     (S = 256) for up to 8 plane groups, so dP is written once per (m,
     row) there.  K11b: its tiles cover S with at most 256 threads, one
     tile per row at S = 256.  For every G <= 32 blocks of A_b states in
-    at most 64 planes and S up to 1949."""
+    at most 64 planes and S up to 1949: all in one block group of each
+    kernel (tests/test_torch_twist_mixture_wide.py holds the plans over
+    several groups)."""
     for G in range(1, 33):
         for Ab in range(1, 64 // G + 1):
             NGT = G * -(-Ab // 4)
             fits = G == 1 or tk._pow2(max(Ab, 4)) * tk._pow2(G) <= 64
+            if fits:
+                assert tk.twist_fwd_group(G, Ab)[2] == 1
             for S in (1, 31, 32, 70, 256, 300, 898, 1949):
-                sc, threads, smem = tk.twist_bwd_plan(G, Ab, S)
+                if NGT <= 16:
+                    assert tk.twist_bwd_group(G, Ab, S) == G
+                sc, threads, smem = tk.twist_bwd_plan(G, Ab, S, gb=G)
                 assert 32 <= sc <= 256 and sc % 32 == 0, (G, Ab, S, sc)
                 assert smem <= tk.SMEM_LIMIT <= 227 * 1024, (G, Ab, S, smem)
                 assert NGT * sc // 4 <= threads <= 512 and threads % 32 == 0

@@ -95,9 +95,9 @@ def with_t_field(fn):
 
 def k11c_forms(gen, dev, shapes):
     narrow = _ext.bind("twist_kernels", "launch_pair_ll_bwd_t", 11, 6)
-    wide = _ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_t", 11, 7)
+    wide = _ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_t", 11, 9)
     k7 = _ext.bind("twist_kernels", "launch_pair_ll_bwd", 11, 6)
-    k7w = _ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_wide", 11, 8)
+    k7w = _ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_wide", 11, 9)
     for label, ins in shapes:
         if label.startswith("small"):
             continue
@@ -134,9 +134,10 @@ def k11c_forms(gen, dev, shapes):
                             + -(-A // 4) * 4)
                 if smem > kernels.SMEM_LIMIT:
                     continue
-                forms[f"t_sc{sc}"] = call(wide, A, S, sc, threads, smem)
+                forms[f"t_sc{sc}"] = call(wide, 1, A, S, sc, threads, smem,
+                                          1)
             forms["k7_wide"] = call(k7w, 1, A, S,
-                                    *kernels.twist_bwd_plan(1, A, S))
+                                    *kernels.twist_bwd_plan(1, A, S), 1)
         forms["wrapper"] = with_t_field(
             lambda: kernels.pair_ll_bwd(*ins, g, want_dw=False))
         errs = {}
@@ -225,7 +226,7 @@ def parent_ab(libs, gen, dev, shapes):
 
         new = with_t_field(lambda ins=ins, g=g: kernels.pair_ll_bwd(
             *ins, g, want_dw=False))
-        launch, _, _ = cs.t_field_launch(kernels, ins, g)
+        launch, _, _ = cs.bwd_launch(kernels, ins, g, True)
         e = k7f.max_err(former()[:4], new()[:4])
         cs.require(e <= K11C_TOL, f"K11c former vs new {label}: {e}")
         k7f.ab(f"K11c {label}", {"M": M, "KC": KC, "A": A, "S": S,

@@ -179,7 +179,7 @@ def k7_inputs(gen, dev, KC, S, M=cs.M_TWIST, A=cs.A):
 
 def k7_forms(lib, gen, dev):
     fn = _ext.bind("twist_kernels", "launch_pair_ll_bwd", 11, 6)
-    wide = _ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_wide", 11, 8)
+    wide = _ext.bind("twist_wide_kernels", "launch_pair_ll_bwd_wide", 11, 9)
     M, A = cs.M_TWIST, cs.A
     for KC, S in K7_SHAPES:
         args = k7_inputs(gen, dev, KC, S)
@@ -215,7 +215,7 @@ def k7_forms(lib, gen, dev):
         def run_wide():
             o = outs()
             _ext.check(wide(*[t.data_ptr() for t in (*args, *o)], KC, M, 1,
-                            A, S, *kernels.twist_bwd_plan(1, A, S),
+                            A, S, *kernels.twist_bwd_plan(1, A, S), 1,
                             _ext.stream_ptr(dev)), "K7 wide")
             return o
         forms["k7_wide_G1"] = run_wide
