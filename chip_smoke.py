@@ -22,7 +22,11 @@ script exits non-zero without printing a result:
    K=128, A=61, S=256 and 1086, and A=100, A=20 at a small shape, the
    all-planes-tied case included; protein+G4: K9 blocked at K=256, G=4
    blocks of A=20, S=256 and 500, K9bs blocked at K=64, and G=5 (+I)
-   and all planes tied; VNCSMC's pair log-likelihoods at rank 0: K11b at
+   and all planes tied, and the block-group forms forced there (1 and 2
+   blocks a group) against the one-group body (the column, dm, dP, dpi
+   and dw to the bit); over 128 planes, protein+G8 (8 x 20) at K=256,
+   S=256 and 500 and K=32, and GY94+G4 (4 x 61: the backward in block
+   groups) at K=128, S=256 and 1086, all planes tied too; VNCSMC's pair log-likelihoods at rank 0: K11b at
    primate (A=4, KC=2,112) and at DS1 GTR+G4 (KC=11,232) blocked (G=4 blocks of
    4, as the twist takes a rate mixture) and dense (the same
    transitions as 16 block-diagonal states), each in an A/B against the
@@ -39,7 +43,7 @@ script exits non-zero without printing a result:
    K7 wide blocked and K11c blocked at KC=896 and timed at 3,840), the
    plan's block groups against one group and 2 a group (dm to the bit),
    and 3 x 20, 8 x 20, 4 x 61 and 17 x 4 over two site tiles small;
-   K11a at A=4 and 16, and at 4 blocks of 20), with the tolerances
+   K11a at A=4 and 16, and at 4 and 8 blocks of 20), with the tolerances
    printed, and
    timed beside the plain version, the least time the card could take
    (bound) and, where one exists, a single PyTorch library call; K5 at
@@ -79,7 +83,10 @@ script exits non-zero without printing a result:
    with the T-field backward: K11b and K11c blocked), and VNCSMC
    protein+G4 and .dat+F+G4 on the simulated alignment's first 6 taxa
    and 128 sites under both backwards (K11b, K7 wide and K11c blocked,
-   K11a at 80 planes), each against one CPU run;
+   K11a at 80 planes), each against one CPU run; protein+G8 (K=256,
+   S=256: K9b blocked), GY94+G4 (K=128, S=256: K9b blocked in block
+   groups) and VNCSMC protein+G8 (6 taxa, 128 sites: K11a on 8 blocks
+   of 20);
 4. the main paths: two epochs each of VCSMC training on primate (N=12,
    S=898) at K=2048, of VNCSMC (twisted) training at K=32, M=10, of
    GTR+G4 VCSMC training on DS1 (N=27, S=1949) at K=2048, of GY94
@@ -92,7 +99,10 @@ script exits non-zero without printing a result:
    primate VNCSMC again with the T-field backward K11c (66 launches), of
    VNCSMC protein+G4 at K=32, M=10 on the simulated alignment (K11b and
    K7 wide blocked over block groups, K11a at 80 planes; exact launch
-   counts) and again with the T-field backward (K11c blocked), site
+   counts) and again with the T-field backward (K11c blocked), of
+   protein+G8 at K=256 and VNCSMC protein+G8 at K=32, M=10 on the same
+   alignment and GY94+G4 on betacorona1's codons at K=128 (exact launch
+   counts each), site
    batch 256, through phylo_tpu_torch.cli.runner, with every kernel's
    launch counter set to 0 before each path and read after;
 5. where the time of one epoch of each path goes, under torch.profiler
@@ -103,7 +113,8 @@ script exits non-zero without printing a result:
    K11c's and K8's;
    for VNCSMC GTR+G4 on DS1, K11b's, K7 wide's and
    K4's device time beside their earlier designs', and for VNCSMC
-   protein+G4 K11b's and K7 wide's);
+   protein+G4 and protein+G8 K11b's and K7 wide's; the block-group
+   bodies' device time on every path);
 6. a training run's life cycle at the main path's width (primate VCSMC,
    K=2048, b256), in a temporary directory: two epochs through the
    runner with artifacts and a checkpoint an epoch (the main path's
@@ -126,6 +137,7 @@ limit, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -152,6 +164,10 @@ K_CODON, N_CODON, S_CODON, A_CODON = 128, 17, 1086, 61
 # 16x500 A=20 GammaSites G=4 K=256"); K9bs blocked runs below the
 # SAVE_CHILDREN_CAP at K=64
 K_PROT, K_PROT_SAVED, N_PROT, S_PROT, A_PROT = 256, 64, 16, 500, 20
+# rate mixtures over more than 128 planes (K9 blocked in block groups
+# where one does not fit): protein + Gamma8 (IQ-TREE's +G8, MrBayes'
+# ngammacat=8) on the same alignment, GY94 + Gamma4 on betacorona1
+G_GAMMA8, G_GY94 = 8, 4
 PROT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "results", "chip_smoke")
 PROT_FASTA = os.path.join(PROT_DIR, "protein_16x500.fa")
@@ -688,6 +704,9 @@ def check_k9(kern, gen, dev, idx, S, Nd=N_CODON, A_=A_CODON, timed=True,
     outc = buf.shape[1] - 1
     tag = f"K={Kd} G={G} A={A_} S={S}" if G > 1 else f"K={Kd} A={A_} S={S}"
     fname = "K9f" + (" blocked" if G > 1 else "")
+    # FORMER_MS's blocked entries are protein+G4's; over 128 planes the
+    # card had no kernel before the block-group forms
+    fA = A_ if G * A_ <= 128 else G * A_
     for save in (True, False):
         b_k, b_p = buf.clone(), buf.clone()
         got = kern.fused_rank_update(leaves, b_k, idx, outc, P_l, P_r, pi, w,
@@ -722,7 +741,7 @@ def check_k9(kern, gen, dev, idx, S, Nd=N_CODON, A_=A_CODON, timed=True,
         b_ms, b_by = k9_bounds(idx, A_, S, Nd,
                                "fwd_save" if save else "fwd", G)
         log(f"  {fname} {tag} save={save}: kernel {ms:.4f} ms "
-            f"({former(fname + (' save' if save else ''), Kd, A_, S)}), "
+            f"({former(fname + (' save' if save else ''), Kd, fA, S)}), "
             f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
             f"{b_ms / ms:.0%} of it reached); library: null (no single "
             "PyTorch call gathers, merges, rescales and reduces)")
@@ -732,6 +751,18 @@ def check_k9(kern, gen, dev, idx, S, Nd=N_CODON, A_=A_CODON, timed=True,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
     m1, m2 = kern.gather_children(leaves, buf, idx)
     m1, m2 = m1.contiguous(), m2.contiguous()
+    if G > 1:
+        # all planes tied: every site's column is 1 on every plane
+        t_in = wide_inputs(gen, dev, S, idx, Kd, Nd, A_, ties=True, G=G)
+        b_k, b_p = t_in[1].clone(), t_in[1].clone()
+        got = kern.fused_rank_update(t_in[0], b_k, idx, outc, *t_in[3:])
+        want = kern._fused_rank_ref(t_in[0], b_p, idx, outc, *t_in[3:])
+        torch.cuda.synchronize()
+        err = max(max_abs(b_k, b_p), max_rel(got[0], want[0]))
+        log(f"  {fname} {tag} all planes tied: buf / rootll err {err:.3e} "
+            "(tol 1e-5)")
+        require(err <= 1e-5, f"{fname} tied error {err}")
+        del t_in, b_k, b_p
     if timed:
         Plt = P_l.reshape(Kd * G, A_, A_).transpose(1, 2).contiguous()
         Prt = P_r.reshape(Kd * G, A_, A_).transpose(1, 2).contiguous()
@@ -766,13 +797,80 @@ def check_k9(kern, gen, dev, idx, S, Nd=N_CODON, A_=A_CODON, timed=True,
             plain = time_ms(lambda: ref(*args), iters=3)
             b_ms, b_by = k9_bounds(idx, A_, S, Nd, kind, G)
             log(f"  {label} {tag}: kernel {ms:.4f} ms "
-                f"({former(label, Kd, A_, S)}), plain {plain:.4f} ms, bound "
+                f"({former(label, Kd, fA, S)}), plain {plain:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}, {b_ms / ms:.0%} of it reached); "
                 "library: null (no single PyTorch call computes this "
                 "backward)")
             out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                              bound_ms=b_ms, bound_by=b_by, library_ms=None)
     return out
+
+
+@contextlib.contextmanager
+def forced_group(kern, plan, gb, cluster):
+    """Within the block, the wide wrappers launch in block groups of gb
+    blocks at a cluster cap of `cluster`: kern.<plan> (`wide_fwd_group`
+    or `wide_bwd_group`) and kern.MAX_CLUSTER patched, then restored."""
+    saved = getattr(kern, plan), kern.MAX_CLUSTER
+    setattr(kern, plan, lambda *shape: gb)
+    kern.MAX_CLUSTER = cluster
+    try:
+        yield
+    finally:
+        setattr(kern, plan, saved[0])
+        kern.MAX_CLUSTER = saved[1]
+
+
+def check_forced_groups(kern, gen, dev, idx, S, Nd=N_PROT, G=G_GAMMA,
+                        A_=A_PROT, ties=False, emit=None):
+    """The block-group forms forced where one group fits (gb = 1 and 2 of
+    protein+G4's 4 x 20, at the one-group body's cluster) against the
+    one-group body: K9f's column and saved children, and K9bs's and K9b's
+    dm1, dm2, dP_l, dP_r, dpi and dw partial rows, to the bit (the group
+    backward rebuilds the one-group body's per-site sum order), rootll
+    and logscale within 1e-6 relative (their pi-sums add the groups in
+    turn).  `emit`: where the rows go (default: the log)."""
+    Kd = idx.shape[1]
+    leaves, buf, idx, P_l, P_r, pi, w = wide_inputs(gen, dev, S, idx, Kd,
+                                                    Nd, A_, ties=ties, G=G)
+    m1, m2 = kern.gather_children(leaves, buf, idx)
+    m1, m2 = m1.contiguous(), m2.contiguous()
+    cts = (*bwd_cotangents(gen, dev, Kd, G * A_, S), P_l, P_r, pi, w)
+    fc = kern.wide_fwd_plan(Kd, G, A_, S)[1]
+    bc = kern.wide_bwd_plan(Kd, G, A_, S)[1]
+    outc = buf.shape[1] - 1
+
+    def fwd():
+        b = buf.clone()
+        out = kern.fused_rank_update(leaves, b, idx, outc, P_l, P_r, pi, w,
+                                     save_children=True)
+        return b[:, outc], out
+
+    for gb in (1, 2):
+        col1, out1 = fwd()
+        with forced_group(kern, "wide_fwd_group", gb, fc):
+            colg, outg = fwd()
+        sums = max(max_rel(outg[0], out1[0]), max_rel(outg[1], out1[1]))
+        row = {"check": "forced group", "K": Kd, "G": G, "A": A_, "S": S,
+               "gb": gb, "ties": ties,
+               "column_and_children_bits": bool(
+                   torch.equal(col1, colg) and torch.equal(out1[2], outg[2])
+                   and torch.equal(out1[3], outg[3])),
+               "site_sums_rel_err": sums}
+        for label, fn, head in (("K9bs", kern.fused_rank_bwd_saved, (m1, m2)),
+                                ("K9b", kern.fused_rank_bwd,
+                                 (leaves, buf, idx))):
+            one = fn(*head, *cts)
+            with forced_group(kern, "wide_bwd_group", gb, bc):
+                grp = fn(*head, *cts)
+            row[label] = {n: bool(torch.equal(a, b)) for n, a, b in zip(
+                ("dm1", "dm2", "dP_l", "dP_r", "dpi", "dw"), one, grp)}
+        torch.cuda.synchronize()
+        (emit or (lambda r: log(f"  K9 blocked group form forced: "
+                                f"{json.dumps(r)}")))(row)
+        require(row["column_and_children_bits"] and sums <= 1e-6
+                and all(all(row[k].values()) for k in ("K9bs", "K9b")),
+                f"the forced group form differs from one group: {row}")
 
 
 def small_idx(gen, dev, Kd, Nd, R_):
@@ -1764,6 +1862,7 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
     )
 
     cpu_bwd_v2 = bwd_v2 if cpu_bwd_v2 is None else cpu_bwd_v2
+    t_start = time.time()
     ds = load(dataset, codons)
     rng = np.random.default_rng(11)
     genome = ds.genome[:Nd, :S]
@@ -1856,7 +1955,8 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
     log(f"phase 3 fixed-decision ELBO {label}{via}: cuda f32 {e32:.6f} vs "
         f"cpu f64 {e64:.6f}, rel err {rel:.3e} (tol 1e-3); "
         f"log_likelihood_R max rel err {rel_llr:.3e}; manual-VJP gradient "
-        f"rel L2 err {rel_g:.3e} (tol 1e-2){extra}{values}")
+        f"rel L2 err {rel_g:.3e} (tol 1e-2){extra}{values}; "
+        f"{time.time() - t_start:.1f} s")
     require(rel <= 1e-3, f"fixed-decision ELBO rel error {rel}")
     require(rel_llr <= 1e-3, f"log_likelihood_R rel error {rel_llr}")
     require(rel_g <= 1e-2, f"gradient rel error {rel_g}")
@@ -2045,6 +2145,56 @@ PATHS = {
                  "merge_bwd"),
         exact=PROT_TWIST_EXACT | {"pair_ll_bwd_t_blocked": PROT_STEPS,
                                   "pair_ll_bwd_wide_blocked": 0}),
+    # protein + Gamma8 (160 planes: K9f blocked and K9b blocked in one
+    # group of 16-site chunks) on the same alignment at K=256: an epoch is
+    # 1 SGD step + the eval sweep, 15 ranks each; the children would take
+    # 1.26 GB, over SAVE_CHILDREN_CAP, so K9b blocked.  Band from a CPU
+    # run of the port (K=32, b256, seed 0): -12823.0 at init, -12931.8 /
+    # -12937.7 after epochs 1 / 2
+    "protein_g8": dict(
+        dataset=PROT_FASTA, band=(-16000.0, -9000.0),
+        train=dict(n_particles=K_PROT, gamma_categories=G_GAMMA8),
+        argv=[f"--gamma_categories={G_GAMMA8}", f"--n_particles={K_PROT}"],
+        kernels=("fused_rank_update_wide_blocked",
+                 "fused_rank_bwd_wide_blocked", "categorical"),
+        exact={"fused_rank_update_wide_blocked": (N_PROT - 1) * (1 + 2 * (
+            S_PROT // S_BATCH + 1)),
+               "fused_rank_bwd_wide_blocked": (N_PROT - 1) * 2 * (
+            S_PROT // S_BATCH), "fused_rank_bwd_saved_wide_blocked": 0}),
+    # VNCSMC protein + Gamma8: the twist over 8 blocks of 20 (K11b blocked
+    # in block groups, K7 wide blocked a block a group) and K11a on the
+    # chosen merges' 8 blocks of 20 (K9bs blocked's one-group body).  A CPU
+    # run of the port (K=4, M=2, b256, seed 0, PHYLO_TWIST_BWD_V2=1):
+    # -12458.3 at init, -12216.6 / -12319.4 after epochs 1 / 2
+    "vncsmc_protein_g8": dict(
+        dataset=PROT_FASTA, band=VNCSMC_PROT_BAND,
+        train=dict(nested=True, M=M_TWIST, n_particles=K_TWIST,
+                   gamma_categories=G_GAMMA8),
+        argv=[f"--gamma_categories={G_GAMMA8}", "--nested=True",
+              f"--M={M_TWIST}", f"--n_particles={K_TWIST}"],
+        kernels=("pair_loglik_fwd_blocked", "pair_ll_bwd_wide_blocked",
+                 "merge_bwd", "categorical"),
+        exact=PROT_TWIST_EXACT | {"pair_ll_bwd_wide_blocked": PROT_STEPS,
+                                  "pair_ll_bwd_t_blocked": 0},
+        twist_profile="no earlier design: the card refused this path "
+                      "before the wide rank kernels' block groups"),
+    # GY94 + Gamma4 on betacorona1's codons (4 blocks of 61, 244 planes):
+    # 4 SGD steps of 256 codons + the 1086-codon eval sweep, 16 ranks
+    # each; K9f blocked in one group (174 KB a block), K9b blocked in 2
+    # groups of 2 blocks (the children would take 512 MB, over the cap);
+    # not profiled.  A CPU run of the port (K=16, b256, seed 0): -55101.1
+    # at init, -50097.0 / -50789.8 after epochs 1 / 2
+    "gy94_g4": dict(
+        dataset="betacorona1", codons=True, band=(-70000.0, -30000.0),
+        profile=False,
+        train=dict(n_particles=K_CODON, substitution_model="gy94+g4"),
+        argv=["--codons=True", "--model=gy94+g4", f"--n_particles={K_CODON}"],
+        kernels=("fused_rank_update_wide_blocked",
+                 "fused_rank_bwd_wide_blocked", "categorical"),
+        exact={"fused_rank_update_wide_blocked": (N_CODON - 1) * (1 + 2 * (
+            S_CODON // S_BATCH + 1)),
+               "fused_rank_bwd_wide_blocked": (N_CODON - 1) * 2 * (
+            S_CODON // S_BATCH), "fused_rank_bwd_saved_wide_blocked": 0}),
     "protein_dat_f_g4": dict(
         dataset=PROT_FASTA, band=(-16000.0, -9000.0), profile=False,
         train=dict(n_particles=K_PROT_SAVED, gamma_categories=4,
@@ -2137,7 +2287,9 @@ def profile_epoch(name):
     named = {k: [0.0, 0] for k in ("K11b", "K7 wide", "K7", "K11c", "K8",
                                    "K4f", "K4b", "rank fwd (K1, K10)",
                                    "rank bwd (K2, K3, K10 bwd, K11a A<=8)",
-                                   "K9b / K9bs / K11a", "K9f", "K5")}
+                                   "K9b / K9bs / K11a", "K9f",
+                                   "K9b / K9bs groups", "K9f groups",
+                                   "K5")}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
@@ -2156,6 +2308,9 @@ def profile_epoch(name):
                                RANK_BWD_KERNEL),
                               ("K9b / K9bs / K11a", "wide_rank_bwd_kernel"),
                               ("K9f", "wide_rank_fwd_kernel"),
+                              ("K9b / K9bs groups",
+                               "wide_rank_bwd_group_kernel"),
+                              ("K9f groups", "wide_rank_fwd_group_kernel"),
                               ("K5", "categorical_kernel")):
                 if fn in e.key:
                     named[kname][0] += float(us) / 1e3
@@ -2187,7 +2342,7 @@ def profile_epoch(name):
                   "K9b / K9bs / K11a", "K7", "K11c", "K8")))
     log(f"phase 5 {name} K9f and K5: " + ", ".join(
         f"{k} {named[k][0]:.2f} ms over {named[k][1]} launches"
-        for k in ("K9f", "K5")))
+        for k in ("K9f", "K9f groups", "K9b / K9bs groups", "K5")))
     if "twist_profile" in path:
         twist = {k: named[k] for k in ("K11b", "K7 wide")}
         log(f"phase 5 {name} twist kernels: " + ", ".join(
@@ -2574,7 +2729,40 @@ def main(argv):
             # +I: block 0 the identity (its planes are the children's own)
             check_k9(kernels, gen, dev, idx_p, S, Nd=N_PROT, A_=A_PROT,
                      G=G_GAMMA + 1, timed=False)
+        if Kd == K_PROT and S == S_BATCH:
+            # the group forms forced at 4 x 20 against the one-group body
+            for ties in (False, True):
+                check_forced_groups(kernels, gen, dev, idx_p, S, ties=ties)
     torch.cuda.empty_cache()
+    # over 128 planes: protein+G8 (8 x 20, one group at 16-site chunks)
+    # at K=256, S=256 (the kernels line: the SGD step, K9b over the cap)
+    # and 500, K9bs at K=32; GY94+G4 (4 x 61: K9f one group, the backward
+    # in 2 groups of 2 blocks) at K=128, S=256 (the kernels line) and
+    # 1086; K11a at K=32 on 8 blocks of 20 (VNCSMC protein+G8's chosen
+    # merges)
+    k9_wide = {}
+    for spec, G, A_, Nd, ds_, codons, Kd, S in (
+            ("reference+g8", G_GAMMA8, A_PROT, N_PROT, PROT_FASTA, False,
+             K_PROT, S_BATCH),
+            ("reference+g8", G_GAMMA8, A_PROT, N_PROT, PROT_FASTA, False,
+             K_PROT, S_PROT),
+            ("reference+g8", G_GAMMA8, A_PROT, N_PROT, PROT_FASTA, False,
+             K_TWIST, S_BATCH),
+            ("gy94+g4", G_GY94, A_CODON, N_CODON, "betacorona1", True,
+             K_CODON, S_BATCH),
+            ("gy94+g4", G_GY94, A_CODON, N_CODON, "betacorona1", True,
+             K_CODON, S_CODON)):
+        idx_w = last_rank_idx(gen, dev, S, ds_, spec, Kd, codons=codons)
+        got = check_k9(kernels, gen, dev, idx_w, S, Nd=Nd, A_=A_, G=G,
+                       line_save=False)
+        if S == S_BATCH and Kd != K_TWIST:
+            k9_wide.update({(k, f"{G}x{A_}"): got[k] for k in (
+                "fused_rank_update_wide_blocked",
+                "fused_rank_bwd_wide_blocked")})
+        del idx_w
+        torch.cuda.empty_cache()
+    k11a_g8 = check_k11a(kernels, gen, dev, A_PROT, G_=G_GAMMA8)
+    log(f"phase 2 over 128 planes done at {time.time() - t0:.1f} s")
 
     log(f"phase 2 done at {time.time() - t0:.1f} s")
     # primate VCSMC: at the main path's site batch, under the cap (K2), and
@@ -2631,6 +2819,22 @@ def main(argv):
                          route="fused_rank_bwd_saved_wide_blocked")
     fixed_decision_check(dev, spec="reference+g4", dataset=PROT_FASTA,
                          Kd=K_PROT, route="fused_rank_bwd_wide_blocked")
+    # over 128 planes: protein+G8 at K=64, S=256 (315 MB over the cap:
+    # K9b blocked, one group), GY94+G4 at the main path's K=128, S=256
+    # (over the cap: K9b blocked in 2 groups), VNCSMC protein+G8 on the
+    # first 5 taxa and 128 sites (K11b, K7 wide blocked, K11a on 8 blocks
+    # of 20)
+    fixed_decision_check(dev, spec="reference+g8", dataset=PROT_FASTA,
+                         Kd=K_PROT_SAVED, S=S_BATCH,
+                         route="fused_rank_bwd_wide_blocked")
+    fixed_decision_check(dev, spec="gy94+g4", dataset="betacorona1",
+                         codons=True, Kd=K_CODON, S=S_BATCH,
+                         route="fused_rank_bwd_wide_blocked")
+    fixed_decision_check(
+        dev, twist=True, spec="reference+g8", dataset=PROT_FASTA, S=128,
+        Nd=5, cpu_bwd_v2=True, route=("pair_loglik_fwd_blocked",
+                                      "pair_ll_bwd_wide_blocked",
+                                      "merge_bwd"))
     torch.cuda.empty_cache()
     log(f"phase 3 done at {time.time() - t0:.1f} s")
     by_path = {name: main_path(_ext, name) for name in PATHS}
@@ -2697,9 +2901,22 @@ def main(argv):
          for name, site in (("fused_rank_update_wide_blocked", 1646),
                             ("fused_rank_bwd_saved_wide_blocked", 2071),
                             ("fused_rank_bwd_wide_blocked", 1949))]
+    # over 128 planes, a row a (wrapper, shape), launches from the path
+    # that runs that shape
+    wide_rows = [(f"{name} {shape}", path, site, k9_wide[(name, shape)])
+                 for shape, path in (("8x20", "protein_g8"),
+                                     ("4x61", "gy94_g4"))
+                 for name, site in (("fused_rank_update_wide_blocked", 1646),
+                                    ("fused_rank_bwd_wide_blocked", 1949))]
+    wide_rows.append(("merge_bwd 8x20", "vncsmc_protein_g8", 395, k11a_g8))
     table = [dict(name=name, route="cuda", source=src, replaces=rep,
                   launches=int(launches.get(name, 0)), **m)
-             for name, src, rep, m in rows]
+             for name, src, rep, m in rows] + [
+        dict(name=name, route="cuda",
+             source="phylo_tpu_torch/csrc/wide_kernels.cu",
+             replaces=f"phylo_tpu/pruning/kernels.py:{site}",
+             launches=int(by_path[path].get(name.split()[0], 0)), **m)
+        for name, path, site, m in wide_rows]
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

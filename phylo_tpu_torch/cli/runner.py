@@ -17,6 +17,14 @@ Usage (on a GPU):
         --gamma_categories=4 --n_particles=256 --batch_size=256
     python -m phylo_tpu_torch.cli.runner --dataset=<protein FASTA> \
         --paml_dat=lg.dat --plus_f=True --gamma_categories=4
+    python -m phylo_tpu_torch.cli.runner --dataset=<protein FASTA> \
+        --gamma_categories=8 --n_particles=256 --batch_size=256
+    python -m phylo_tpu_torch.cli.runner --dataset=betacorona1 \
+        --codons=True --model=gy94+g4 --n_particles=128 --batch_size=256
+
+Rate mixtures run on the card up to 32 blocks of up to 128 states
+(protein+Gamma8, GY94+Gamma4 included); more blocks or wider ones raise
+before any tensor is touched (`smc.sweep.card_refusals`).
 
 Checkpoints go to <run dir>/ckpt every --checkpoint_every epochs;
 --resume_from=<checkpoint or its directory> continues a run from one.

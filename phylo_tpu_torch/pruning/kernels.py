@@ -30,14 +30,16 @@ K2, while 2 R K GA S itemsize <= SAVE_CHILDREN_CAP (JAX's value and
 rule), and K3 above it.
 
 CUDA tensors launch csrc/rank_kernels.cu, or csrc/wide_kernels.cu for
-messages of 8 < A states per block and G*A <= 128 planes (K9, the wide
-bodies: JAX's `wide_rank_kernel` rule, G A^2 > 64; dense, G = 1, for
-codon GY94's A = 61, blocked, "K9 blocked", for a rate mixture over a
-wide base such as protein + Gamma4, G = 4 x A = 20); CPU tensors run
-the plain versions `_fused_rank_ref` / `_fused_rank_bwd_saved_ref` /
-`_fused_rank_bwd_ref` below, at any A.  A blocked model with A <= 8
-states per block runs on K10 (G <= 32 blocks); above 128 planes (GY94 +
-Gamma4: 244) the card has no rank kernel.  K1 and K10's forward are one
+messages of 8 < A <= 128 states per block and G <= 32 blocks (K9, the
+wide bodies: JAX's `wide_rank_kernel` rule, G A^2 > 64, and its per-block
+limit of 128 states; dense, G = 1, for codon GY94's A = 61, blocked, "K9
+blocked", for a rate mixture over a wide base such as protein + Gamma4,
+G = 4 x A = 20, protein + Gamma8, 8 x 20, or GY94 + Gamma4, 4 x 61, in
+block groups where one block of threads does not hold every plane:
+`wide_fwd_group`, `wide_bwd_group`); CPU tensors run the plain versions
+`_fused_rank_ref` / `_fused_rank_bwd_saved_ref` / `_fused_rank_bwd_ref`
+below, at any A.  A blocked model with A <= 8 states per block runs on
+K10 (G <= 32 blocks).  K1 and K10's forward are one
 body on the card, `fused_rank_fwd_kernel` (one pass: each child value
 read once), in its dense form for G = 1, launched on `rank_fwd_plan`;
 K2, K3 (A <= 8) and K10's backward are one body,
@@ -48,7 +50,8 @@ no-grad sweep call them.  K7 and K11c (dense A <= 8) and K8 live in
 csrc/twist_kernels.cu, K7 wide, K11b and K11c (dense 8 < A <= 64, and
 blocked: G <= 32 blocks of A_b <= 64 states, in block groups where they do
 not fit at once) in csrc/twist_wide_kernels.cu; K11a is a named entry over
-K2's body (A <= 8) and K9bs dense (A <= 128).  The twist's pair
+K2's body (A <= 8) and K9bs's (dense A <= 128, or a wide mixture's
+blocks).  The twist's pair
 log-likelihoods take P dense (M, K, A, A) or, for a rate mixture
 (`twist_blocks`), blocked (M, K, G, A_b, A_b): the wrappers dispatch on
 P's rank, and the gradient comes back in P's own shape.
@@ -76,8 +79,10 @@ BWD_MAX_THREADS = 512           # K7 wide: threads per CUDA block
 BWD_MAX_SC = 256                # K7 wide: sites per chunk
 SMEM_LIMIT = 232448             # shared-memory bytes of a block (H100)
 MAX_G = 32                      # rate-category blocks on the card
-MAX_WIDE_PLANES = 128           # G*A planes of the wide kernels K9
+MAX_WIDE_A = 128                # K9: states a block at most
 WIDE_FWD_THREADS = 256          # K9f: threads a block at most
+WIDE_GROUP_NST = 8              # K9's group forms: site tiles of 4 a chunk
+WIDE_GROUP_DPT = 4              # K9bs / K9b groups: dP tiles a thread a round
 FWD_SPL = 2                     # K1: a lane's sites a chunk at most
 FWD_WARP_CHUNKS = 8             # K1 / K10: chunks a warp on a full grid
 FWD_MAX_WARPS = 8               # the rank forward: warps (chunks) a block
@@ -198,23 +203,32 @@ def _blocks(P_l, GA):
 
 def wide_planes(G, A, blocked):
     """True when a rank of G blocks of A states takes the wide kernels K9
-    on the card: A > 8, dense (G = 1) or blocked (K9 blocked), in at most
-    128 planes.  JAX's `wide_rank_kernel` rule (G A^2 > 64) agrees for
-    dense transitions and for blocked ones with A > 8; a blocked model
-    with A <= 8 runs on K10 (JAX's wide bodies take those with G A^2 >
-    64, such as GTR+G4+I).
+    on the card: 8 < A <= 128 states a block, dense (G = 1) or blocked (K9
+    blocked, G <= 32 blocks: protein + Gamma8's 8 x 20 and GY94 +
+    Gamma4's 4 x 61 too, in block groups where one group does not fit).
+    JAX's `wide_rank_kernel` rule (G A^2 > 64) agrees for dense
+    transitions and for blocked ones with A > 8, and so does its limit of
+    128 states a block (JAX's G is unbounded; the card's is MAX_G); a
+    blocked model with A <= 8 runs on K10 (JAX's wide bodies take those
+    with G A^2 > 64, such as GTR+G4+I).
     Raises where the card has no kernel."""
     if A <= MAX_A:
         if blocked:
             _check_a(A, G)
         return False
-    if G * A > MAX_WIDE_PLANES:
-        raise NotImplementedError(
-            f"the wide CUDA rank kernels (K9, K9 blocked) take G*A <= "
-            f"{MAX_WIDE_PLANES} planes (dense: A <= {MAX_WIDE_PLANES} "
-            f"states), got G={G} x A={A} (ROADMAP.md Queue 2: rate "
-            "mixtures over more than 128 planes, e.g. GY94 + Gamma4)")
+    check_wide(G, A)
     return True
+
+
+def check_wide(G, A):
+    """Raises outside K9's contract: 1 <= G <= MAX_G blocks of 1 <= A <=
+    MAX_WIDE_A states (dense: G = 1)."""
+    if not (1 <= A <= MAX_WIDE_A and 1 <= G <= MAX_G):
+        raise NotImplementedError(
+            f"the wide CUDA rank kernels (K9, K9 blocked) take at most "
+            f"{MAX_G} rate-category blocks of at most {MAX_WIDE_A} states, "
+            f"got G={G} x A={A} (ROADMAP.md Queue 3: paths the card "
+            "refuses)")
 
 
 def wide_rank(P_l, GA):
@@ -269,12 +283,22 @@ def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
             weights.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(), p1,
             p2)
     if wide:
-        sc, cluster, threads, _, _ = wide_fwd_plan(K, G, A, S)
-        fn = _ext.bind("wide_kernels", "launch_wide_rank", 11, 10)
+        gb = wide_fwd_group(K, G, A, S)
+        sc, cluster, threads, _, _ = wide_fwd_plan(
+            K, G, A, S, max_cluster=MAX_CLUSTER, gb=gb)
         name = "fused_rank_update_wide" + ("_blocked" if blocked else "")
         _ext.LAUNCHES[name] += 1
-        code = fn(*ptrs, K, R, N, G, A, S, outc, sc, cluster, threads,
-                  _ext.stream_ptr(dev))
+        if gb == G:
+            fn = _ext.bind("wide_kernels", "launch_wide_rank", 11, 10)
+            code = fn(*ptrs, K, R, N, G, A, S, outc, sc, cluster, threads,
+                      _ext.stream_ptr(dev))
+        else:
+            # each site's running max and pi-sum over the groups
+            scr = torch.empty((K, 2, _ceil(S, sc) * sc), dtype=f32,
+                              device=dev)
+            fn = _ext.bind("wide_kernels", "launch_wide_rank_group", 12, 11)
+            code = fn(*ptrs, scr.data_ptr(), K, R, N, G, A, S, outc, sc,
+                      cluster, threads, gb, _ext.stream_ptr(dev))
     else:
         spl, warps, _, _, _ = rank_fwd_plan(K, G, A, S)
         fn = _ext.bind("rank_kernels", "launch_fused_rank_fwd", 11, 9)
@@ -478,9 +502,63 @@ def _wide_max_threads(nst):
     return 32 * nst if nst > 8 else WIDE_BWD_THREADS
 
 
-def wide_bwd_plan(K, G, A, S, nst=None, max_cluster=MAX_CLUSTER):
+def _wide_one_bwd(G, A):
+    """(nst, threads, dpt) of the one-group backward's launch."""
+    npt = _ceil(A, 4)
+    nst = WIDE_BWD_SITE_TILES
+    if G * npt * nst > WIDE_BWD_THREADS:
+        nst = 4
+    threads = _ceil(G * npt * nst, 32) * 32
+    return nst, threads, _pow2(_ceil(2 * G * npt * npt, threads))
+
+
+def _group_size(G, most):
+    """Blocks a group: the groups that `most` blocks each need, filled
+    evenly (and fewer than G: the one-group bodies take G)."""
+    most = max(1, min(most, G - 1))
+    return _ceil(G, _ceil(G, most))
+
+
+def wide_bwd_group_smem(gb, A, nst=WIDE_GROUP_NST):
+    """Shared-memory bytes of the backward's group form: csrc/wide_kernels.cu's
+    BwdGroupLayout (a group's P blocks, reused as its dP / dpi staging
+    row; its pi; four (gb AP, 4 nst) tiles at pitch 4 nst + 4; the dpi
+    partials)."""
+    AP = 4 * _ceil(A, 4)
+    preg = max(2 * gb * AP * AP, 4 * _ceil(2 * gb * A * A + gb * A, 4))
+    return 4 * (preg + 4 * _ceil(gb * A, 4) + 4 * gb * AP * (4 * nst + 4)
+                + nst * gb * AP)
+
+
+def wide_bwd_group(K, G, A, S):
+    """Blocks a group of K9bs / K9b (and K11a): G, today's one-group
+    launch, wherever it fits -- a block's threads cover every plane tile
+    (at most WIDE_BWD_THREADS), the shared memory holds all of P
+    (`wide_bwd_smem`) and dpt is one the body is built for (up to 8 at 32
+    sites a chunk, 4 at 16: 8 there would hold 128 dP accumulators a
+    thread beside the tiles).  Protein + Gamma8 (8 x 20: 160 threads, dpt
+    4) fits; GY94 + Gamma4 (4 x 61: dpt 8 at 16 sites), 16 x 20 (320
+    threads) and 32 x 20 (325 KB) do not.  There the group form takes the
+    most whole blocks whose tiles of 4 planes x WIDE_GROUP_NST site tiles
+    fit WIDE_BWD_THREADS and whose layout fits (`wide_bwd_group_smem`),
+    spread evenly (GY94 + Gamma4: 2 groups of 2 blocks)."""
+    check_wide(G, A)
+    nst, threads, dpt = _wide_one_bwd(G, A)
+    if (threads <= _wide_max_threads(nst) and dpt <= (8 if nst == 8 else 4)
+            and wide_bwd_smem(G, A, nst) <= SMEM_LIMIT):
+        return G
+    npt = _ceil(A, 4)
+    most = WIDE_BWD_THREADS // (npt * WIDE_GROUP_NST)
+    while most > 1 and wide_bwd_group_smem(most, A) > SMEM_LIMIT:
+        most -= 1
+    return _group_size(G, most)
+
+
+def wide_bwd_plan(K, G, A, S, nst=None, max_cluster=MAX_CLUSTER, gb=None):
     """Launch of K9bs / K9b (and K11a above 8 states): (sites a chunk,
-    cluster, threads, dP tiles a thread, blocks, shared-memory bytes).
+    cluster, threads, dP tiles a thread, blocks, shared-memory bytes) at
+    gb blocks a group (default `wide_bwd_group`; gb = G is the one-group
+    body, and the plan is the one it had before the group forms).
     Grid (cluster, K): the cluster's blocks split particle k's chunks of
     4 nst sites (block r takes chunks r, r + cluster, ...) and sum their
     dP through distributed shared memory.  A thread owns a (4 planes x 4
@@ -492,20 +570,29 @@ def wide_bwd_plan(K, G, A, S, nst=None, max_cluster=MAX_CLUSTER):
     The cluster is the largest (up to 8) that keeps the grid to one wave
     of the card: a block pays a fixed prologue (P into shared memory) and
     the cluster's reduction, so 8 blocks a particle ran 1.5x slower than
-    2 at GY94's K = 128 (tools/torch_k9_bwd_forms.py, PERF.md)."""
-    if not 1 <= G * A <= MAX_WIDE_PLANES:
-        raise NotImplementedError(
-            f"K9bs / K9b take G*A <= {MAX_WIDE_PLANES} planes, got {G}x{A}")
+    2 at GY94's K = 128 (tools/torch_k9_bwd_forms.py, PERF.md).  The
+    group form (gb < G) has a block a group's gb ceil(A / 4) nst tiles
+    (nst = WIDE_GROUP_NST), and runs each group's 2 gb ceil(A / 4)^2 dP
+    tiles in rounds of dpt = WIDE_GROUP_DPT a thread."""
+    check_wide(G, A)
+    if gb is None:
+        gb = wide_bwd_group(K, G, A, S)
     npt = _ceil(A, 4)
-    if nst is None:
-        nst = WIDE_BWD_SITE_TILES
-        if G * npt * nst > WIDE_BWD_THREADS:
-            nst = 4
+    if gb < G:
+        nst = nst or WIDE_GROUP_NST
+        threads = _ceil(gb * npt * nst, 32) * 32
+        dpt = WIDE_GROUP_DPT
+        smem = wide_bwd_group_smem(gb, A, nst)
+    else:
+        if nst is None:
+            nst = WIDE_BWD_SITE_TILES
+            if G * npt * nst > WIDE_BWD_THREADS:
+                nst = 4
+        threads = _ceil(G * npt * nst, 32) * 32
+        dpt = _pow2(_ceil(2 * G * npt * npt, threads))
+        smem = wide_bwd_smem(G, A, nst)
     sc = 4 * nst
     chunks = _ceil(S, sc)
-    threads = _ceil(G * npt * nst, 32) * 32
-    dpt = _pow2(_ceil(2 * G * npt * npt, threads))
-    smem = wide_bwd_smem(G, A, nst)
     # one wave: the blocks an SM holds by shared memory and by registers
     # at the launch bound's cap of 255 a thread
     per_sm = max(1, min(SMEM_LIMIT // smem, 65536 // (255 * threads)))
@@ -523,9 +610,57 @@ def wide_fwd_smem(G, A, sc, threads):
                 + 2 * G * AP * (sc + 4) + 2 * (threads // 32) * sc + sc + 16)
 
 
-def wide_fwd_plan(K, G, A, S, sc=None, max_cluster=MAX_CLUSTER, ts=4):
+def _wide_one_fwd(G, A, ts=4):
+    """(sc, threads) of K9f's one-group launch: sc = 64 sites a chunk,
+    halved (down to 2 ts) while the tiles would not fit WIDE_FWD_THREADS;
+    threads rounded up to a multiple of 32 and of sc."""
+    npt = _ceil(A, 4)
+    sc = 64
+    while G * npt * (sc // ts) > WIDE_FWD_THREADS and sc > 2 * ts:
+        sc //= 2
+    unit = max(32, sc)
+    return sc, _ceil(G * npt * (sc // ts), unit) * unit
+
+
+def wide_fwd_group_smem(gb, A, sc, threads):
+    """Shared-memory bytes of K9f's group form: csrc/wide_kernels.cu's
+    FwdGroupLayout (a group's P blocks and pi, two (gb AP, sc) tiles at
+    pitch sc + 4, the warps' per-site partials, 16 site-sum slots)."""
+    AP = 4 * _ceil(A, 4)
+    return 4 * (2 * gb * AP * AP + 4 * _ceil(gb * A, 4)
+                + 2 * gb * AP * (sc + 4) + 2 * (threads // 32) * sc + 16)
+
+
+def wide_fwd_group(K, G, A, S):
+    """Blocks a group of K9f: G, the one-group launch, wherever its
+    plan has threads for every plane tile (at most WIDE_FWD_THREADS at 8
+    sites a chunk) and its layout holds all of P (`wide_fwd_smem`):
+    protein + Gamma8 (16 sites a chunk, 52.6 KB), GY94 + Gamma4 (16, 174
+    KB) and 16 x 20 (8) fit; 32 x 20 (160 plane tiles) and 8 x 61 (314
+    KB) do not.  There the group form takes the most whole blocks whose
+    tiles of 4 planes x WIDE_GROUP_NST site tiles fit WIDE_FWD_THREADS and
+    whose layout fits (`wide_fwd_group_smem`), spread evenly."""
+    check_wide(G, A)
+    sc, threads = _wide_one_fwd(G, A)
+    if (threads <= WIDE_FWD_THREADS
+            and wide_fwd_smem(G, A, sc, threads) <= SMEM_LIMIT):
+        return G
+    npt = _ceil(A, 4)
+    sc = 4 * WIDE_GROUP_NST
+    most = WIDE_FWD_THREADS // (npt * WIDE_GROUP_NST)
+    while most > 1 and wide_fwd_group_smem(
+            most, A, sc, _ceil(most * npt * WIDE_GROUP_NST, sc) * sc) \
+            > SMEM_LIMIT:
+        most -= 1
+    return _group_size(G, most)
+
+
+def wide_fwd_plan(K, G, A, S, sc=None, max_cluster=MAX_CLUSTER, ts=4,
+                  gb=None):
     """Launch of K9f: (sites a chunk, cluster, threads, blocks,
-    shared-memory bytes).  Grid (cluster, K): the cluster's blocks split
+    shared-memory bytes) at gb blocks a group (default `wide_fwd_group`;
+    gb = G is the one-group body, whose plan is the one it had before the
+    group forms).  Grid (cluster, K): the cluster's blocks split
     particle k's chunks of sc sites (block r takes chunks r, r + cluster,
     ...), each with P staged once, and sum rootll and logscale through
     distributed shared memory.  A thread owns a (4 planes x ts sites)
@@ -537,23 +672,28 @@ def wide_fwd_plan(K, G, A, S, sc=None, max_cluster=MAX_CLUSTER, ts=4):
     grid to one wave: the blocks an SM holds by shared memory and by the
     launch bound's 128 registers a thread.  On the H100 the largest
     blocks ran quickest, a second wave or a cluster of 6 blocks slower
-    (tools/torch_k9_fwd_forms.py, PERF.md)."""
-    if not 1 <= G * A <= MAX_WIDE_PLANES:
-        raise NotImplementedError(
-            f"K9f takes G*A <= {MAX_WIDE_PLANES} planes, got {G}x{A}")
+    (tools/torch_k9_fwd_forms.py, PERF.md).  The group form (gb < G,
+    ts = 4) has a block a group's gb ceil(A / 4) tiles x WIDE_GROUP_NST
+    site tiles (32 sites a chunk)."""
+    check_wide(G, A)
+    if gb is None:
+        gb = wide_fwd_group(K, G, A, S)
     npt = _ceil(A, 4)
-    if sc is None:
-        sc = 64
-        while G * npt * (sc // ts) > WIDE_FWD_THREADS and sc > 2 * ts:
-            sc //= 2
-    nst = sc // ts
-    chunks = _ceil(S, sc)
-    unit = max(32, sc)
-    threads = _ceil(G * npt * nst, unit) * unit
+    if gb < G:
+        sc = sc or 4 * WIDE_GROUP_NST
+        unit = max(32, sc)
+        threads = _ceil(gb * npt * (sc // 4), unit) * unit
+        smem = wide_fwd_group_smem(gb, A, sc, threads)
+    else:
+        if sc is None:
+            sc = _wide_one_fwd(G, A, ts)[0]
+        unit = max(32, sc)
+        threads = _ceil(G * npt * (sc // ts), unit) * unit
+        smem = wide_fwd_smem(G, A, sc, threads)
     if threads > WIDE_FWD_THREADS:
-        raise ValueError(f"K9f: {G * npt} plane tiles x {nst} site tiles "
-                         f"exceed {WIDE_FWD_THREADS} threads")
-    smem = wide_fwd_smem(G, A, sc, threads)
+        raise ValueError(f"K9f: {gb * npt} plane tiles x {sc // ts} site "
+                         f"tiles exceed {WIDE_FWD_THREADS} threads")
+    chunks = _ceil(S, sc)
     per_sm = max(1, min(SMEM_LIMIT // smem, 65536 // (128 * threads)))
     fit = min(chunks, max_cluster, max(1, SMS * per_sm // K))
     cluster = 1 << (fit.bit_length() - 1)
@@ -596,6 +736,23 @@ def _pointers(outs):
     return [None if t is None else t.data_ptr() for t in outs]
 
 
+def _wide_bwd_launch(K, G, A, S, dev):
+    """(plan arguments, scratch tensors, the group form?) of a K9bs / K9b
+    launch: the one-group body's (sc, cluster, threads, dpt), or the
+    group form's (sc, cluster, threads, gb) with its (K, 4, G ceil(A / 4),
+    S_pad) tile partials and (K, 5, S_pad) per-site scalars."""
+    gb = wide_bwd_group(K, G, A, S)
+    sc, cluster, threads, dpt, _, _ = wide_bwd_plan(
+        K, G, A, S, max_cluster=MAX_CLUSTER, gb=gb)
+    if gb == G:
+        return (sc, cluster, threads, dpt), (), False
+    Sp = _ceil(S, sc) * sc
+    f = dict(dtype=torch.float32, device=dev)
+    scratch = (torch.empty((K, 4, G * _ceil(A, 4), Sp), **f),
+               torch.empty((K, 5, Sp), **f))
+    return (sc, cluster, threads, gb), scratch, True
+
+
 def _launch_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights,
                       counter=None, want_dw=True):
     """K2 / K10's backward / K9bs on the card, counted under `counter`
@@ -615,12 +772,13 @@ def _launch_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights,
                                   weights)]
     out_p = _pointers(outs)
     if wide:
-        sc, cluster, threads, dpt, _, _ = wide_bwd_plan(K, G, A, S)
-        fn = _ext.bind("wide_kernels", "launch_wide_rank_bwd_saved", 15, 8)
+        plan, scratch, group = _wide_bwd_launch(K, G, A, S, dev)
+        entry = "launch_wide_rank_bwd_saved" + ("_group" if group else "")
+        fn = _ext.bind("wide_kernels", entry, 15 + len(scratch), 8)
         name = "fused_rank_bwd_saved_wide" + ("_blocked" if blocked else "")
         _ext.LAUNCHES[counter or name] += 1
-        code = fn(*ins, *out_p, K, G, A, S, sc, cluster, threads, dpt,
-                  _ext.stream_ptr(dev))
+        code = fn(*ins, *out_p, *(t.data_ptr() for t in scratch), K, G, A,
+                  S, *plan, _ext.stream_ptr(dev))
     else:
         spl, warps, _, _, _ = rank_bwd_plan(K, G, A, S)
         fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_saved_blocked",
@@ -655,12 +813,13 @@ def fused_rank_bwd(leaves, buf, idx, gm, gr, gl, P_l, P_r, pi, weights,
                                   pi, weights)]
     out_p = _pointers(outs)
     if wide:
-        sc, cluster, threads, dpt, _, _ = wide_bwd_plan(K, G, A, S)
-        fn = _ext.bind("wide_kernels", "launch_wide_rank_bwd", 16, 10)
+        plan, scratch, group = _wide_bwd_launch(K, G, A, S, dev)
+        entry = "launch_wide_rank_bwd" + ("_group" if group else "")
+        fn = _ext.bind("wide_kernels", entry, 16 + len(scratch), 10)
         name = "fused_rank_bwd_wide" + ("_blocked" if blocked else "")
         _ext.LAUNCHES[name] += 1
-        code = fn(*ins, *out_p, K, R, N, G, A, S, sc, cluster, threads, dpt,
-                  _ext.stream_ptr(dev))
+        code = fn(*ins, *out_p, *(t.data_ptr() for t in scratch), K, R, N,
+                  G, A, S, *plan, _ext.stream_ptr(dev))
     else:
         spl, warps, _, _, _ = rank_bwd_plan(K, G, A, S)
         fn = _ext.bind("rank_kernels", "launch_fused_rank_bwd_blocked", 16, 8)
@@ -727,14 +886,17 @@ def merge_bwd(m1, m2, P_l, P_r, pi, weights, gm, gr, gl, want_dw=True):
     """K11a: exact cotangents of `_ref_impl` (merge + rescale + root
     log-lik) on explicit dense children (the JAX package's
     `_merge_bwd_pallas`, same signature).  m1, m2 (K, A, S); P_l, P_r
-    (K, A, A); gm (K, A, S), gr, gl (K,).  Returns (dm1, dm2, dP_l,
-    dP_r, dpi (A,), dw (S,), or None on the card without want_dw).  On
-    the card it runs K2's body (the rank backward's dense form, A <= 8)
-    or K9bs dense (8 < A <= 128), which compute exactly these
-    cotangents, counted as `merge_bwd`."""
+    (K, A, A), or a rate mixture's blocks (K, G, A_b, A_b) (the twist's
+    chosen merges over blocks of more than 8 states: protein + Gamma4
+    and + Gamma8); gm (K, A, S), gr, gl (K,).  Returns (dm1, dm2, dP_l,
+    dP_r in P's shape, dpi (A,), dw (S,), or None on the card without
+    want_dw).  On the card it runs K2's body (the rank backward's dense
+    form, A <= 8) or K9bs's (dense 8 < A <= 128, blocked G <= 32 blocks
+    of 8 < A_b <= 128 states, in block groups where `wide_bwd_group`
+    says), which compute exactly these cotangents, counted as
+    `merge_bwd`."""
     if not m1.is_cuda:
         return _merge_bwd_ref(m1, m2, P_l, P_r, pi, weights, gm, gr, gl)
-    check_states(m1.shape[1], MAX_WIDE_PLANES, "K11a (merge_bwd)")
     out = _launch_bwd_saved(m1, m2, gm, gr, gl, P_l, P_r, pi, weights,
                             counter="merge_bwd", want_dw=want_dw)
     return out[:4] + (out[4].sum(0),

@@ -156,9 +156,12 @@ def card_refusals(config, model, planes):
     `kernels.twist_route` names: a rate mixture's per-category blocks (G
     <= 32 of up to 64 states: K11b, K7 wide and K11c blocked, in block
     groups), else dense transitions of up to 64 states (K7 / K7 wide,
-    K11b, K11c).  Outside the twist a rate mixture's rank runs on K10 (A
-    <= 8 a category) or K9 blocked (up to 128 planes): above (protein +
-    Gamma8, GY94 + Gamma4) it raises."""
+    K11b, K11c).  A rate mixture's rank (and, under the twist, the chosen
+    merges' backward K11a over blocks of more than 8 states) runs on K10
+    (A <= 8 a category) or K9 blocked (8 < A <= 128 a category, in block
+    groups where one does not fit: protein + Gamma8, GY94 + Gamma4),
+    up to MAX_G = 32 blocks: more blocks, or a block of more than 128
+    states, raise."""
     if not config.rescale:
         raise NotImplementedError(
             "rescale=False has no CUDA kernel (K1 always rescales)")
@@ -245,6 +248,12 @@ def _sample_body(generator, leaves, model, params, config, *,
     # (G, A) of a rate mixture's blocked merge; the twist enumerates with
     # dense transitions
     blocks = getattr(model, "blocks", None) if config.twist is None else None
+    # the reverse pass's transitions: under the twist too a mixture's
+    # blocks where they are wide (K11a on K9bs blocked's body; the dense
+    # form's zero off-block terms change no bit of dm or of dP's blocks)
+    mix = getattr(model, "blocks", None)
+    bwd_blocks = (mix if config.twist is not None and mix is not None
+                  and mix[1] > _kernels.MAX_A else blocks)
 
     stationary = model.stationary(params["model"], dtype=dtype,
                                   device=dev).to(dtype)
@@ -580,7 +589,8 @@ def _sample_body(generator, leaves, model, params, config, *,
         d_lsc=torch.stack(outs["d_lsc"]),
         child_l=outs["child_l"], child_r=outs["child_r"],
         buf=None if save_children else buf, leaves_sm=leaves_sm,
-        blocks=blocks, explicit_children=not (fused_rank and twist is None),
+        blocks=bwd_blocks,
+        explicit_children=not (fused_rank and twist is None),
     )
     if twist is not None:
         # the twist reverse pass re-gathers every candidate pair from the

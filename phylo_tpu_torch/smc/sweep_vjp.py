@@ -284,7 +284,8 @@ def _messages_bwd(aux, P_all, pi, g_rootll, g_dlsc, N, pending=None):
         cts = (pending[r], g_rootll[r].contiguous(), g_dlsc[r].contiguous(),
                P_l_all[r].contiguous(), P_r_all[r].contiguous(), pi, w_vec)
         if aux["explicit_children"]:
-            # the twist's merges ran on explicit dense children: K11a
+            # the twist's merges ran on explicit children (dense, or a wide
+            # mixture's blocks): K11a
             dm1, dm2, dPl, dPr, dpi_p, _ = merge_bwd(
                 child_l[r], child_r[r], *cts[3:], *cts[:3], want_dw)
             dpi_p = dpi_p[None]

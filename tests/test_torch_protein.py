@@ -181,22 +181,22 @@ def test_blocked_wide_refs_match_jax(G, ties):
 
 def test_blocked_wide_routing():
     """A > 8 takes K9 (JAX's rule: G A^2 > 64), dense or blocked, up to
-    128 planes; blocked A <= 8 stays on K10 (G <= 32); above 128 planes
-    (GY94 + Gamma4: 244) the card raises, naming the ROADMAP."""
+    128 states a block and 32 blocks (in block groups where one does not
+    fit: GY94 + Gamma4's 244 planes included); blocked A <= 8 stays on K10
+    (G <= 32); more blocks or wider ones raise, naming the ROADMAP."""
     for G in range(1, 9):
         for A in range(1, 65):
             P = torch.zeros((2, G, A, A) if G > 1 else (2, A, A))
-            if A > 8 and G * A > 128:
-                with pytest.raises(NotImplementedError, match="Queue 2"):
-                    tk.wide_rank(P, G * A)
-                continue
             wide = tk.wide_rank(P, G * A)
             assert wide == (A > 8)
             if A > 8:
                 assert jk.wide_rank_kernel(G, A)
     assert tk.wide_rank(torch.zeros((2, 4, 20, 20)), 80)
-    with pytest.raises(NotImplementedError, match="GY94 \\+ Gamma4"):
-        tk.wide_planes(4, 61, blocked=True)
+    assert tk.wide_planes(4, 61, blocked=True)
+    assert tk.wide_planes(8, 20, blocked=True)
+    for G, A in ((33, 20), (4, 129), (1, 129)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tk.wide_planes(G, A, blocked=G > 1)
 
 
 # ------------------------------------------------------------- the sweep

@@ -5,7 +5,8 @@
   cluster of at most 8 blocks, shared memory within a block's 227 KB,
   threads covering every (4-plane, TS-site) tile, a grid of at least one
   block for each of the H100's 132 SMs at the main paths' shapes, every
-  G*A <= 128 planes accepted and 129 refused.
+  G <= 32 blocks of A <= 128 states accepted (in block groups where one
+  does not fit) and 33 blocks or 129 states refused.
 * `_categorical_plain` (K5's plain version) against a NumPy
   transcription of the same integer steps (its own Philox4x32-10,
   float32 weights, int64 prefix sums, a float64 scale, searchsorted),
@@ -64,11 +65,14 @@ def test_wide_fwd_plan_fills_the_card(K, G, A, S):
 
 
 def test_wide_fwd_plan_accepts_every_plane_count():
+    """Every G <= 32 blocks of A <= 128 states has a launch (in block
+    groups beyond one group's threads or shared memory); more blocks or
+    wider ones raise."""
     for A in range(1, 129):
-        for G in range(1, 128 // A + 1):
+        for G in range(1, tk.MAX_G + 1):
             sc, cluster, threads, _, smem = tk.wide_fwd_plan(64, G, A, 256)
             assert threads <= tk.WIDE_FWD_THREADS and smem <= tk.SMEM_LIMIT
-    for G, A in ((1, 129), (3, 43), (129, 1)):
+    for G, A in ((1, 129), (33, 43), (129, 1)):
         with pytest.raises(NotImplementedError):
             tk.wide_fwd_plan(64, G, A, 256)
 

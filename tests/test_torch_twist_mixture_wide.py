@@ -20,8 +20,9 @@ blocks of 20 states), held in float64 on the CPU.
   protein FASTA: a finite ELBO and non-zero gradients.
 * The card's route without a tensor (`smc.sweep.card_refusals`): the
   twist takes every rate mixture of up to 32 blocks of 64 states
-  blocked, refuses a dense model above 64 states, and the rank kernels'
-  128-plane limit still refuses protein+Gamma8 and GY94+Gamma4.
+  blocked, refuses a dense model above 64 states, and the rank kernels
+  take protein+Gamma8 and GY94+Gamma4 (block groups) but refuse 33
+  blocks or a block of more than 128 states.
 * The launch plans over block groups for every G <= 32, A_b <= 64 and
   S in {1, 31, 70, 256, 500, 1949}: shared memory within a block, threads
   within bounds, whole blocks a group, and the DS1 4 x 4 plans as
@@ -323,12 +324,17 @@ def test_card_takes_dat_f_g4(tmp_path):
 
 def test_card_refusals():
     """A dense model above 64 states raises naming the ROADMAP before any
-    tensor; the rank kernels' limit refuses protein+G8 (160 planes) and
-    GY94+G4 (244) with or without the twist, and the twist alone takes
-    them (its kernels' limit is per block)."""
+    tensor; the rank kernels take protein+G8 (160 planes) and GY94+G4
+    (244) with or without the twist (K9 blocked in block groups), and the
+    twist takes them too (its kernels' limit is per block); 33 blocks, or
+    a block of more than 128 states, raise."""
 
     class Dense:
         blocks = None
+
+    class Mixture:
+        def __init__(self, G, A):
+            self.blocks = (G, A)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         card_refusals(_twist_config(), Dense(), 65)
     card_refusals(_twist_config(), Dense(), 64)
@@ -337,8 +343,10 @@ def test_card_refusals():
         model = get_model(spec, A=A)
         assert tk.twist_route(model, model.blocks[0] * A) == model.blocks
         for cfg in (_twist_config(), SweepConfig(K=4)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                card_refusals(cfg, model, model.blocks[0] * A)
+            card_refusals(cfg, model, model.blocks[0] * A)
+    for G, A in ((33, 20), (4, 129)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            card_refusals(SweepConfig(K=4), Mixture(G, A), G * A)
     with pytest.raises(NotImplementedError, match="rescale"):
         card_refusals(SweepConfig(K=4, rescale=False), Dense(), 4)
 

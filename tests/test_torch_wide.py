@@ -82,9 +82,11 @@ def test_wide_routing_matches_jax_rule():
         P = torch.zeros((2, A, A))
         assert tk.wide_rank(P, A) == jk.wide_rank_kernel(1, A)
     assert not tk.wide_rank(torch.zeros((2, 5, 4, 4)), 20)
+    # GY94 + Gamma4 (4 blocks of 61): the wide kernels in block groups
+    assert tk.wide_rank(torch.zeros((2, 4, 61, 61)), 244)
     with pytest.raises(NotImplementedError, match="K9 blocked"):
-        tk.wide_rank(torch.zeros((2, 4, 61, 61)), 244)
-    with pytest.raises(NotImplementedError, match="A <= 128"):
+        tk.wide_rank(torch.zeros((2, 33, 9, 9)), 297)
+    with pytest.raises(NotImplementedError, match="at most 128 states"):
         tk.wide_rank(torch.zeros((2, 129, 129)), 129)
 
 
