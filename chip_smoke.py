@@ -129,9 +129,29 @@ script exits non-zero without printing a result:
    third beside an uninterrupted run's), cli.trees on it, train_elastic
    through an injected fault, two seed replicas, the sweep runner at
    K=32 and 64, and a torch.profiler trace of one eval sweep naming K1's
-   and K5's kernels.
+   and K5's kernels;
+7. the tree tools through their CLIs at full width, each with the launch
+   counters set to 0 just before and read just after, its wall seconds
+   printed: (a) model_select over the 12-model DNA ladder on primate's
+   neighbour-joining tree (100 Adam steps a model; K4f and K4b), after
+   that tree's GTR score at the initial parameters on the card (f32)
+   against the CPU (f64) within 1e-5 relative; (b) score_tree under GTR
+   on (a)'s winning tree with --optimize_branches and --ancestral (K4f,
+   K4b; 23 FASTA sequences); (c) score_tree --spr --nni_branch_steps=5
+   --nni_iters=2 on DS1 GTR+G4 from its NJ tree, the neighbourhood in
+   K=2048 chunks over all 1949 sites (K10 forward, K3 blocked backward,
+   K4), after one chunk's scores on the card against 64 of them rescored
+   on the CPU in float64 (1e-5 relative); the search must not end below
+   its starting tree; (d) bootstrap, 10 replicates at K=2048 (K1, K5):
+   supports in [0, 1], a consensus naming each taxon once; (e) the CSMC
+   oracle at K=64 with resampling, float64 on the card: the CPU run's
+   merged_nodes and ancestors at the same seed, its norm to 1e-10 and
+   its log weights to 1e-10 relative; then a torch.profiler trace of a
+   refit step, a fit step and a bootstrap sweep must name the rank
+   forward and backward, K4's two kernels and K5's.
 
-The last lines are the kernel table as JSON, the card's name and power
+The kernels line's launches are phase 4's and phase 7's.  The last lines
+are the kernel table as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
 
@@ -2605,6 +2625,276 @@ def lifecycle(ext, dev, Kd=K):
             f"names {', '.join(TRACE_KERNELS)}")
 
 
+# ---------------------------------------------------------------- phase 7
+# the tree tools: what each part must launch (counters set to 0 before
+# each CLI run and read after), and what a trace of a short rerun of
+# their device work must name
+TREE_KERNELS = {
+    "a": ("expm_fwd", "expm_bwd"),
+    "b": ("expm_fwd", "expm_bwd"),
+    "c": ("fused_rank_update_blocked", "fused_rank_bwd_blocked",
+          "expm_fwd", "expm_bwd"),
+    "d": ("fused_rank_update", "categorical"),
+}
+TREE_TRACE_KERNELS = (RANK_FWD_KERNEL, RANK_BWD_KERNEL, "expm_fwd_kernel",
+                      "expm_bwd_kernel", "categorical_kernel")
+# (c)'s SPR chunk rescored on the CPU in float64: this many of its
+# candidates, evenly spaced (each particle of an injected sweep is scored
+# alone, so a subset has the same scores)
+CPU_CANDIDATES = 64
+
+
+def run_cli(ext, dev, label, main_fn, argv):
+    """One CLI's main(argv) with the launch counters set to 0 just before
+    and read just after; its standard output kept.  Returns (its return
+    value, its output, launches, wall seconds)."""
+    import io
+
+    torch.cuda.synchronize()
+    ext.reset_launches()
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        ret = main_fn(argv + [f"--device={dev.type}"])
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = dict(ext.LAUNCHES)
+    for kname in TREE_KERNELS.get(label, ()):
+        require(launches.get(kname, 0) > 0,
+                f"phase 7 ({label}): {kname} never launched")
+    log(f"phase 7 ({label}) {secs:.2f} s wall, launches "
+        f"{json.dumps(launches)}")
+    return ret, out.getvalue(), launches, secs
+
+
+def rel_gap(a, b):
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def tree_tools(ext, dev, Kd=K):
+    """The tree tools through their CLIs at full width: (a) model
+    selection over the 12-model DNA ladder on primate's NJ tree, (b)
+    scoring with branch refits and ancestral states under the winner's
+    tree, (c) the SPR search with branch refits on DS1 GTR+G4 (N=27,
+    S=1949; its 2,600-candidate neighbourhood in K=2048 chunks: K10
+    forward, K3 blocked backward), (d) bootstrap at K=2048 and (e) the
+    CSMC oracle; the card held to the CPU at the checks listed in each
+    step.  Returns {kernel: launches} over (a)-(e)."""
+    import tempfile
+
+    from phylo_tpu_torch.cli import bootstrap as boot_cli
+    from phylo_tpu_torch.cli import csmc as csmc_cli
+    from phylo_tpu_torch.cli import model_select as select_cli
+    from phylo_tpu_torch.cli import score_tree as score_cli
+    from phylo_tpu_torch.models.substitution import get_model
+    from phylo_tpu_torch.pruning.fixed_tree import (
+        parse_newick, tree_log_likelihood,
+    )
+    from phylo_tpu_torch.search import (
+        jc_distance_matrix, neighbor_joining, records_to_decisions,
+        spr_neighbors, tree_log_likelihoods_batch,
+    )
+    from phylo_tpu_torch.smc.csmc import CSMC
+    from phylo_tpu_torch.smc.sweep import SweepConfig, sample_phylogenies
+    from phylo_tpu_torch.utils.profiling import device_trace
+    from phylo_tpu_torch.viz.trees import to_newick
+
+    cpu = torch.device("cpu")
+    total = {}
+    secs = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    def as_leaves(genome, d, dtype):
+        return torch.as_tensor(np.asarray(genome), device=d).to(dtype)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tree_") as tmp:
+        # (a) model selection on primate's NJ tree; first its GTR score at
+        # the initial parameters, card float32 against CPU float64
+        ds = load("primate")
+        nj = neighbor_joining(jc_distance_matrix(ds.genome))
+        gtr = get_model("gtr")
+        ll = {}
+        for d, dtype in ((dev, torch.float32), (cpu, torch.float64)):
+            with torch.no_grad():
+                ll[d.type] = tree_log_likelihood(
+                    as_leaves(ds.genome, d, dtype), gtr,
+                    {"model": gtr.init_params(dtype, d)}, nj).item()
+        gap = rel_gap(ll[dev.type], ll["cpu"])
+        require(gap < 1e-5, f"phase 7 (a): the NJ tree's GTR score "
+                f"{ll[dev.type]!r} on the card against {ll['cpu']!r}")
+        log(f"phase 7 (a) primate NJ tree under GTR at the initial "
+            f"parameters: cuda f32 {ll[dev.type]:.6f} vs cpu f64 "
+            f"{ll['cpu']:.6f} (rel {gap:.2e}, bound 1e-5)")
+        best_nwk = os.path.join(tmp, "best.nwk")
+        best, out, launches, secs["a"] = run_cli(
+            ext, dev, "a", select_cli.main,
+            ["--dataset=primate", "--steps=100", f"--out={best_nwk}"])
+        add(launches)
+        ranking = [line.split()[0] for line in out.splitlines()
+                   if line.split() and line.split()[0] in (
+                       "jc69", "hky", "gtr", "jc69+g4", "hky+g4",
+                       "gtr+g4", "jc69+i", "hky+i", "gtr+i", "jc69+g4+i",
+                       "hky+g4+i", "gtr+g4+i")]
+        require(len(ranking) == 24 and ranking[12] == best,
+                f"phase 7 (a): the ranking table {ranking}")
+        log(f"phase 7 (a) model_select over the 12-model ladder, 100 Adam "
+            f"steps each: best {best}; BIC order {ranking[12:]}")
+
+        # (b) the winner's tree under GTR: branch refits and ancestral
+        # states
+        fasta = os.path.join(tmp, "anc.fasta")
+        ll_b, out, launches, secs["b"] = run_cli(
+            ext, dev, "b", score_cli.main,
+            ["--dataset=primate", "--model=gtr", f"--newick={best_nwk}",
+             "--optimize_branches", f"--ancestral={fasta}"])
+        add(launches)
+        with open(fasta) as f:
+            recs = f.read().split(">")[1:]
+        require(math.isfinite(ll_b) and len(recs) == 2 * ds.N - 1
+                and all(len(r.split()[1]) == ds.S
+                        and set(r.split()[1]) <= set("ACGT") for r in recs),
+                f"phase 7 (b): log-likelihood {ll_b}, {len(recs)} "
+                "ancestral sequences")
+        log(f"phase 7 (b) score_tree --optimize_branches --ancestral: "
+            f"log-likelihood {ll_b:.4f}; {len(recs)} sequences of "
+            f"{ds.S} states")
+
+        # (c) the SPR search on DS1 GTR+G4 from the NJ tree; first one
+        # K=2048 chunk's scores, card float32 against CPU float64
+        ds1 = load("DS1")
+        nj1 = neighbor_joining(jc_distance_matrix(ds1.genome))
+        nj_nwk = os.path.join(tmp, "ds1_nj.nwk")
+        with open(nj_nwk, "w") as f:
+            f.write(to_newick(list(ds1.taxa), nj1) + "\n")
+        _, nj1 = parse_newick(open(nj_nwk).read(), taxa=list(ds1.taxa))
+        g4 = get_model("gtr+g4")
+        genome1 = g4.expand_leaves(ds1.genome)
+        nbrs = spr_neighbors(nj1, ds1.N)
+        chunk = [nj1] + nbrs[:Kd - 1]
+        leaves1 = as_leaves(genome1, dev, torch.float32)
+        with torch.no_grad():
+            card = tree_log_likelihoods_batch(
+                leaves1, g4, {"model": g4.init_params(torch.float32, dev)},
+                chunk).cpu().numpy()
+        pick = np.linspace(0, Kd - 1, CPU_CANDIDATES).astype(int)
+        with torch.no_grad():
+            host = tree_log_likelihoods_batch(
+                as_leaves(genome1, cpu, torch.float64), g4,
+                {"model": g4.init_params(torch.float64, cpu)},
+                [chunk[i] for i in pick]).numpy()
+        gaps = np.abs(card[pick] - host) / np.abs(host)
+        require(np.isfinite(card).all() and gaps.max() < 1e-5,
+                f"phase 7 (c): chunk scores off the CPU's by up to "
+                f"{gaps.max():.2e}")
+        log(f"phase 7 (c) DS1 GTR+G4 SPR neighbourhood of the NJ tree: "
+            f"{len(nbrs)} candidates; one chunk of {Kd} scored on the card, "
+            f"{CPU_CANDIDATES} of them against cpu f64: max rel "
+            f"{gaps.max():.2e} (bound 1e-5); NJ tree {card[0]:.4f}")
+        with torch.no_grad():
+            start = tree_log_likelihood(
+                leaves1, g4, {"model": g4.init_params(torch.float32, dev)},
+                nj1).item()
+        scored, out, launches, secs["c"] = run_cli(
+            ext, dev, "c", score_cli.main,
+            ["--dataset=DS1", "--model=gtr+g4", f"--newick={nj_nwk}",
+             "--spr", "--nni_branch_steps=5", "--nni_iters=2",
+             f"--search_chunk={Kd}"])
+        add(launches)
+        iters = [line for line in out.splitlines()
+                 if line.startswith("SPR iter")]
+        first = float(re.search(r"current ll (\S+),", iters[0]).group(1))
+        final = float(re.search(r"SPR search: .* log-likelihood (\S+)",
+                                out).group(1))
+        require(math.isfinite(scored) and final >= first,
+                f"phase 7 (c): the search ends at {final}, below its "
+                f"starting tree's {first}")
+        log(f"phase 7 (c) score_tree --spr --nni_branch_steps=5 "
+            f"--nni_iters=2: {'; '.join(iters)}; the search's "
+            f"log-likelihood {final:.4f} from {first:.4f} (the NJ tree "
+            f"refitted; {start:.4f} at its NJ lengths); the final tree "
+            f"scored by fixed-tree pruning {scored:.4f}")
+
+        # (d) bootstrap supports at K=2048
+        res, out, launches, secs["d"] = run_cli(
+            ext, dev, "d", boot_cli.main,
+            ["--dataset=primate", "--model=jc69", f"--n_particles={Kd}",
+             "--n_replicates=10"])
+        add(launches)
+        names, _ = newick_leaves(res.consensus)
+        require(all(0.0 <= v <= 1.0 + 1e-9 for v in res.supports.values())
+                and sorted(names) == sorted(ds.taxa),
+                f"phase 7 (d): supports {sorted(res.supports.values())}, "
+                f"consensus {res.consensus}")
+        log(f"phase 7 (d) bootstrap, 10 replicates at K={Kd}: mean ELBO "
+            f"{res.elbos.mean():.3f}; consensus {res.consensus}")
+
+        # (e) the CSMC oracle, on the card and on the CPU at one seed
+        out_e, _, launches, secs["e"] = run_cli(
+            ext, dev, "e", csmc_cli.main,
+            ["--dataset=primate", "--n_particles=64", "--resampling=true"])
+        add(launches)
+        host = CSMC({"taxa": ds.taxa, "genome": ds.genome},
+                    device="cpu").sample_phylogenies(64, resampling=True)
+        same = (np.array_equal(out_e["merged_nodes"], host["merged_nodes"])
+                and np.array_equal(out_e["ancestors"], host["ancestors"]))
+        norm_ok = (out_e["norm"] == host["norm"]
+                   or rel_gap(out_e["norm"], host["norm"]) < 1e-10)
+        lw_gap = float(np.max(np.abs(out_e["log_weights"]
+                                     - host["log_weights"])))
+        lw_ok = lw_gap <= 1e-10 * float(np.max(np.abs(host["log_weights"])))
+        require(same and norm_ok and lw_ok, f"phase 7 (e): CSMC on the "
+                f"card: same draws {same}, norm {out_e['norm']!r} against "
+                f"{host['norm']!r}, log weights {lw_gap:.2e} apart")
+        log(f"phase 7 (e) csmc K=64 with resampling: merged_nodes and "
+            f"ancestors the CPU run's; norm {out_e['norm']!r} (cpu "
+            f"{host['norm']!r}); log weights max abs gap {lw_gap:.2e}")
+
+        # a trace of a short rerun of the tools' device work: one refit
+        # step of a 256-candidate chunk on DS1, one GTR fit step on
+        # primate, one bootstrap replicate's sweep
+        trace_dir = os.path.join(tmp, "trace")
+        with device_trace(trace_dir, device=dev.type):
+            refit = chunk[:256]
+            dec = records_to_decisions(refit, ds1.N, dtype=torch.float32,
+                                       device=dev)
+            for k in ("branches_l", "branches_r"):
+                dec[k].requires_grad_(True)
+            params = {"model": g4.init_params(torch.float32, dev),
+                      "branches": {
+                          "log_rates_l": torch.zeros(ds1.N - 1, device=dev),
+                          "log_rates_r": torch.zeros(ds1.N - 1, device=dev)}}
+            sample_phylogenies(
+                None, leaves1, g4, params, SweepConfig(K=len(refit)),
+                decisions=dec).log_likelihood_R.sum().backward()
+            gp = {"model": {k: t.requires_grad_(True) for k, t in
+                            gtr.init_params(torch.float32, dev).items()}}
+            tree_log_likelihood(as_leaves(ds.genome, dev, torch.float32),
+                                gtr, gp, nj).backward()
+            jc = get_model("jc69")
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            with torch.no_grad():
+                sample_phylogenies(
+                    gen, as_leaves(ds.genome, dev, torch.float32), jc,
+                    {"model": {}, "branches": {
+                        "log_rates_l": torch.zeros(ds.N - 1, device=dev),
+                        "log_rates_r": torch.zeros(ds.N - 1, device=dev)}},
+                    SweepConfig(K=Kd))
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            text = f.read()
+        for kname in TREE_TRACE_KERNELS:
+            require(kname in text, f"phase 7: the trace names no {kname}")
+        log(f"phase 7 device_trace of a refit step, a fit step and a "
+            f"bootstrap sweep: {len(text)} bytes, names "
+            f"{', '.join(TREE_TRACE_KERNELS)}")
+    log("phase 7 wall seconds: " + json.dumps(
+        {k: round(v, 2) for k, v in secs.items()}))
+    return total
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2847,6 +3137,9 @@ def main(argv):
     log(f"phase 5 done at {time.time() - t0:.1f} s")
     lifecycle(_ext, dev)
     log(f"phase 6 done at {time.time() - t0:.1f} s")
+    for k, n in tree_tools(_ext, dev).items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"phase 7 done at {time.time() - t0:.1f} s")
 
     rows = [
         ("fused_rank_update", "phylo_tpu_torch/csrc/rank_kernels.cu",

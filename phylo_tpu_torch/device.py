@@ -34,7 +34,12 @@ def resolve_device(device=None):
 
 def resolve_dtype(name, device):
     """torch dtype for a config dtype name on `device`.  The slice runs
-    float32 on the card and float32/float64 on the CPU."""
+    float32 on the card and float32/float64 on the CPU; None names the
+    device's default, float64 on the CPU and float32 on the card (the
+    tree tools' CLIs)."""
+    if name is None:
+        name = "float32" if torch.device(device).type == "cuda" else \
+            "float64"
     if name not in _DTYPES:
         raise NotImplementedError(
             f"dtype {name!r} is not ported (float32, and float64 on the "

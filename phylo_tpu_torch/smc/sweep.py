@@ -181,6 +181,18 @@ def _check_supported(config, leaves, model):
         card_refusals(config, model, leaves.shape[-1])
 
 
+def differentiable_decisions(decisions):
+    """Sorted names of the injected decisions that carry a gradient:
+    the float tensors that require grad ('branches_l' / 'branches_r',
+    under twist 'twist_pool_l' / 'twist_pool_r')."""
+    if decisions is None:
+        return ()
+    return tuple(k for k in sorted(decisions)
+                 if isinstance(decisions[k], torch.Tensor)
+                 and decisions[k].is_floating_point()
+                 and decisions[k].requires_grad)
+
+
 def sample_phylogenies(generator, leaves, model, params, config, *,
                        decisions=None, site_weights=None):
     """Run one full CSMC sweep.
@@ -194,15 +206,19 @@ def sample_phylogenies(generator, leaves, model, params, config, *,
         twist 'twist_pool_l'/'twist_pool_r' (N-1, P, M, K) branch
         lengths over the lexicographic pair table and 'twist_choice'
         (N-1, K) lexicographic flat indices pair * M + m); the sweep is
-        then deterministic and the branch lengths are constants.
+        then deterministic.  Its float tensors (branch lengths, pools)
+        are constants unless they require grad.
 
-    Differentiable in `params` when grad is enabled: through the manual
-    whole-sweep VJP (smc.sweep_vjp) by default, or plain autograd with
+    Differentiable in `params` and in the injected float decisions that
+    require grad (tree search refits its candidates' branch lengths so)
+    when grad is enabled: through the manual whole-sweep VJP
+    (smc.sweep_vjp) by default, or plain autograd with
     SweepConfig(manual_vjp=False).  Injected decisions reach both
     routes.
     """
     _check_supported(config, leaves, model)
-    tensors = flatten(params)[1]
+    tensors = flatten(params)[1] + [
+        decisions[k] for k in differentiable_decisions(decisions)]
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in tensors)
     if not needs_grad:

@@ -29,8 +29,12 @@ nodes.
 Gradient semantics are the reference's biased VSMC gradient: resampling,
 topology and twist-choice indices are constants, gathered values carry
 gradients.
-Only parameter gradients are produced (leaves and site weights are
-constants on this path).
+Parameter gradients are produced, and the gradients of the injected
+float decisions that require grad (the branch lengths a tree search
+refits, the twist's branch pools): they enter the scalar replay as
+leaves, and their transitions' cotangents from (c) are pulled back
+through the replay's graph.  Leaves and site weights are constants on
+this path.
 """
 
 from __future__ import annotations
@@ -50,15 +54,26 @@ _DIFF_FIELDS = ("elbo", "log_weights", "log_likelihood", "log_likelihood_R",
 _INT_FIELDS = ("ancestors", "merged_nodes", "v_minus")
 
 
+def _with_decisions(spec, tensors):
+    """(params, decisions) of the flat inputs of _ManualSweep: the
+    parameters first, then the differentiable decisions by name."""
+    n_p = spec["n_params"]
+    decisions = spec["decisions"]
+    if spec["dec_names"]:
+        decisions = dict(decisions,
+                         **dict(zip(spec["dec_names"], tensors[n_p:])))
+    return _unflatten(spec["names"], tensors[:n_p]), decisions
+
+
 class _ManualSweep(torch.autograd.Function):
     @staticmethod
     def forward(ctx, spec, *tensors):
         from phylo_tpu_torch.smc.sweep import _sample_body
 
-        params = _unflatten(spec["names"], tensors)
+        params, decisions = _with_decisions(spec, tensors)
         res, aux = _sample_body(
             spec["generator"], spec["leaves"], spec["model"], params,
-            spec["config"], decisions=spec["decisions"],
+            spec["config"], decisions=decisions,
             site_weights=spec["site_weights"], want_aux=True,
             fused_rank=True)
         ctx.spec = spec
@@ -73,12 +88,12 @@ class _ManualSweep(torch.autograd.Function):
         spec, aux = ctx.spec, ctx.aux
         tensors = ctx.saved_tensors
         cts = cts[:len(_DIFF_FIELDS)]
-        dparams = _manual_bwd(spec, aux, tensors, cts)
+        grads = _manual_bwd(spec, aux, tensors, cts)
         ctx.aux = None
-        return (None,) + tuple(dparams)
+        return (None,) + tuple(grads)
 
 
-def _grad(outputs, inputs, cts):
+def _grad(outputs, inputs, cts, retain_graph=False):
     """autograd.grad over the outputs that require grad; None-safe."""
     pairs = [(o, c) for o, c in zip(outputs, cts)
              if o is not None and o.requires_grad]
@@ -86,7 +101,8 @@ def _grad(outputs, inputs, cts):
     if not pairs or not want:
         return [torch.zeros_like(i) for i in inputs]
     got = torch.autograd.grad([o for o, _ in pairs], want,
-                              [c for _, c in pairs], allow_unused=True)
+                              [c for _, c in pairs], allow_unused=True,
+                              retain_graph=retain_graph)
     it = iter(got)
     out = []
     for i in inputs:
@@ -100,16 +116,19 @@ def _manual_bwd(spec, aux, tensors, cts):
     from phylo_tpu_torch.smc.sweep import _sample_body, transitions
 
     model, config = spec["model"], spec["config"]
-    decisions = spec["decisions"]
     names = spec["names"]
     leaves = spec["leaves"]
     N = leaves.shape[0]
     dtype = leaves.dtype
+    n_p = spec["n_params"]
 
     twist = config.twist
     with torch.enable_grad():
-        # (a) scalar replay: merge scalars injected as leaves of the graph
-        p_leaf = [t.detach().requires_grad_(True) for t in tensors]
+        # (a) scalar replay: merge scalars injected as leaves of the graph,
+        # and so the differentiable decisions, whose graph is kept for (c)
+        d_leaf = [t.detach().requires_grad_(True) for t in tensors[n_p:]]
+        _, decisions = _with_decisions(spec, tensors[:n_p] + tuple(d_leaf))
+        p_leaf = [t.detach().requires_grad_(True) for t in tensors[:n_p]]
         rootll = aux["rootll_raw"].detach().requires_grad_(True)
         dlsc = aux["d_lsc"].detach().requires_grad_(True)
         injected = dict(
@@ -126,23 +145,35 @@ def _manual_bwd(spec, aux, tensors, cts):
             decisions=decisions, site_weights=spec["site_weights"],
             injected=injected)
         outs = [getattr(res2, f) for f in _DIFF_FIELDS]
-        n_p = len(p_leaf)
-        got = _grad(outs, p_leaf + [rootll, dlsc] + llm, cts)
-        d_replay, (g_rootll, g_dlsc), g_llm = (got[:n_p], got[n_p:n_p + 2],
-                                               got[n_p + 2:])
+        n_llm = len(llm)
+        got = _grad(outs, p_leaf + [rootll, dlsc] + llm + d_leaf, cts,
+                    retain_graph=bool(d_leaf))
+        d_replay, (g_rootll, g_dlsc) = got[:n_p], got[n_p:n_p + 2]
+        g_llm = got[n_p + 2:n_p + 2 + n_llm]
+        d_dec = got[n_p + 2 + n_llm:]
 
         # (b) twist: pair log-liks -> candidate children, transitions, pi
         pending = d_twist = None
         if twist is not None:
-            pending, d_twist = _twist_messages_bwd(spec, aux, tensors, g_llm)
+            pending, d_twist, d_pools = _twist_messages_bwd(
+                spec, aux, tensors[:n_p], decisions, g_llm)
+            if d_pools is not None:
+                from phylo_tpu_torch.smc import twist as tw
+
+                pools = tw.injected_pools(decisions, N, dtype, leaves.device)
+                d_dec = [a + b for a, b in zip(
+                    d_dec, _grad(list(pools), d_leaf, d_pools))]
 
         # (c) prologue: (P_all, pi) re-linearized at the forward's values,
-        # per-category blocks (R, 2K, G, A, A) for a blocked merge
-        p_pro = [t.detach().requires_grad_(True) for t in tensors]
+        # per-category blocks (R, 2K, G, A, A) for a blocked merge; the
+        # injected branch lengths as leaves where decisions carry a
+        # gradient
+        p_pro = [t.detach().requires_grad_(True) for t in tensors[:n_p]]
         params = _unflatten(names, p_pro)
         rates_l, rates_r = branch_rates(params["branches"])
         if decisions is not None:
-            b_l, b_r = aux["b_l"].detach(), aux["b_r"].detach()
+            b_l, b_r = (aux[k].detach().requires_grad_(bool(d_leaf))
+                        for k in ("b_l", "b_r"))
         else:
             b_l = aux["eps_l"] / rates_l.to(dtype)[:, None]
             b_r = aux["eps_r"] / rates_r.to(dtype)[:, None]
@@ -156,14 +187,21 @@ def _manual_bwd(spec, aux, tensors, cts):
         with torch.no_grad():
             dP_all, dpi = _messages_bwd(aux, P_all.detach(), pi.detach(),
                                         g_rootll, g_dlsc, N, pending)
-        d_pro = _grad([P_all, pi], p_pro, [dP_all, dpi])
-    out = [a + b for a, b in zip(d_replay, d_pro)]
+        b_leaf = [b_l, b_r] if d_leaf else []
+        d_pro = _grad([P_all, pi], p_pro + b_leaf, [dP_all, dpi])
+        if d_leaf:
+            # the branch lengths' cotangents back to the decisions through
+            # the replay's graph (the identity, or the twist's pick)
+            d_dec = [a + b for a, b in zip(d_dec, _grad(
+                [res2.left_branches, res2.right_branches], d_leaf,
+                d_pro[n_p:]))]
+    out = [a + b for a, b in zip(d_replay, d_pro[:n_p])]
     if d_twist is not None:
         out = [a + b for a, b in zip(out, d_twist)]
-    return out
+    return out + list(d_dec)
 
 
-def _twist_messages_bwd(spec, aux, tensors, g_llm):
+def _twist_messages_bwd(spec, aux, tensors, decisions, g_llm):
     """Reverse pass over the twist potentials (port of the JAX package's
     `_twist_messages_bwd_unrolled`).
 
@@ -176,13 +214,14 @@ def _twist_messages_bwd(spec, aux, tensors, g_llm):
     through the pair log-liks' autograd rule (K7 / K7 wide / K11c on the
     card), and scatter-add the child cotangents into the pending buffer
     (leaf children into its spare column R).  Returns (pending (R+1, K,
-    A, S), parameter cotangents).
+    A, S), parameter cotangents, the prefix-ordered injected pools'
+    cotangents where those require grad, else None).
     """
     from phylo_tpu_torch.models.branches import branch_rates
     from phylo_tpu_torch.smc import twist as tw
     from phylo_tpu_torch.smc.sweep import gather_messages, lookup_nodes
 
-    model, config, decisions = spec["model"], spec["config"], spec["decisions"]
+    model, config = spec["model"], spec["config"]
     names = spec["names"]
     M = config.twist.M
     leaves_sm, buf, w_vec = aux["leaves_sm"], aux["buf"], aux["site_weights"]
@@ -192,9 +231,15 @@ def _twist_messages_bwd(spec, aux, tensors, g_llm):
     dtype, dev = buf.dtype, buf.device
     eps_l, eps_r = aux["twist_eps_pool"]
     pairs_all = tw._tables(N, dev)[0]
-    # injected pools are constants; otherwise b = eps / rate per chunk
-    const_pools = (None if decisions is None
-                   else tw.injected_pools(decisions, N, dtype, dev))
+    # injected pools: leaves here when they carry a gradient; otherwise
+    # b = eps / rate per chunk
+    const_pools = d_pools = None
+    if decisions is not None:
+        const_pools = [p.detach() for p in
+                       tw.injected_pools(decisions, N, dtype, dev)]
+        if any(decisions[k].requires_grad
+               for k in ("twist_pool_l", "twist_pool_r")):
+            d_pools = [torch.zeros_like(p) for p in const_pools]
 
     pending = torch.zeros((R + 1, K, A, S), dtype=dtype, device=dev)
     dparams = [torch.zeros_like(t) for t in tensors]
@@ -217,16 +262,21 @@ def _twist_messages_bwd(spec, aux, tensors, g_llm):
             pi = model.stationary(params["model"], dtype=dtype,
                                   device=dev).to(dtype)
             if const_pools is not None:
-                bl, br = const_pools[0][r, sl], const_pools[1][r, sl]
+                bl, br = (p[r, sl].detach().requires_grad_(
+                    d_pools is not None) for p in const_pools)
             else:
                 rates_l, rates_r = branch_rates(params["branches"])
                 bl = eps_l[r, sl] / rates_l[r].to(dtype)
                 br = eps_r[r, sl] / rates_r[r].to(dtype)
             ll = tw.chunk_loglik(config.twist, model, params["model"], pi,
                                  w_vec, m_l, m_r, bl, br)
-            dm_l, dm_r, *dp = _grad([ll], [m_l, m_r] + p_leaf,
+            pool_leaf = [bl, br] if d_pools is not None else []
+            dm_l, dm_r, *dp = _grad([ll], [m_l, m_r] + p_leaf + pool_leaf,
                                     [g_llm[r][sl]])
-            dparams = [a + b for a, b in zip(dparams, dp)]
+            dparams = [a + b for a, b in zip(dparams, dp[:len(p_leaf)])]
+            if d_pools is not None:
+                for d, g in zip(d_pools, dp[len(p_leaf):]):
+                    d[r, sl] += g
             with torch.no_grad():
                 for dm, half in ((dm_l, slice(None, Cc)),
                                  (dm_r, slice(Cc, None))):
@@ -235,7 +285,7 @@ def _twist_messages_bwd(spec, aux, tensors, g_llm):
                     pending.index_put_(
                         (col.reshape(-1), rows[:, half].reshape(-1)),
                         dm.reshape(K * Cc, A, S), accumulate=True)
-    return pending, dparams
+    return pending, dparams, d_pools
 
 
 def _messages_bwd(aux, P_all, pi, g_rootll, g_dlsc, N, pending=None):
@@ -313,17 +363,21 @@ def sweep_manual_vjp(generator, leaves, model, params, config, *,
                      decisions=None, site_weights=None):
     """`sample_phylogenies` with the manual whole-sweep VJP attached;
     returns a SweepResult whose float fields are differentiable in
-    `params`."""
-    from phylo_tpu_torch.smc.sweep import SweepResult
+    `params` and in the injected float decisions that require grad."""
+    from phylo_tpu_torch.smc.sweep import SweepResult, differentiable_decisions
 
     if leaves.requires_grad or (site_weights is not None
                                 and site_weights.requires_grad):
         raise NotImplementedError(
-            "the manual sweep VJP differentiates params only (leaf and "
-            "site-weight cotangents: ROADMAP.md Queue 1 item 8)")
+            "the manual sweep VJP differentiates params only, and the "
+            "injected decisions that require grad (leaf and site-weight "
+            "cotangents: ROADMAP.md Queue 1 item 8b)")
     names, tensors = _flatten(params)
+    dec_names = differentiable_decisions(decisions)
     spec = dict(generator=generator, leaves=leaves, model=model,
                 config=config, decisions=decisions,
-                site_weights=site_weights, names=names)
-    outs = _ManualSweep.apply(spec, *tensors)
+                site_weights=site_weights, names=names,
+                n_params=len(tensors), dec_names=dec_names)
+    outs = _ManualSweep.apply(spec, *tensors,
+                              *(decisions[k] for k in dec_names))
     return SweepResult(**dict(zip(_DIFF_FIELDS + _INT_FIELDS, outs)))

@@ -48,6 +48,13 @@ def test_import_leaves_jax_unloaded():
         "import phylo_tpu_torch.cli.runner, phylo_tpu_torch.train\n"
         "import phylo_tpu_torch.smc.sweep_vjp, phylo_tpu_torch.params\n"
         "import phylo_tpu_torch.smc.twist, phylo_tpu_torch.pruning.kernels\n"
+        "import phylo_tpu_torch.smc.csmc, phylo_tpu_torch.smc.bootstrap\n"
+        "import phylo_tpu_torch.pruning.fixed_tree\n"
+        "import phylo_tpu_torch.pruning.ancestral, phylo_tpu_torch.search\n"
+        "import phylo_tpu_torch.models.selection\n"
+        "import phylo_tpu_torch.cli.score_tree, phylo_tpu_torch.cli.csmc\n"
+        "import phylo_tpu_torch.cli.model_select\n"
+        "import phylo_tpu_torch.cli.bootstrap\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'phylo_tpu')]\n"
         "assert not bad, bad\n")
@@ -83,6 +90,44 @@ def test_entry_points_default_to_cuda():
                                       checkpoint_dir="unused"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_replicas(ds, TrainConfig(n_particles=4, num_epoch=1), 2)
+
+
+TREE_CLIS = {
+    "score_tree": ["--dataset=load_strings", "--newick=((S0,S1),(S2,S3));"],
+    "model_select": ["--dataset=load_strings", "--candidates=jc69",
+                     "--steps=1"],
+    "bootstrap": ["--dataset=load_strings", "--n_particles=4",
+                  "--n_replicates=1"],
+    "csmc": ["--dataset=load_strings", "--n_particles=4"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(TREE_CLIS))
+def test_tree_tool_clis_default_to_cuda(name):
+    """The tree tools' CLIs run on the card unless --device=cpu is given,
+    and raise before any work when no GPU is visible."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is usable")
+    import importlib
+
+    cli = importlib.import_module(f"phylo_tpu_torch.cli.{name}")
+    assert cli.parse_args(TREE_CLIS[name]).device == "cuda"
+    with pytest.raises(RuntimeError, match="--device=cpu"):
+        cli.main(TREE_CLIS[name])
+
+
+def test_tree_tools_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is usable")
+    from phylo_tpu_torch.dataio import load_dataset
+    from phylo_tpu_torch.models.selection import select_model
+    from phylo_tpu_torch.smc.csmc import CSMC
+
+    ds = load_dataset("load_strings")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CSMC({"taxa": ds.taxa, "genome": ds.genome})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        select_model(ds.genome, candidates=["jc69"], steps=1)
 
 
 def test_float64_on_cuda_is_rejected():
