@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (phylo_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--ptxas]
+    python3 chip_smoke.py [--ptxas] [--phase8]
 
 Phases, each printing a line of its own; any failure raises and the
 script exits non-zero without printing a result:
@@ -111,8 +111,9 @@ script exits non-zero without printing a result:
    blocked / K10's backward and K11a at 4 states: one body; the wide
    body of K9bs, K9b and K11a), K7's,
    K11c's and K8's;
-   for VNCSMC GTR+G4 on DS1, K11b's, K7 wide's and
-   K4's device time beside their earlier designs', and for VNCSMC
+   for VNCSMC GTR+G4 on DS1 (one SGD step: its epoch's half a million
+   launches took the profiler minutes to summarise), K11b's, K7 wide's
+   and K4's device time beside an epoch's earlier, and for VNCSMC
    protein+G4 and protein+G8 K11b's and K7 wide's; the block-group
    bodies' device time on every path);
 6. a training run's life cycle at the main path's width (primate VCSMC,
@@ -149,10 +150,31 @@ script exits non-zero without printing a result:
    its log weights to 1e-10 relative; then a torch.profiler trace of a
    refit step, a fit step and a bootstrap sweep must name the rank
    forward and backward, K4's two kernels and K5's.
+8. the mesh on the one card (phylo_tpu_torch.parallel): (a) primate
+   VCSMC K=2048 b256, 2 epochs through the runner with --mesh=1 (NCCL,
+   a world of one) bit-identical to the run without a mesh, the
+   all-reduces called all the same; then two ranks in child processes
+   of this script sharing the card over gloo (NCCL refuses a duplicate
+   GPU): (b) an ('s',) mesh of 2 on DS1 GTR+G4 over all 1949 sites
+   (K10's forward and K3 blocked per shard): K=128 under phase 3's
+   decisions against its CPU float64 run, and K=2048 against the
+   one-rank card run (1e-3 ELBO, 1e-2 gradients), a seeded training
+   epoch at K=2048 b256 (finite ELBOs, parameters bit-identical across
+   ranks) and rank 0's trace of an SGD step naming the rank forward and
+   backward; (c) a ('k',) mesh of 2 on primate VCSMC K=2048 (the child
+   exchange, K8, K11a and K4 per shard) against phase 3's CPU float64
+   run, and a seeded sweep (K5 on the gathered weights); (d) primate
+   VNCSMC K=32, M=10 on an ('s',) mesh of 2 (K11b, K7, K11a, K8 per
+   shard) against phase 3's CPU run; (e) the data cotangents of item 8b
+   (dleaves, dw) are phase 3's lines of primate K=2048 S=256 (K2) and
+   DS1 GTR+G4 K=128 (K3 blocked).  Each rank prints its launches, its
+   collective calls and bytes a sweep and its wall seconds; a rank that
+   fails fails the script.  `--phase8` runs phase 1, those phase-3
+   checks and phase 8 alone, without a result line.
 
-The kernels line's launches are phase 4's and phase 7's.  The last lines
-are the kernel table as JSON, the card's name and power
-limit, and {"ok": true, "device": {...}}.
+The kernels line's launches are phase 4's, phase 7's and phase 8's
+(every rank's).  The last lines are the kernel table as JSON, the card's
+name and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1856,33 +1878,17 @@ def mixture_tree(model, rng, Nd):
 _CPU_RUNS = {}
 
 
-def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
-                         Kd=K, S=None, route=(), codons=False, Nd=None,
-                         use_pallas_ll=True, bwd_v2=False, cpu_bwd_v2=None):
-    """The sweep with numpy-made decisions, float32 on the card against
-    float64 on the CPU: VCSMC at K=2048, VNCSMC at K=32, M=10, or model
-    `spec` (a rate mixture, or GY94 on `dataset` as codons, with the
-    alignment's F61 frequencies) on the first S sites (and the first Nd
-    taxa) of `dataset` at Kd particles; under twist with the pair
-    log-likelihoods' forward on K11b (`use_pallas_ll`) or plain, and the
-    T-field backward K11c (`bwd_v2`; on the CPU `cpu_bwd_v2`, default
-    the same: the two plain backwards are one function, which
-    tests/test_torch_twist_mixture_wide.py holds to 1e-12, and at 80
-    planes the T-field one is ~10x quicker on the CPU than autograd of
-    the unrolled forward).  `route` names the kernels the card must have
-    launched in the gradient."""
-    from phylo_tpu_torch import _ext
+def fixed_inputs(twist=False, spec=None, dataset="primate", Kd=K, S=None,
+                 codons=False, Nd=None, use_pallas_ll=True,
+                 data_grads=False):
+    """fixed_decision_check's inputs, from seed 11: (model, genome (N, S,
+    planes), numpy params tree, numpy decisions, SweepConfig, label, the
+    site weights or None: uniform in [0.5, 1.5] with `data_grads`)."""
     from phylo_tpu_torch.models.substitution import ReferenceQ, get_model
-    from phylo_tpu_torch.params import params_from_numpy
-    from phylo_tpu_torch.pruning import kernels
-    from phylo_tpu_torch.smc.sweep import SweepConfig, sample_phylogenies
+    from phylo_tpu_torch.smc.sweep import SweepConfig
     from phylo_tpu_torch.smc.twist import TwistConfig
-    from phylo_tpu_torch.train.trainer import (
-        _resolve_codon_frequencies, param_tensors,
-    )
+    from phylo_tpu_torch.train.trainer import _resolve_codon_frequencies
 
-    cpu_bwd_v2 = bwd_v2 if cpu_bwd_v2 is None else cpu_bwd_v2
-    t_start = time.time()
     ds = load(dataset, codons)
     rng = np.random.default_rng(11)
     genome = ds.genome[:Nd, :S]
@@ -1909,18 +1915,57 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
             M=M_TWIST, use_pallas_ll=use_pallas_ll))
         label = (f"{os.path.basename(dataset)} {spec or 'reference'} "
                  f"VNCSMC N={Nd} K={Kd} M={M_TWIST} S={genome.shape[1]}"
-                 f"{'' if use_pallas_ll else ', plain forward'}"
-                 f"{', T-field backward' if bwd_v2 else ''}"
-                 f"{', CPU T-field' if cpu_bwd_v2 and not bwd_v2 else ''}")
+                 f"{'' if use_pallas_ll else ', plain forward'}")
     else:
         dec = make_decisions(rng, Nd, Kd, *rates)
         cfg = SweepConfig(K=Kd)
         label = (f"primate VCSMC K={Kd} S={genome.shape[1]}" if spec is None
                  else f"{os.path.basename(dataset)} {spec} K={Kd} "
                  f"S={genome.shape[1]}")
+    weights = (rng.uniform(0.5, 1.5, genome.shape[1]) if data_grads
+               else None)
+    return model, genome, tree, dec, cfg, label, weights
+
+
+def rel_l2(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
+                         Kd=K, S=None, route=(), codons=False, Nd=None,
+                         use_pallas_ll=True, bwd_v2=False, cpu_bwd_v2=None,
+                         data_grads=False):
+    """The sweep with numpy-made decisions, float32 on the card against
+    float64 on the CPU: VCSMC at K=2048, VNCSMC at K=32, M=10, or model
+    `spec` (a rate mixture, or GY94 on `dataset` as codons, with the
+    alignment's F61 frequencies) on the first S sites (and the first Nd
+    taxa) of `dataset` at Kd particles; under twist with the pair
+    log-likelihoods' forward on K11b (`use_pallas_ll`) or plain, and the
+    T-field backward K11c (`bwd_v2`; on the CPU `cpu_bwd_v2`, default
+    the same: the two plain backwards are one function, which
+    tests/test_torch_twist_mixture_wide.py holds to 1e-12, and at 80
+    planes the T-field one is ~10x quicker on the CPU than autograd of
+    the unrolled forward).  `route` names the kernels the card must have
+    launched in the gradient.  With `data_grads` the sweep takes site
+    weights, and the leaves' and weights' cotangents (item 8b) are held
+    to the same 1e-2 bar.  Returns the two runs' (ELBO, log_likelihood_R,
+    gradients, named gradients, data cotangents) by name."""
+    from phylo_tpu_torch import _ext
+    from phylo_tpu_torch.params import params_from_numpy
+    from phylo_tpu_torch.pruning import kernels
+    from phylo_tpu_torch.smc.sweep import sample_phylogenies
+    from phylo_tpu_torch.train.trainer import param_tensors
+
+    cpu_bwd_v2 = bwd_v2 if cpu_bwd_v2 is None else cpu_bwd_v2
+    t_start = time.time()
+    model, genome, tree, dec, cfg, label, weights = fixed_inputs(
+        twist, spec, dataset, Kd, S, codons, Nd, use_pallas_ll, data_grads)
+    if twist:
+        label += (f"{', T-field backward' if bwd_v2 else ''}"
+                  f"{', CPU T-field' if cpu_bwd_v2 and not bwd_v2 else ''}")
     out = {}
     key = (twist, spec, dataset, Kd, S, codons, Nd, use_pallas_ll,
-           cpu_bwd_v2)
+           cpu_bwd_v2, data_grads)
     if key in _CPU_RUNS:
         out["cpu f64"] = _CPU_RUNS[key]
     for name, device, dtype in (("cuda f32", dev, torch.float32),
@@ -1929,11 +1974,14 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
             continue
         kernels.TWIST_BWD_V2 = bwd_v2 if device != "cpu" else cpu_bwd_v2
         params = params_from_numpy(tree, dtype=dtype, device=device)
-        leaves = torch.tensor(genome, dtype=dtype, device=device)
+        leaves = torch.tensor(genome, dtype=dtype, device=device,
+                              requires_grad=data_grads)
+        sw = (None if weights is None else torch.tensor(
+            weights, dtype=dtype, device=device, requires_grad=True))
         d = {k: torch.as_tensor(v, device=device) for k, v in dec.items()}
         _ext.reset_launches()
         res = sample_phylogenies(None, leaves, model, params, cfg,
-                                 decisions=d)
+                                 decisions=d, site_weights=sw)
         res.elbo.backward()
         if device != "cpu":
             for kname in (route,) if isinstance(route, str) else route:
@@ -1949,14 +1997,16 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
         if spec is not None and "log_exch" in params["model"].get("base", {}):
             named["log_exch"] = params["model"]["base"]["log_exch"].grad \
                 .detach().cpu().double()
+        data = ([t.grad.detach().cpu().double() for t in (leaves, sw)]
+                if data_grads else [])
         out[name] = (float(res.elbo.detach()),
                      res.log_likelihood_R.detach().cpu().double(), grads,
-                     named)
+                     named, data)
         del res, params, leaves
     _CPU_RUNS[key] = out["cpu f64"]
     kernels.TWIST_BWD_V2 = False
-    (e32, llr32, g32, n32), (e64, llr64, g64, n64) = (out["cuda f32"],
-                                                      out["cpu f64"])
+    (e32, llr32, g32, n32, d32), (e64, llr64, g64, n64, d64) = (
+        out["cuda f32"], out["cpu f64"])
     rel = abs(e32 - e64) / abs(e64)
     rel_llr = float(((llr32 - llr64).abs() / llr64.abs()).max())
     g32, g64 = torch.cat([g.reshape(-1) for g in g32]), torch.cat(
@@ -1967,6 +2017,8 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
     values = "".join(f"; {k} grad cuda {float(n32[k].reshape(-1)[0]):.6f} "
                      f"cpu {float(n64[k].reshape(-1)[0]):.6f}"
                      for k in n64 if n64[k].numel() == 1)
+    rel_named.update({k: rel_l2(a, b) for k, a, b in zip(
+        ("dleaves (item 8b)", "dw (item 8b)"), d32, d64)})
     extra = "".join(f"; {k} rel err {v:.3e} (tol 1e-2)"
                     for k, v in rel_named.items())
     via = (f" (reverse pass through "
@@ -1982,6 +2034,7 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
     require(rel_g <= 1e-2, f"gradient rel error {rel_g}")
     for k, v in rel_named.items():
         require(v <= 1e-2, f"{k} gradient rel error {v}")
+    return out
 
 
 def spectral_float32_probe(dev):
@@ -2082,11 +2135,12 @@ PATHS = {
                "pair_loglik_fwd": 0, "pair_ll_bwd_wide": 0},
         earlier="PR 6: ELBO -7420.570, -7387.625 after epochs 1, 2; "
                 "6.20-8.66 s per epoch",
-        twist_profile="PR 6: K11b 454 ms over 390 launches, K7 wide 816 ms "
-                      "over 182; register-tiled blocked forms: 77.1 and "
-                      "148.9 ms",
-        k4_profile="with divisions in the chain and the batch sums in "
-                   "torch: K4 backward 93 ms"),
+        # one SGD step (26 ranks) is profiled: the epoch's 562k launches
+        # took the profiler's summary 136 s
+        profile_step=True,
+        twist_profile="an epoch (7 steps + the eval) before: K11b 74.9 ms "
+                      "over 390 launches, K7 wide 151.3 ms over 182",
+        k4_profile="an epoch before: K4f 11.8 ms, K4b 15.5 ms"),
     # primate VNCSMC again with the T-field backward K11c
     # (PHYLO_TWIST_BWD_V2=1) in place of K7: 3 SGD steps an epoch, 11
     # ranks each; profiled, so that K11c's device time on its path is on
@@ -2283,10 +2337,17 @@ def profile_epoch(name):
     device time and count of all kernel launches, the device's busy
     share, and the kernels with the most device time.  Only the device
     is traced: the profiler's summary of host operator events took
-    minutes at VNCSMC DS1's half a million launches an epoch."""
+    minutes at VNCSMC DS1's half a million launches an epoch.  A path
+    with `profile_step` profiles one SGD step on the first 256 sites
+    instead of the epoch (even the device events' summary took 136 s at
+    DS1 VNCSMC's epoch)."""
     from torch.profiler import ProfilerActivity, profile
 
     from phylo_tpu_torch.train import TrainConfig, train
+    from phylo_tpu_torch.train.trainer import (
+        _optimizer, _sweep_config, init_params, param_tensors, sgd_step,
+        step_generator,
+    )
 
     from phylo_tpu_torch.pruning import kernels
 
@@ -2294,11 +2355,24 @@ def profile_epoch(name):
     ds = load(path["dataset"], path.get("codons", False))
     cfg = TrainConfig(batch_size=S_BATCH, num_epoch=1, save_artifacts=False,
                       log_every=0, device="cuda", **path["train"])
+    run = lambda: train(ds, cfg)  # noqa: E731
+    what = "train(num_epoch=1)"
+    if path.get("profile_step"):
+        model, params = init_params(ds, cfg)
+        genome = (model.expand_leaves(ds.genome)
+                  if hasattr(model, "expand_leaves") else ds.genome)
+        batch = torch.tensor(genome[:, :S_BATCH], dtype=torch.float32,
+                             device="cuda")
+        opt = _optimizer(cfg, param_tensors(params))
+        run = lambda: sgd_step(  # noqa: E731
+            model, params, opt, _sweep_config(cfg),
+            step_generator(cfg.seed, 0, 1, "cuda"), batch)
+        what = "one SGD step"
     kernels.TWIST_BWD_V2 = path.get("bwd_v2", False)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train(ds, cfg)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         t1 = time.perf_counter()
@@ -2341,7 +2415,7 @@ def profile_epoch(name):
         log(f"phase 5 {name} profile: wall {wall_ms:.1f} ms; the profiler "
             "recorded no device time (device numbers not measured)")
         return
-    log(f"phase 5 {name} profile of train(num_epoch=1): " + json.dumps({
+    log(f"phase 5 {name} profile of {what}: " + json.dumps({
         "wall_ms": wall_ms, "device_kernel_ms": device_ms,
         "device_busy_share": device_ms / wall_ms,
         "kernel_launches": sum(r[2] for r in rows),
@@ -2895,6 +2969,350 @@ def tree_tools(ext, dev, Kd=K):
     return total
 
 
+# ---------------------------------------------------------------- phase 8
+# the mesh on the one card: NCCL at world size 1 in this process, and two
+# ranks sharing the card over gloo (NCCL refuses a duplicate GPU) in
+# child processes of this script (`--mesh-child`)
+MESH_TRACE_KERNELS = (RANK_FWD_KERNEL, RANK_BWD_KERNEL)
+DS1_G4 = dict(spec="gtr+g4", dataset="hohna_data_1")
+# (b): DS1 GTR+G4 over all 1949 sites, K=128 (phase 3's shape: its CPU
+# float64 run; the CPU's at K=2048 would hold a 13 GB buffer) and the
+# main path's K=2048; (d) primate VNCSMC; (c) primate VCSMC at all 898
+# sites; K=2048 on a 'k' mesh
+MESH_PARTS = {
+    "s": [("b K=128", dict(DS1_G4, Kd=128, data_grads=True)),
+          ("b K=2048", dict(DS1_G4, Kd=K)),
+          ("d", dict(twist=True))],
+    "k": [("c", dict())],
+}
+MESH_TRAIN = dict(n_particles=K, batch_size=S_BATCH, num_epoch=1,
+                  substitution_model="gtr+g4", save_artifacts=False,
+                  collect_trees=False, log_every=0)
+
+
+def _reset_counts():
+    from phylo_tpu_torch import _ext
+    from phylo_tpu_torch.parallel import collectives
+
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    collectives.reset_counts()
+
+
+def _counts():
+    from phylo_tpu_torch import _ext
+    from phylo_tpu_torch.parallel import collectives
+
+    torch.cuda.synchronize()
+    return dict(launches=dict(_ext.LAUNCHES),
+                calls=dict(collectives.CALLS),
+                bytes=dict(collectives.BYTES))
+
+
+def mesh_sweep(dev, sh, kw, seed=None):
+    """One float32 sweep of fixed_inputs(**kw) on this rank's block of
+    the mesh `sh` (None: one rank) with the manual VJP's gradient, or,
+    given `seed`, no decisions and no gradient.  Returns the ELBO, the
+    flat gradient, the counts and the wall seconds."""
+    from phylo_tpu_torch.parallel import pad_sites, shard_leaves
+    from phylo_tpu_torch.params import params_from_numpy
+    from phylo_tpu_torch.smc.sweep import sample_phylogenies
+    from phylo_tpu_torch.train.trainer import param_tensors
+
+    f32 = torch.float32
+    model, genome, tree, dec, cfg, label, w = fixed_inputs(**kw)
+    if sh is not None:
+        padded, w_pad = pad_sites(genome, sh.site_multiple(), w)
+        if w is not None or padded.shape[1] != genome.shape[1]:
+            w = w_pad[sh.sites(len(w_pad))]
+        genome = shard_leaves(padded, sh)
+    grad = seed is None
+    params = params_from_numpy(tree, dtype=f32, device=dev,
+                               requires_grad=grad)
+    leaves = torch.tensor(genome, dtype=f32, device=dev)
+    sw = None if w is None else torch.tensor(w, dtype=f32, device=dev)
+    gen, d = None, None
+    if grad:
+        d = {k: torch.as_tensor(v, device=dev) for k, v in dec.items()}
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+    _reset_counts()
+    t = time.time()
+    with torch.set_grad_enabled(grad):
+        res = sample_phylogenies(gen, leaves, model, params, cfg,
+                                 decisions=d, site_weights=sw, shardings=sh)
+        if grad:
+            res.elbo.backward()
+    secs = time.time() - t
+    out = dict(label=label, elbo=float(res.elbo.detach()), seconds=secs,
+               **_counts())
+    if grad:
+        out["grad"] = torch.cat([t_.grad.detach().reshape(-1).double().cpu()
+                                 for t_ in param_tensors(params)])
+    return out
+
+
+def mesh_child(argv):
+    """A rank of a two-rank mesh on the one card over gloo: runs the
+    parts of MESH_PARTS[axis] and pickles what it measured."""
+    axis, rank, world, port, out_path = (argv[0], int(argv[1]),
+                                         int(argv[2]), int(argv[3]), argv[4])
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from phylo_tpu_torch.parallel import (
+        initialize_distributed, make_mesh, sweep_sharding,
+    )
+
+    from phylo_tpu_torch.device import resolve_device
+
+    initialize_distributed(f"localhost:{port}", world, rank, backend="gloo")
+    dev = resolve_device("cuda")
+    names = ("s",) if axis == "s" else ("k",)
+    sh = sweep_sharding(make_mesh((world,), names))
+    out = {}
+    for name, kw in MESH_PARTS[axis]:
+        out[name] = mesh_sweep(dev, sh, kw)
+    if axis == "k":
+        # K5 on the gathered log weights: a seeded sweep, no decisions
+        out["c seeded"] = mesh_sweep(dev, sh, dict(S=S_BATCH), seed=3)
+    else:
+        out["b train"] = mesh_train(dev, sh, rank)
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_train(dev, sh, rank):
+    """(b)'s seeded training epoch on DS1 GTR+G4 K=2048 b256 over the
+    mesh, then a traced SGD step; returns the ELBOs, the parameters' bits
+    and, on rank 0, the kernels the trace names."""
+    from phylo_tpu_torch.train import TrainConfig, train
+    from phylo_tpu_torch.train.trainer import (
+        _optimizer, _sweep_config, init_params, param_tensors, sgd_step,
+        step_generator,
+    )
+    from phylo_tpu_torch.utils.profiling import device_trace
+
+    ds = load("hohna_data_1")
+    _reset_counts()
+    t = time.time()
+    res = train(ds, TrainConfig(mesh_shape=(sh.s,), device="cuda",
+                                **MESH_TRAIN))
+    out = dict(elbo=list(res.history["elbo"]), seconds=time.time() - t,
+               params=torch.cat([t_.detach().reshape(-1).cpu() for t_ in
+                                 param_tensors(res.params)]), **_counts())
+    config = TrainConfig(device="cuda", **MESH_TRAIN)
+    model, params = init_params(ds, config, device=dev)
+    leaves = torch.tensor(model.expand_leaves(ds.genome), dtype=torch.float32,
+                          device=dev)[:, :S_BATCH]
+    opt = _optimizer(config, param_tensors(params))
+    step = lambda: sgd_step(model, params, opt, _sweep_config(config),  # noqa
+                            step_generator(0, 0, 1, dev), leaves,
+                            shardings=sh)
+    step()
+    trace_dir = os.path.join(PROT_DIR, f"mesh_trace_{rank}")
+    with device_trace(trace_dir, device="cuda"):
+        step()
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        text = f.read()
+    out["trace"] = [k for k in MESH_TRACE_KERNELS if k in text]
+    return out
+
+
+def _spawn_mesh(axis, world, tmp):
+    """Starts the ranks of a two-rank mesh; their output goes to a log
+    file each (a pipe left unread could stall a rank)."""
+    here = os.path.abspath(__file__)
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        base = os.path.join(tmp, f"{axis}_{rank}")
+        with open(base + ".log", "w") as logf:
+            procs.append((subprocess.Popen(
+                [sys.executable, here, "--mesh-child", axis, str(rank),
+                 str(world), str(port), base + ".p"],
+                stdout=logf, stderr=subprocess.STDOUT), base))
+    return procs
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _collect(axis, procs):
+    """Every rank's results; a rank that failed fails the script (the
+    other ranks are stopped)."""
+    out = []
+    for rank, (p, base) in enumerate(procs):
+        try:
+            p.wait(timeout=600)
+        finally:
+            if p.returncode != 0:
+                for q, _ in procs:
+                    q.kill()
+                    q.wait()
+        if p.returncode != 0:
+            with open(base + ".log") as f:
+                log(f.read()[-6000:])
+            require(False, f"phase 8 ('{axis}',) mesh rank {rank} exited "
+                    f"{p.returncode}")
+        with open(base + ".p", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _mesh_line(part, rank, r, card, over="a sweep"):
+    calls = ", ".join(f"{k} {v} calls / {r['bytes'].get(k, 0)} B"
+                      for k, v in sorted(r["calls"].items()))
+    log(f"phase 8 {part} rank {rank}: {r['seconds']:.3f} s wall ({card}); "
+        f"launches {json.dumps(r['launches'])}; collectives {over}: "
+        f"{calls or 'none'}")
+
+
+def _hold(part, got, want_elbo, want_grad, against):
+    rel = abs(got["elbo"] - want_elbo) / abs(want_elbo)
+    rel_g = rel_l2(got["grad"], want_grad)
+    log(f"phase 8 {part} {got['label']}: ELBO {got['elbo']:.6f} vs "
+        f"{against} {want_elbo:.6f}, rel err {rel:.3e} (tol 1e-3); "
+        f"manual-VJP gradient rel L2 err {rel_g:.3e} (tol 1e-2)")
+    require(rel <= 1e-3, f"phase 8 {part} ELBO rel error {rel}")
+    require(rel_g <= 1e-2, f"phase 8 {part} gradient rel error {rel_g}")
+    return rel, rel_g
+
+
+def mesh_world_of_one(ext):
+    """(a): primate VCSMC K=2048 b256 for 2 epochs through the runner with
+    --mesh=1 (a world of one, NCCL) and without: the same ELBOs and
+    parameters, bit for bit; the all-reduces are called all the same."""
+    import torch.distributed as dist
+
+    from phylo_tpu_torch.cli import runner
+    from phylo_tpu_torch.train.trainer import param_tensors
+
+    argv = ["--dataset=primate_data", f"--batch_size={S_BATCH}",
+            f"--n_particles={K}", "--num_epoch=2", "--no_artifacts",
+            "--device=cuda"]
+    runs = {}
+    for mesh in ("", "--mesh=1"):
+        _reset_counts()
+        t = time.time()
+        res = runner.run(argv + ([mesh] if mesh else []))
+        runs[mesh] = (res, time.time() - t, _counts())
+    (a, _, ca), (b, secs, cb) = runs[""], runs["--mesh=1"]
+    require(dist.get_backend() == "nccl", "the world of one is not NCCL")
+    dist.destroy_process_group()
+    require(a.history["elbo"] == b.history["elbo"],
+            f"--mesh=1 ELBOs {b.history['elbo']} != {a.history['elbo']}")
+    for x, y in zip(param_tensors(a.params), param_tensors(b.params)):
+        require(torch.equal(x, y), "--mesh=1 parameters differ")
+    require(cb["calls"].get("all_reduce", 0) > 0, "--mesh=1 called no "
+            "all_reduce")
+    require(ca["launches"] == cb["launches"], "--mesh=1 launched "
+            f"{cb['launches']}, not {ca['launches']}")
+    log(f"phase 8 (a) --mesh=1 (NCCL, world of one): ELBOs "
+        f"{json.dumps(b.history['elbo'])}, bit-identical to the run "
+        f"without a mesh, parameters too; {secs:.2f} s for 2 epochs; "
+        f"collectives over the run: {json.dumps(cb['calls'])} calls, "
+        f"{json.dumps(cb['bytes'])} B; launches {json.dumps(cb['launches'])}")
+    return cb["launches"]
+
+
+def mesh_phase(ext, dev, card):
+    """Phase 8; returns its launches (every rank's) by kernel."""
+    import tempfile
+
+    t0 = time.time()
+    launches = dict(mesh_world_of_one(ext))
+    tmp = tempfile.mkdtemp(prefix="mesh_", dir=PROT_DIR)
+    procs = {axis: _spawn_mesh(axis, 2, tmp) for axis in ("s", "k")}
+    try:
+        # meanwhile: the one-rank card run of (b) at K=2048, and phase
+        # 3's CPU float64 runs (cached) for the rest
+        one = mesh_sweep(dev, None, dict(DS1_G4, Kd=K))
+        ranks = {axis: _collect(axis, ps) for axis, ps in procs.items()}
+    finally:
+        for ps in procs.values():
+            for p, _ in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    cpu = {"b K=128": _CPU_RUNS[(False, "gtr+g4", "hohna_data_1", 128, None,
+                                 False, None, True, False, True)],
+           "d": _CPU_RUNS[(True, None, "primate", K, None, False, None,
+                           True, False, False)],
+           "c": _CPU_RUNS[(False, None, "primate", K, None, False, None,
+                           True, False, False)]}
+    need = {"b K=128": ("fused_rank_update_blocked",
+                        "fused_rank_bwd_blocked"),
+            "b K=2048": ("fused_rank_update_blocked",
+                         "fused_rank_bwd_blocked"),
+            "d": ("pair_loglik_fwd", "pair_ll_bwd", "merge_bwd",
+                  "fused_merge_loglik"),
+            "c": ("fused_merge_loglik", "merge_bwd", "expm_fwd",
+                  "expm_bwd"),
+            "c seeded": ("fused_merge_loglik", "expm_fwd", "categorical"),
+            "b train": ("fused_rank_update_blocked",
+                        "fused_rank_bwd_blocked", "expm_fwd", "expm_bwd",
+                        "categorical")}
+    for axis, rs in ranks.items():
+        for part in rs[0]:
+            for rank, r in enumerate(rs):
+                got = r[part]
+                _mesh_line(f"({part}) ('{axis}',) 2", rank, got, card,
+                           "over the run" if part == "b train"
+                           else "a sweep")
+                for kname in need[part]:
+                    require(got["launches"].get(kname, 0) > 0,
+                            f"phase 8 ({part}) rank {rank} launched no "
+                            f"{kname}")
+                for kname, n in got["launches"].items():
+                    launches[kname] = launches.get(kname, 0) + n
+                if part in cpu:
+                    c = cpu[part]
+                    _hold(f"({part}) rank {rank}", got, c[0],
+                          torch.cat([g.reshape(-1) for g in c[2]]),
+                          "cpu f64 one process")
+                if part == "b K=2048":
+                    _hold(f"({part}) rank {rank}", got, one["elbo"],
+                          one["grad"], "the one-rank card run")
+            require(rs[0][part]["elbo"] == rs[1][part]["elbo"],
+                    f"phase 8 ({part}): the ranks' ELBOs differ")
+            if "grad" in rs[0][part]:
+                require(torch.equal(rs[0][part]["grad"], rs[1][part]["grad"])
+                        and rs[0][part]["elbo"] == rs[1][part]["elbo"],
+                        f"phase 8 ({part}): the ranks' results differ")
+    log(f"phase 8 (b) one-rank card run {one['label']}: ELBO "
+        f"{one['elbo']:.6f}, {one['seconds']:.3f} s ({card}); launches "
+        f"{json.dumps(one['launches'])}")
+    tr = [r["b train"] for r in ranks["s"]]
+    for rank, r in enumerate(tr):
+        require(all(math.isfinite(e) and -10500 < e < -7000
+                    for e in r["elbo"]),
+                f"phase 8 (b) rank {rank} training ELBO {r['elbo']}")
+    require(torch.equal(tr[0]["params"], tr[1]["params"]),
+            "phase 8 (b): the parameters differ across ranks")
+    require(tr[0]["elbo"] == tr[1]["elbo"], "phase 8 (b): the ranks' ELBOs "
+            "differ")
+    require(tr[0]["trace"] == list(MESH_TRACE_KERNELS),
+            f"phase 8 (b): rank 0's trace names {tr[0]['trace']}, not "
+            f"{MESH_TRACE_KERNELS}")
+    log(f"phase 8 (b) training epoch on the ('s',) 2 mesh: ELBO "
+        f"{tr[0]['elbo']} on both ranks, parameters bit-identical across "
+        f"ranks; rank 0's trace of an SGD step names "
+        f"{', '.join(tr[0]['trace'])}")
+    log(f"phase 8 done in {time.time() - t0:.1f} s ({card}); ranks that "
+        "share the card give counts, not scaling")
+    return launches
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2919,6 +3337,17 @@ def main(argv):
     protein_files()
     log(f"phase 1 wrote the protein path's inputs from seed 0: {PROT_FASTA} "
         f"({N_PROT} x {S_PROT}), {PROT_DAT}")
+    if "--phase8" in argv:
+        # phase 8 alone, after the phase-3 checks whose CPU runs it reads;
+        # no result line
+        fixed_decision_check(dev, route="fused_rank_bwd")
+        fixed_decision_check(dev, twist=True, route=(
+            "pair_loglik_fwd", "pair_ll_bwd", "merge_bwd"))
+        fixed_decision_check(dev, spec="gtr+g4", dataset="hohna_data_1",
+                             Kd=128, route="fused_rank_bwd_blocked",
+                             data_grads=True)
+        mesh_phase(_ext, dev, card)
+        return 0
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     log("phase 2 kernels against their plain versions on the card:")
@@ -3057,7 +3486,9 @@ def main(argv):
     log(f"phase 2 done at {time.time() - t0:.1f} s")
     # primate VCSMC: at the main path's site batch, under the cap (K2), and
     # at all 898 sites, over it (K3)
-    fixed_decision_check(dev, S=S_BATCH, route="fused_rank_bwd_saved")
+    # with site weights and the data cotangents (item 8b) on K2's route
+    fixed_decision_check(dev, S=S_BATCH, route="fused_rank_bwd_saved",
+                         data_grads=True)
     fixed_decision_check(dev, route="fused_rank_bwd")
     # VNCSMC: primate with the defaults (K11b, K7, K11a), with the plain
     # forward and with the T-field backward (K11c); GTR+G4 on DS1's
@@ -3094,8 +3525,9 @@ def main(argv):
     # GTR+G4: under the cap (K10's saved-children backward), over it (K3)
     fixed_decision_check(dev, spec="gtr+g4", Kd=512, S=S_BATCH,
                          route="fused_rank_bwd_saved_blocked")
+    # (and the data cotangents on the re-gather route, K3 blocked)
     fixed_decision_check(dev, spec="gtr+g4", dataset="hohna_data_1", Kd=128,
-                         route="fused_rank_bwd_blocked")
+                         route="fused_rank_bwd_blocked", data_grads=True)
     # GY94 codons at K=128: under the cap (K9bs), over it (K9b)
     spectral_float32_probe(dev)
     fixed_decision_check(dev, spec="gy94", dataset="betacorona1", codons=True,
@@ -3140,6 +3572,9 @@ def main(argv):
     for k, n in tree_tools(_ext, dev).items():
         launches[k] = launches.get(k, 0) + n
     log(f"phase 7 done at {time.time() - t0:.1f} s")
+    for k, n in mesh_phase(_ext, dev, card).items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"phase 8 done at {time.time() - t0:.1f} s")
 
     rows = [
         ("fused_rank_update", "phylo_tpu_torch/csrc/rank_kernels.cu",
@@ -3219,4 +3654,6 @@ def main(argv):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.exit(mesh_child(sys.argv[2:]))
     sys.exit(main(sys.argv[1:]))

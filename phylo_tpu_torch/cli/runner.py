@@ -1,8 +1,9 @@
 """Experiment driver CLI (port of phylo_tpu/cli/runner.py).
 
 The same flag surface as the JAX runner (reference runner.py:12-58),
-plus ``--device`` (default ``cuda``; ``cpu`` on request).  Flags of
-later slices raise NotImplementedError naming their ROADMAP.md item.
+plus ``--device`` (default ``cuda``; ``cpu`` on request).
+``--dtype=bfloat16`` raises NotImplementedError naming its ROADMAP.md
+entry.
 
 Usage (on a GPU):
     python -m phylo_tpu_torch.cli.runner --dataset=primate_data \
@@ -28,6 +29,16 @@ before any tensor is touched (`smc.sweep.card_refusals`).
 
 Checkpoints go to <run dir>/ckpt every --checkpoint_every epochs;
 --resume_from=<checkpoint or its directory> continues a run from one.
+
+On a mesh, one process per device: ``--mesh=2`` shards sites over two
+devices (``--mesh=2,1`` particles, ``--mesh=2,2`` both, as ('k', 's')),
+each process started with ``--coordinator=host:port
+--num_processes=<n> --process_id=<i>`` (or JAX_COORDINATOR_ADDRESS /
+JAX_NUM_PROCESSES / JAX_PROCESS_ID); ``--mesh=1`` runs in one process.
+Rank 0 writes the results:
+    python -m phylo_tpu_torch.cli.runner --dataset=hohna_data_1 \
+        --model=gtr+g4 --n_particles=2048 --mesh=2 \
+        --coordinator=localhost:29500 --num_processes=2 --process_id=0
 """
 
 from __future__ import annotations
@@ -87,10 +98,16 @@ def parse_args(argv=None):
     p.add_argument("--no_artifacts", action="store_true")
     p.add_argument("--checkpoint_every", type=int, default=0)
     p.add_argument("--resume_from", default=None)
-    p.add_argument("--mesh", default=None)
-    p.add_argument("--coordinator", default=None)
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--mesh", default=None,
+                   help="comma-separated mesh shape, e.g. '4' shards sites "
+                   "over 4 devices (one process each)")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-process: the rendezvous host:port (or set "
+                   "JAX_COORDINATOR_ADDRESS)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="multi-process: total process count")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="multi-process: this process's index")
     p.add_argument("--reference_compat", type=_boolish, default=True)
     p.add_argument("--fixed_partition", type=_boolish, default=False)
     p.add_argument("--log_params", type=_boolish, default=False)
@@ -100,24 +117,31 @@ def parse_args(argv=None):
 
 
 def _check_flags(args):
-    def no(flag, item):
-        raise NotImplementedError(
-            f"{flag} is not ported to phylo_tpu_torch yet "
-            f"(ROADMAP.md {item})")
-
-    if args.mesh:
-        no("--mesh", "Queue 1 item 16")
-    if args.coordinator or args.num_processes or args.process_id \
-            is not None or os.environ.get("JAX_COORDINATOR_ADDRESS"):
-        no("multi-host training", "Queue 1 item 16")
     if args.dtype == "bfloat16":
-        no("--dtype=bfloat16", "Queue 1")
+        raise NotImplementedError(
+            "--dtype=bfloat16 is not ported to phylo_tpu_torch (ROADMAP.md "
+            "Queue 3: configurations the card refuses)")
 
 
 def run(argv=None):
     """Parse `argv`, train, and return the TrainResult."""
     args = parse_args(argv)
     _check_flags(args)
+
+    if args.coordinator or args.num_processes or os.environ.get(
+            "JAX_COORDINATOR_ADDRESS"):
+        from phylo_tpu_torch.parallel import (
+            initialize_distributed,
+            process_summary,
+        )
+
+        initialize_distributed(
+            coordinator_address=args.coordinator,
+            num_processes=args.num_processes,
+            process_id=args.process_id,
+            device=args.device,
+        )
+        print(process_summary())
 
     from phylo_tpu_torch.dataio import load_dataset
     from phylo_tpu_torch.train import TrainConfig, train
@@ -161,6 +185,8 @@ def run(argv=None):
         save_artifacts=not args.no_artifacts,
         checkpoint_every=args.checkpoint_every,
         resume_from=args.resume_from,
+        mesh_shape=(tuple(int(x) for x in args.mesh.split(","))
+                    if args.mesh else None),
         device=args.device,
     )
     res = train(ds, config)

@@ -42,6 +42,7 @@ from typing import Any, Optional
 import torch
 
 from phylo_tpu_torch.models.branches import branch_rates
+from phylo_tpu_torch.parallel import collectives as _coll
 from phylo_tpu_torch.params import flatten
 from phylo_tpu_torch.pruning import kernels as _kernels
 from phylo_tpu_torch.pruning.felsenstein import (
@@ -106,6 +107,11 @@ class SweepConfig:
     carried_weights: bool = False
     manual_vjp: bool = True
     twist: Optional[Any] = None
+    # False declares that the caller never differentiates `leaves` or
+    # `site_weights`: under twist the manual VJP then skips their
+    # cotangents and returns exact zeros (the JAX package's field; the
+    # trainer sets it).  Without twist it changes nothing.
+    data_grads: bool = True
 
 
 @dataclass
@@ -129,17 +135,40 @@ def compute_log_zsmc(log_weights):
 
 
 def _presample_transitions(model, model_params, rates_l, rates_r, eps_l,
-                           eps_r, dtype, blocked=False):
+                           eps_r, dtype, blocked=False, shardings=None):
     """Branch lengths b = eps / rate (pathwise-differentiable in the
     rates) and ONE batched transition call for all ranks' branches,
     (R, 2K, A, A), or (R, 2K, G, A, A) per-category blocks when
-    `blocked`.  Shared by the sweep and the manual-VJP prologue so both
-    linearize at identical values."""
+    `blocked`; on a 'k' mesh only this rank's particles', (R, 2K/k, ...)
+    (`local_transitions`)."""
     b_l_all = eps_l / rates_l[:, None]
     b_r_all = eps_r / rates_r[:, None]
-    P_all = transitions(model, model_params,
-                        torch.cat([b_l_all, b_r_all], dim=1), blocked, dtype)
+    P_all = local_transitions(model, model_params, b_l_all, b_r_all,
+                              blocked, dtype, shardings)
     return b_l_all, b_r_all, P_all
+
+
+def local_transitions(model, model_params, b_l, b_r, blocked, dtype,
+                      shardings=None):
+    """Transitions of the branch lengths b_l, b_r (..., K) of this
+    rank's particles, concatenated left then right along the last batch
+    axis: all K without a 'k' mesh; on one, this rank's block only (the
+    JAX package's per-shard transitions, phylo_tpu/smc/sweep.py:281-330),
+    its inputs entering the shard (their cotangents summed over 'k')."""
+    if shardings is not None and shardings.has_k:
+        ks = shardings.particles(b_l.shape[-1])
+        model_params = enter_tree(shardings, model_params, ("k",))
+        b_l = _coll.enter(shardings, b_l, ("k",))[..., ks]
+        b_r = _coll.enter(shardings, b_r, ("k",))[..., ks]
+    return transitions(model, model_params, torch.cat([b_l, b_r], dim=-1),
+                       blocked, dtype)
+
+
+def enter_tree(sh, tree, axes):
+    """`collectives.enter` over a nested parameter dict."""
+    if isinstance(tree, dict):
+        return {k: enter_tree(sh, v, axes) for k, v in tree.items()}
+    return _coll.enter(sh, tree, axes)
 
 
 def transitions(model, model_params, b, blocked, dtype):
@@ -161,10 +190,9 @@ def card_refusals(config, model, planes):
     (A <= 8 a category) or K9 blocked (8 < A <= 128 a category, in block
     groups where one does not fit: protein + Gamma8, GY94 + Gamma4),
     up to MAX_G = 32 blocks: more blocks, or a block of more than 128
-    states, raise."""
-    if not config.rescale:
-        raise NotImplementedError(
-            "rescale=False has no CUDA kernel (K1 always rescales)")
+    states, raise.  A sweep without rescaling merges with plain torch
+    ops (K1 and K8 always rescale), as the JAX package falls back to jnp
+    there."""
     if config.twist is not None:
         _kernels.twist_route(model, planes)
     blocks = getattr(model, "blocks", None)
@@ -172,11 +200,13 @@ def card_refusals(config, model, planes):
         _kernels.wide_planes(*blocks, blocked=True)
 
 
-def _check_supported(config, leaves, model):
+def _check_supported(config, leaves, model, shardings=None):
     if config.resampling not in ("multinomial", "systematic",
                                  "stratified", "none"):
         raise ValueError(
             f"unknown resampling strategy {config.resampling!r}")
+    if shardings is not None:
+        shardings.particles(config.K)       # K a multiple of 'k'
     if leaves.is_cuda:
         card_refusals(config, model, leaves.shape[-1])
 
@@ -194,12 +224,14 @@ def differentiable_decisions(decisions):
 
 
 def sample_phylogenies(generator, leaves, model, params, config, *,
-                       decisions=None, site_weights=None):
+                       decisions=None, site_weights=None, shardings=None):
     """Run one full CSMC sweep.
 
     generator: torch.Generator on leaves' device (unused when every
         decision is injected).
-    leaves: (N, S, A) one-hot / ambiguity-coded genomes.
+    leaves: (N, S, A) one-hot / ambiguity-coded genomes; on a mesh
+        this rank's site block (parallel.shard_leaves), and site_weights
+        its weights.
     params: {'model': {...}, 'branches': {'log_rates_l', 'log_rates_r'}}.
     decisions: optional pre-drawn randomness ('ancestors' (N-1, K),
         'pairs' (N-1, K, 2), 'branches_l'/'branches_r' (N-1, K); under
@@ -208,16 +240,27 @@ def sample_phylogenies(generator, leaves, model, params, config, *,
         (N-1, K) lexicographic flat indices pair * M + m); the sweep is
         then deterministic.  Its float tensors (branch lengths, pools)
         are constants unless they require grad.
+    shardings: optional parallel.SweepSharding (one process per mesh
+        device, every rank calling with the same generator seed): on a
+        site mesh each rank runs the kernels on its site block and the
+        per-particle site sums are all-reduced over 's'; on a particle
+        mesh each rank merges its K/k particles, children on other ranks
+        come by one exchange over 'k' and the merge scalars are gathered
+        (parallel.collectives).  Every rank draws the whole sweep's
+        random numbers, so a seeded sharded sweep repeats the one-process
+        sweep, and every rank returns the whole SweepResult.
 
-    Differentiable in `params` and in the injected float decisions that
+    Differentiable in `params`, in the injected float decisions that
     require grad (tree search refits its candidates' branch lengths so)
-    when grad is enabled: through the manual whole-sweep VJP
-    (smc.sweep_vjp) by default, or plain autograd with
-    SweepConfig(manual_vjp=False).  Injected decisions reach both
-    routes.
+    and in `leaves` and `site_weights` when they require grad and grad
+    is enabled: through the manual whole-sweep VJP (smc.sweep_vjp) by
+    default, or plain autograd with SweepConfig(manual_vjp=False).
+    Injected decisions reach both routes.
     """
-    _check_supported(config, leaves, model)
-    tensors = flatten(params)[1] + [
+    _check_supported(config, leaves, model, shardings)
+    data = [t for t in (leaves, site_weights)
+            if t is not None and t.requires_grad]
+    tensors = flatten(params)[1] + data + [
         decisions[k] for k in differentiable_decisions(decisions)]
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in tensors)
@@ -226,20 +269,23 @@ def sample_phylogenies(generator, leaves, model, params, config, *,
             return _sample_body(generator, leaves, model, params, config,
                                 decisions=decisions,
                                 site_weights=site_weights,
-                                fused_rank=config.rescale)
+                                fused_rank=config.rescale,
+                                shardings=shardings)
     if config.manual_vjp and config.rescale:
         from phylo_tpu_torch.smc.sweep_vjp import sweep_manual_vjp
 
         return sweep_manual_vjp(generator, leaves, model, params, config,
                                 decisions=decisions,
-                                site_weights=site_weights)
+                                site_weights=site_weights,
+                                shardings=shardings)
     return _sample_body(generator, leaves, model, params, config,
-                        decisions=decisions, site_weights=site_weights)
+                        decisions=decisions, site_weights=site_weights,
+                        shardings=shardings)
 
 
 def _sample_body(generator, leaves, model, params, config, *,
                  decisions=None, site_weights=None, injected=None,
-                 want_aux=False, fused_rank=False):
+                 want_aux=False, fused_rank=False, shardings=None):
     """One sweep.  Modes:
 
     * plain (fused_rank=False): K8 merge (or plain torch ops without
@@ -252,6 +298,13 @@ def _sample_body(generator, leaves, model, params, config, *,
       come from the forward run, and no message is touched.  Under
       twist the pair-merge log-likelihoods (twist_llm) and the choices
       are injected as well, with the forward's unit-rate pools.
+
+    On a mesh (`shardings`) the forest's tables stay whole on every
+    rank; the messages, the merges and the twist's candidates are this
+    rank's blocks (sites on 's', particles on 'k'), and the scalars they
+    give are summed over 's' and gathered over 'k' before anything reads
+    them.  K1 is off on a 'k' mesh (explicit children fetched over 'k',
+    then K8), as in the JAX package.
 
     Returns SweepResult, or (SweepResult, aux) with want_aux.
     """
@@ -270,6 +323,11 @@ def _sample_body(generator, leaves, model, params, config, *,
     mix = getattr(model, "blocks", None)
     bwd_blocks = (mix if config.twist is not None and mix is not None
                   and mix[1] > _kernels.MAX_A else blocks)
+    sh = shardings
+    kmesh = sh is not None and sh.has_k
+    Kl = K // sh.k if kmesh else K
+    if kmesh:
+        fused_rank = False
 
     stationary = model.stationary(params["model"], dtype=dtype,
                                   device=dev).to(dtype)
@@ -278,8 +336,16 @@ def _sample_body(generator, leaves, model, params, config, *,
     rates_r = rates_r.to(dtype)
     w_vec = (site_weights.to(dtype) if site_weights is not None
              else torch.ones((S,), dtype=dtype, device=dev))
-    leaf_ll = root_log_likelihood_sm(leaves_sm, stationary,
-                                     site_weights=site_weights)   # (N,)
+    # (N,); on a mesh the leaves' site sums over 's'
+    leaf_ll = _coll.site_sum(sh, root_log_likelihood_sm(
+        leaves_sm, _coll.enter(sh, stationary, ("s",)),
+        site_weights=site_weights))
+    # what the sharded merges read: the replicated stationary vector and
+    # the leaves and weights of this site block enter the shard
+    stat_m = _coll.enter(sh, stationary)
+    leaves_m = _coll.enter(sh, leaves_sm, ("k",))
+    w_m = _coll.enter(sh, w_vec, ("k",))
+    sw_m = None if site_weights is None else w_m
     logK = math.log(K)
 
     # ---- branch lengths + transitions for ALL ranks, one batched call
@@ -308,9 +374,8 @@ def _sample_body(generator, leaves, model, params, config, *,
         b_l_all = decisions["branches_l"].to(dtype)
         b_r_all = decisions["branches_r"].to(dtype)
         if injected is None:
-            P_all = transitions(model, params["model"],
-                                torch.cat([b_l_all, b_r_all], dim=1),
-                                blocks is not None, dtype)
+            P_all = local_transitions(model, params["model"], b_l_all,
+                                      b_r_all, blocks is not None, dtype, sh)
     elif injected is not None:
         eps_l, eps_r = injected["eps_l"], injected["eps_r"]
         b_l_all = eps_l / rates_l[:, None]
@@ -322,11 +387,11 @@ def _sample_body(generator, leaves, model, params, config, *,
         eps_r.exponential_(generator=generator)
         b_l_all, b_r_all, P_all = _presample_transitions(
             model, params["model"], rates_l, rates_r, eps_l, eps_r, dtype,
-            blocked=blocks is not None)
+            blocked=blocks is not None, shardings=sh)
 
     buf = None
     if injected is None:
-        buf = alloc_rank_buffer(K, R, A, S, dtype, dev)
+        buf = alloc_rank_buffer(Kl, R, A, S, dtype, dev)
     # the manual VJP's reverse pass reads the saved children (K2) while
     # they fit under the cap, else re-gathers them (K3)
     save_children = (want_aux and fused_rank and twist is None
@@ -427,12 +492,12 @@ def _sample_body(generator, leaves, model, params, config, *,
                 generator, twist, model, params["model"], stationary,
                 leaves_sm, buf, slot, leaf_counts, row_of_node, ils,
                 root_ll, n_active, pool_l_all[r], pool_r_all[r], w_vec,
-                llm=llm_in, choice=choice_in)
+                llm=llm_in, choice=choice_in, shardings=sh)
             P_l_r = P_r_r = None
             if injected is None:
-                P_lr = model.transition(params["model"],
-                                        torch.cat([b_l, b_r])).to(dtype)
-                P_l_r, P_r_r = P_lr[:K], P_lr[K:]
+                P_lr = local_transitions(model, params["model"], b_l, b_r,
+                                         False, dtype, sh)
+                P_l_r, P_r_r = P_lr[:Kl], P_lr[Kl:]
         else:
             if injected is not None:
                 p1, p2 = injected["pairs"][r][:, 0], injected["pairs"][r][:, 1]
@@ -451,7 +516,7 @@ def _sample_body(generator, leaves, model, params, config, *,
                 q_pen = torch.full((K,), -math.log(n_pairs), dtype=dtype,
                                    device=dev)
             if P_all is not None:
-                P_l_r, P_r_r = P_all[r, :K], P_all[r, K:]
+                P_l_r, P_r_r = P_all[r, :Kl], P_all[r, Kl:]
 
         # ---- 3. child lookups ----
         pair_pos = torch.stack([p1, p2], dim=1)                   # (K, 2)
@@ -479,32 +544,47 @@ def _sample_body(generator, leaves, model, params, config, *,
                 child_l, child_r = res[2], res[3]
         else:
             # ---- 4. explicit children + K8 merge (autograd: K11a) ----
-            msgs = gather_messages(leaves_sm, buf, nodes, rows_n, q_n,
-                                   is_leaf_n)             # (K, 2, A, S)
+            if kmesh:
+                # this rank's particles; children on other ranks come by
+                # one exchange over 'k'
+                msgs = _coll.fetch_messages(sh, leaves_m, buf, nodes,
+                                            rows_n, q_n, is_leaf_n)
+            else:
+                msgs = gather_messages(leaves_m, buf, nodes, rows_n, q_n,
+                                       is_leaf_n)         # (K, 2, A, S)
             m1, m2 = msgs[:, 0].contiguous(), msgs[:, 1].contiguous()
+            Pl_m = _coll.enter(sh, P_l_r, ("s",))
+            Pr_m = _coll.enter(sh, P_r_r, ("s",))
             if blocks is not None:
                 # plain torch, as the JAX package's blocked merge (its
                 # merge kernel is off for blocked models)
                 merged, d_lsc = merge_messages_sm(
-                    m1, m2, P_l_r, P_r_r, rescale=config.rescale,
-                    site_weights=site_weights, blocks=blocks)
+                    m1, m2, Pl_m, Pr_m, rescale=config.rescale,
+                    site_weights=sw_m, blocks=blocks)
                 rootll_raw = root_log_likelihood_sm(
-                    merged, stationary, site_weights=site_weights) + d_lsc
+                    merged, stat_m, site_weights=sw_m) + d_lsc
             elif config.rescale and A <= _kernels.MAX_A:
                 merged, rootll_raw, d_lsc = fused_merge_loglik(
-                    m1, m2, P_l_r.contiguous(), P_r_r.contiguous(),
-                    stationary, w_vec)
+                    m1, m2, Pl_m.contiguous(), Pr_m.contiguous(),
+                    stat_m, w_m)
             else:
                 # no rescaling, or a wide alphabet (K8, like JAX's merge
                 # kernel, takes A <= 8): plain torch ops
                 merged, d_lsc = merge_messages_sm(
-                    m1, m2, P_l_r, P_r_r, rescale=config.rescale,
-                    site_weights=site_weights)
+                    m1, m2, Pl_m, Pr_m, rescale=config.rescale,
+                    site_weights=sw_m)
                 rootll_raw = root_log_likelihood_sm(
-                    merged, stationary, site_weights=site_weights) + d_lsc
+                    merged, stat_m, site_weights=sw_m) + d_lsc
             buf[:, r] = merged
-            if want_aux:
+            if want_aux and not kmesh:
+                # (a 'k' mesh's reverse pass fetches them again)
                 child_l, child_r = m1, m2
+        if injected is None and sh is not None:
+            # one call a collective: the pair summed over 's', then
+            # gathered over 'k'
+            pair = _coll.gather_particles(sh, _coll.site_sum(
+                sh, torch.stack([rootll_raw, d_lsc])))
+            rootll_raw, d_lsc = pair[0], pair[1]
         node_lsc = d_lsc + lsc1 + lsc2
         ll_new = rootll_raw + lsc1 + lsc2
         logscale_cols.append(node_lsc)
@@ -607,6 +687,7 @@ def _sample_body(generator, leaves, model, params, config, *,
         buf=None if save_children else buf, leaves_sm=leaves_sm,
         blocks=bwd_blocks,
         explicit_children=not (fused_rank and twist is None),
+        shardings=sh,
     )
     if twist is not None:
         # the twist reverse pass re-gathers every candidate pair from the

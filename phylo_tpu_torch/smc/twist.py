@@ -41,12 +41,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from phylo_tpu_torch.parallel import collectives as _coll
 from phylo_tpu_torch.pruning.kernels import (
     fused_pair_loglik,
     pair_loglik,
     twist_blocks,
 )
 from phylo_tpu_torch.smc.sweep import (
+    enter_tree,
     gather_messages,
     lookup_nodes,
     node_logscales,
@@ -187,17 +189,39 @@ def pot_terms(pairs, slot, leaf_counts, row_of_node, node_lsc, root_ll, N,
     return d_prior - rll[:, :C] - rll[:, C:]
 
 
+def root_messages(shardings, leaves_sm, buf, slot, row_of_node, n_active):
+    """On a 'k' mesh: the messages (K/k, n_active, A, S) of this rank's
+    particles' active roots, by one exchange over 'k' (the candidate
+    pairs are formed from them locally)."""
+    K, N = slot.shape
+    pos = torch.arange(n_active, device=slot.device)[None].expand(K, -1)
+    return _coll.fetch_messages(shardings, leaves_sm, buf,
+                                *lookup_nodes(slot, row_of_node, pos, N))
+
+
+def candidate_pairs(roots, pc):
+    """Left and right messages (Kl * C, A, S), K-major, of the pairs pc
+    (C, 2) from the roots (Kl, n, A, S)."""
+    Kl, _, A, S = roots.shape
+    C = pc.shape[0]
+    return (roots[:, pc[:, 0]].reshape(Kl * C, A, S),
+            roots[:, pc[:, 1]].reshape(Kl * C, A, S))
+
+
 def twisted_extend(generator, twist, model, model_params, stationary,
                    leaves_sm, buf, slot, leaf_counts, row_of_node, node_lsc,
                    root_ll, n_active, pool_l, pool_r, weights, *, llm=None,
-                   choice=None):
+                   choice=None, shardings=None):
     """Twisted proposal for one rank with n_active active roots.
 
     pool_l, pool_r: this rank's prefix-ordered branch pools (P, M, K).
     llm: injected (Pv, M, K) merge log-likelihoods (the manual VJP's
     scalar replay; no message is touched then).  choice: injected
     prefix-flat choices (K,); otherwise drawn by Gumbel-max from
-    `generator`.
+    `generator`.  On a mesh (`shardings`) each rank scores its block
+    (sites on 's', particles on 'k'; the roots fetched over 'k') and the
+    log-likelihoods are summed over 's' and gathered over 'k'; the draw
+    is made over all K particles on every rank.
 
     Returns (p1, p2, b_l, b_r, q_pen, llm, choice): the chosen pair
     positions, branch lengths, the normalized log proposal probability
@@ -211,21 +235,39 @@ def twisted_extend(generator, twist, model, model_params, stationary,
     pairs = _tables(N, slot.device)[0][:Pv]
     pool_l, pool_r = pool_l[:Pv], pool_r[:Pv]
     if llm is None:
+        sh = shardings
+        kmesh = sh is not None and sh.has_k
+        ks = sh.particles(K) if kmesh else slice(None)
+        # the replicated inputs enter this rank's block
+        leaves_m = _coll.enter(sh, leaves_sm, ("k",))
+        mp = enter_tree(sh, model_params, ("k", "s"))
+        stat = _coll.enter(sh, stationary)
+        w = _coll.enter(sh, weights, ("k",))
+        pl_m = _coll.enter(sh, pool_l)[..., ks]
+        pr_m = _coll.enter(sh, pool_r)[..., ks]
+        if kmesh:
+            roots = root_messages(sh, leaves_m, buf, slot, row_of_node,
+                                  n_active)
         C = twist.pair_chunk or Pv
         parts = []
         for c0 in range(0, Pv, C):
             pc = pairs[c0:c0 + C]
             Cc = pc.shape[0]
-            looked_up = lookup_nodes(slot, row_of_node,
-                                     pair_positions(pc, K), N)
-            msgs = gather_messages(leaves_sm, buf, *looked_up)
-            A, S = msgs.shape[-2:]
+            if kmesh:
+                m_l, m_r = candidate_pairs(roots, pc)
+            else:
+                looked_up = lookup_nodes(slot, row_of_node,
+                                         pair_positions(pc, K), N)
+                msgs = gather_messages(leaves_m, buf, *looked_up)
+                A, S = msgs.shape[-2:]
+                m_l = msgs[:, :Cc].reshape(K * Cc, A, S)
+                m_r = msgs[:, Cc:].reshape(K * Cc, A, S)
             parts.append(chunk_loglik(
-                twist, model, model_params, stationary, weights,
-                msgs[:, :Cc].reshape(K * Cc, A, S),
-                msgs[:, Cc:].reshape(K * Cc, A, S),
-                pool_l[c0:c0 + Cc], pool_r[c0:c0 + Cc]))
-        llm = torch.cat(parts)                               # (Pv, M, K)
+                twist, model, mp, stat, w, m_l, m_r,
+                pl_m[c0:c0 + Cc], pr_m[c0:c0 + Cc]))
+        # (Pv, M, K): one call a collective
+        llm = _coll.gather_particles(sh, _coll.site_sum(
+            sh, torch.cat(parts)))
     terms = pot_terms(pairs, slot, leaf_counts, row_of_node, node_lsc,
                       root_ll, N, dtype)                     # (K, Pv)
     pots = llm + terms.T[:, None, :]

@@ -13,6 +13,14 @@ Checkpoints (train/checkpoint.py) hold the parameters, the optimizer's
 state and the history; with those streams, a run resumed from the
 epoch-e checkpoint replays epochs e.. bit for bit on the CPU.
 
+On a mesh (TrainConfig.mesh_shape; one process per device, see
+parallel/) every rank draws the same site batches and random streams,
+pads a batch to the 's' size with weight-0 all-ones columns and sweeps
+its block; the sweep sums the gradients over the mesh, so every rank's
+optimizer steps on the same gradients and the parameters stay
+bit-identical across ranks (checked every epoch).  Rank 0 alone writes
+results, trees and checkpoints; a resume restores on every rank.
+
 Runs on ``cuda`` unless TrainConfig.device says "cpu".
 """
 
@@ -48,9 +56,8 @@ INITIAL_EVAL_STEP = 2 ** 31 - 1
 @dataclass
 class TrainConfig:
     """Training configuration; field names mirror the JAX package's
-    TrainConfig (reference runner.py:12-58).  Options of later slices
-    (mesh) are not fields yet: the runner rejects their flags.  A gy94
-    model takes the dataset's F61 codon frequencies."""
+    TrainConfig (reference runner.py:12-58).  A gy94 model takes the
+    dataset's F61 codon frequencies."""
 
     n_particles: int = 128
     batch_size: int = 256            # sites per SGD step
@@ -103,6 +110,9 @@ class TrainConfig:
     # the run reached E by training (start_epoch < E), so a resumed run
     # passes the fault point
     fault_injection: Optional[str] = None
+    # sharding: a mesh shape over the process group (a 1-element shape
+    # is a site mesh ('s',), two elements ('k', 's')), None = one device
+    mesh_shape: Optional[tuple] = None
     log_every: int = 1
     log_params: bool = False
     device: Optional[str] = None     # None = cuda
@@ -146,6 +156,9 @@ def _sweep_config(config):
         ess_threshold=config.ess_threshold,
         carried_weights=config.carried_weights,
         twist=twist,
+        # the trainer differentiates params only: the twist's reverse
+        # pass skips the data cotangents
+        data_grads=False,
     )
 
 
@@ -236,22 +249,43 @@ def _rate_mixture(model, config):
 
 
 def sgd_step(model, params, optimizer, sweep_cfg, generator, batch, *,
-             decisions=None):
+             decisions=None, shardings=None):
     """One ascent step on the ELBO of `batch` (N, B, A); returns the
-    loss (-ELBO) as a 0-d tensor (not synchronised)."""
+    loss (-ELBO) as a 0-d tensor (not synchronised).  On a mesh `batch`
+    is the whole batch and each rank sweeps its block of it."""
     optimizer.zero_grad(set_to_none=True)
+    batch, weights = shard_batch(batch, shardings)
     loss = -sample_phylogenies(generator, batch, model, params, sweep_cfg,
-                               decisions=decisions).elbo
+                               decisions=decisions, site_weights=weights,
+                               shardings=shardings).elbo
     loss.backward()
     optimizer.step()
     return loss.detach()
 
 
-def evaluate(model, params, sweep_cfg, generator, leaves):
+def shard_batch(batch, shardings):
+    """(this rank's block of the (N, B, A) batch, its site weights): the
+    batch padded to a multiple of the 's' size with weight-0 all-ones
+    columns (weights None where nothing was padded)."""
+    if shardings is None:
+        return batch, None
+    N, B, A = batch.shape
+    pad = (-B) % shardings.site_multiple()
+    weights = None
+    if pad:
+        batch = torch.cat([batch, batch.new_ones((N, pad, A))], dim=1)
+        weights = torch.cat([batch.new_ones((B,)), batch.new_zeros((pad,))])
+        weights = weights[shardings.sites(B + pad)]
+    return batch[:, shardings.sites(B + pad)].contiguous(), weights
+
+
+def evaluate(model, params, sweep_cfg, generator, leaves, *,
+             site_weights=None, shardings=None):
     """Full-data sweep without gradients (the per-epoch eval)."""
     with torch.no_grad():
         return sample_phylogenies(generator, leaves, model, params,
-                                  sweep_cfg)
+                                  sweep_cfg, site_weights=site_weights,
+                                  shardings=shardings)
 
 
 def train(dataset, config: TrainConfig):
@@ -266,6 +300,23 @@ def train(dataset, config: TrainConfig):
         genome = model.expand_leaves(genome)     # rate mixture: A -> G*A
     leaves = torch.tensor(genome, dtype=dtype, device=dev)
     S = dataset.S
+    # on a mesh: the eval's leaves padded to the 's' size (weight-0
+    # columns) and this rank's block of them; rank 0 writes
+    shardings, eval_leaves, eval_weights, writer = None, leaves, None, True
+    if config.mesh_shape:
+        from phylo_tpu_torch.parallel import (
+            make_mesh, pad_sites, shard_leaves, sweep_sharding,
+        )
+
+        shardings = sweep_sharding(make_mesh(tuple(config.mesh_shape),
+                                             device=dev))
+        writer = shardings.mesh.rank == 0
+        padded, w = pad_sites(genome, shardings.site_multiple())
+        eval_leaves = torch.tensor(shard_leaves(padded, shardings),
+                                   dtype=dtype, device=dev)
+        if padded.shape[1] != genome.shape[1]:
+            eval_weights = torch.tensor(w[shardings.sites(len(w))],
+                                        dtype=dtype, device=dev)
 
     start_epoch, restored_history = 0, None
     resume_from = config.resume_from
@@ -281,12 +332,14 @@ def train(dataset, config: TrainConfig):
     if config.log_every:
         res0 = evaluate(model, params, sweep_cfg,
                         step_generator(config.seed, INITIAL_EVAL_STEP, 0,
-                                       dev), leaves)
+                                       dev), eval_leaves,
+                        site_weights=eval_weights, shardings=shardings)
         initial_elbo = float(res0.elbo)
-        print(f"Initial evaluation of ELBO: {initial_elbo:.3f}")
+        if writer:
+            print(f"Initial evaluation of ELBO: {initial_elbo:.3f}")
 
     save_dir = None
-    if config.save_artifacts:
+    if config.save_artifacts and writer:
         from phylo_tpu_torch.train.results import (
             make_save_dir, write_run_params,
         )
@@ -310,6 +363,8 @@ def train(dataset, config: TrainConfig):
                 history[k] = list(v)
     ckpt_dir = config.checkpoint_dir or (
         os.path.join(save_dir, "ckpt") if save_dir else None)
+    if not writer:
+        ckpt_dir = None
     fixed_batches = None
     if config.fixed_partition:
         fixed_batches = list(site_batches(
@@ -327,11 +382,19 @@ def train(dataset, config: TrainConfig):
             idx = torch.as_tensor(np.asarray(site_idx), device=dev)
             sgd_step(model, params, optimizer, sweep_cfg,
                      step_generator(config.seed, epoch, 1 + i, dev),
-                     leaves.index_select(1, idx))
+                     leaves.index_select(1, idx), shardings=shardings)
         res = evaluate(model, params, sweep_cfg,
-                       step_generator(config.seed, epoch, 0, dev), leaves)
+                       step_generator(config.seed, epoch, 0, dev),
+                       eval_leaves, site_weights=eval_weights,
+                       shardings=shardings)
         elbo = float(res.elbo)
         dt = time.time() - t0
+        if shardings is not None:
+            from phylo_tpu_torch.parallel.collectives import (
+                check_replicated,
+            )
+
+            check_replicated(shardings, param_tensors(params))
 
         with torch.no_grad():
             history["elbo"].append(elbo)
@@ -360,7 +423,7 @@ def train(dataset, config: TrainConfig):
                 dataset.taxa, history["ancestors"][-1],
                 history["merged_nodes"][-1]))
 
-        if config.log_every and (epoch % config.log_every == 0):
+        if config.log_every and writer and (epoch % config.log_every == 0):
             llr_max = float(np.max(history["log_lik_R"][-1]))
             print(f"epoch {epoch + 1}/{config.num_epoch}  ELBO {elbo:.3f}  "
                   f"log_lik_R max {llr_max:.3f}  {dt:.2f}s")

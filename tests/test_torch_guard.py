@@ -55,6 +55,9 @@ def test_import_leaves_jax_unloaded():
         "import phylo_tpu_torch.cli.score_tree, phylo_tpu_torch.cli.csmc\n"
         "import phylo_tpu_torch.cli.model_select\n"
         "import phylo_tpu_torch.cli.bootstrap\n"
+        "import phylo_tpu_torch.parallel, phylo_tpu_torch.oracle\n"
+        "import phylo_tpu_torch.oracle.reference_vncsmc\n"
+        "import phylo_tpu_torch.parallel.collectives\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'phylo_tpu')]\n"
         "assert not bad, bad\n")
@@ -128,6 +131,23 @@ def test_tree_tools_default_to_cuda():
         CSMC({"taxa": ds.taxa, "genome": ds.genome})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         select_model(ds.genome, candidates=["jc69"], steps=1)
+
+
+def test_mesh_entry_points_default_to_cuda():
+    """initialize_distributed and a mesh's world of one run on the card
+    (NCCL) unless the caller names the CPU, and raise before any process
+    group when no GPU is visible."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is usable")
+    import torch.distributed as dist
+
+    from phylo_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_distributed("localhost:1", num_processes=1, process_id=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh((1,))
+    assert not dist.is_initialized()
 
 
 def test_float64_on_cuda_is_rejected():

@@ -87,13 +87,25 @@ def test_manual_vjp_matches_plain_autograd(kw):
 
 
 def test_manual_vjp_rejects_data_gradients():
-    genome = torch.tensor(random_genome(41)).requires_grad_(True)
+    """Leaves that require grad get their cotangent from the manual VJP
+    (once refused): equal to plain autograd's with the same draws, and
+    the parameter gradient with it (tests/test_torch_data_grads.py holds
+    them to jax.grad)."""
     model = ReferenceQ(4)
-    params = {"model": model.init_params(torch.float64),
-              "branches": {"log_rates_l": torch.full(
-                  (5,), 2.3, dtype=torch.float64, requires_grad=True),
-                  "log_rates_r": torch.full((5,), 2.3,
-                                            dtype=torch.float64)}}
-    with pytest.raises(NotImplementedError, match="params only"):
-        sample_phylogenies(torch.Generator().manual_seed(0), genome, model,
-                           params, SweepConfig(K=4))
+    out = []
+    for manual in (True, False):
+        genome = torch.tensor(random_genome(41)).requires_grad_(True)
+        params = {"model": model.init_params(torch.float64),
+                  "branches": {"log_rates_l": torch.full(
+                      (5,), 2.3, dtype=torch.float64, requires_grad=True),
+                      "log_rates_r": torch.full((5,), 2.3,
+                                                dtype=torch.float64)}}
+        res = sample_phylogenies(torch.Generator().manual_seed(0), genome,
+                                 model, params,
+                                 SweepConfig(K=4, manual_vjp=manual))
+        res.elbo.backward()
+        out.append((genome.grad.numpy(),
+                    params["branches"]["log_rates_l"].grad.numpy()))
+    for a, b in zip(*out):
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12)
+        assert np.any(a != 0.0)

@@ -94,16 +94,17 @@ def test_train_is_reproducible_on_cpu():
     ("--model=gtr+f", ValueError, "requires a PAML .dat or gy94"),
     ("--paml_dat=lg.dat", FileNotFoundError, "PAML .dat file not found"),
     ("--model=lg.dat", FileNotFoundError, "PAML .dat file not found"),
-    ("--mesh=4", NotImplementedError, "ROADMAP.md"),
-    ("--num_processes=2", NotImplementedError, "ROADMAP.md"),
+    ("--mesh=4", ValueError, "needs 4 devices"),
+    ("--num_processes=2", ValueError, "coordinator"),
     ("--dtype=bfloat16", NotImplementedError, "ROADMAP.md"),
     ("--model=lg.dat+f", FileNotFoundError, "PAML .dat file not found"),
 ])
 def test_flags_outside_the_slice_raise(flag, err, match):
-    """Flags of later slices raise NotImplementedError naming the
-    ROADMAP; the PAML flags and specs of the protein slice raise JAX's
-    errors on a missing .dat file and on '+f' over a base without
-    frequencies to learn."""
+    """--dtype=bfloat16 raises NotImplementedError naming the ROADMAP; a
+    mesh larger than the process group and a process count without a
+    coordinator raise ValueError; the PAML flags and specs of the
+    protein slice raise JAX's errors on a missing .dat file and on '+f'
+    over a base without frequencies to learn."""
     with pytest.raises(err, match=match):
         runner.main(["--dataset=load_strings", "--n_particles=4",
                      "--num_epoch=1", "--no_artifacts", "--device=cpu",

@@ -14,13 +14,14 @@ import pytest
 import torch
 
 from phylo_tpu.dataio import dataset_from_strings
-from phylo_tpu.oracle.reference_vncsmc import OracleVNCSMC
+from phylo_tpu.oracle.reference_vncsmc import OracleVNCSMC as JOracleVNCSMC
 from phylo_tpu.smc.sweep import SweepConfig as JConfig
 from phylo_tpu.smc.sweep import sample_phylogenies as j_sample
 from phylo_tpu.smc.twist import TwistConfig as JTwist
 from phylo_tpu.smc.twist import _prefix_order as j_prefix_order
 from phylo_tpu_torch.cli import runner
 from phylo_tpu_torch.models.substitution import ReferenceQ
+from phylo_tpu_torch.oracle.reference_vncsmc import OracleVNCSMC
 from phylo_tpu_torch.params import params_from_numpy, params_to_numpy
 from phylo_tpu_torch.smc import twist as tw
 from phylo_tpu_torch.smc.sweep import SweepConfig, sample_phylogenies
@@ -129,6 +130,24 @@ def test_twist_sweep_matches_oracle(case):
     for f in ("log_weights", "log_likelihood", "elbo"):
         np.testing.assert_allclose(np.asarray(getattr(got, f)), want[f],
                                    rtol=1e-8, err_msg=f)
+
+
+def test_oracle_copy_matches_jax_package_copy(case):
+    """The port's NumPy oracles (phylo_tpu_torch.oracle) are copies of the
+    JAX package's: the same outputs, bit for bit, on a fixed-decision
+    run (VNCSMC, and its VCSMC base class through it)."""
+    jmodel, tree = case["jmodel"], case["tree"]
+    jparams = jax.tree.map(jnp.asarray, tree["model"])
+    args = (case["genome"], np.asarray(jmodel.Q(jparams)),
+            np.asarray(jmodel.stationary(jparams)),
+            np.exp(tree["branches"]["log_rates_l"]),
+            np.exp(tree["branches"]["log_rates_r"]), case["K"])
+    got = OracleVNCSMC(*args, M=case["M"]).run(case["dec"])
+    want = JOracleVNCSMC(*args, M=case["M"]).run(case["dec"])
+    assert set(got) == set(want)
+    for f in want:
+        np.testing.assert_array_equal(np.asarray(got[f]),
+                                      np.asarray(want[f]), err_msg=f)
 
 
 @pytest.mark.parametrize("manual_vjp", [True, False])

@@ -327,7 +327,8 @@ def test_card_refusals():
     tensor; the rank kernels take protein+G8 (160 planes) and GY94+G4
     (244) with or without the twist (K9 blocked in block groups), and the
     twist takes them too (its kernels' limit is per block); 33 blocks, or
-    a block of more than 128 states, raise."""
+    a block of more than 128 states, raise.  rescale=False is taken, on
+    the plain merge."""
 
     class Dense:
         blocks = None
@@ -347,8 +348,28 @@ def test_card_refusals():
     for G, A in ((33, 20), (4, 129)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             card_refusals(SweepConfig(K=4), Mixture(G, A), G * A)
-    with pytest.raises(NotImplementedError, match="rescale"):
-        card_refusals(SweepConfig(K=4, rescale=False), Dense(), 4)
+    # rescale=False (once refused) takes the plain merge, K1 and K8 off
+    card_refusals(SweepConfig(K=4, rescale=False), Dense(), 4)
+    import phylo_tpu_torch.smc.sweep as ts
+
+    def no_kernel(*args, **kw):
+        raise AssertionError("rescale=False reached a rescaling kernel")
+
+    saved = ts.fused_rank_update, ts.fused_merge_loglik
+    ts.fused_rank_update = ts.fused_merge_loglik = no_kernel
+    try:
+        model = get_model("jc69", A=4)
+        with torch.no_grad():
+            res = ts.sample_phylogenies(
+                torch.Generator().manual_seed(0),
+                torch.tensor(np.eye(4)[np.arange(24).reshape(4, 6) % 4]),
+                model, {"model": model.init_params(torch.float64),
+                        "branches": {"log_rates_l": torch.full((3,), 2.3),
+                                     "log_rates_r": torch.full((3,), 2.3)}},
+                SweepConfig(K=4, rescale=False))
+    finally:
+        ts.fused_rank_update, ts.fused_merge_loglik = saved
+    assert torch.isfinite(res.elbo)
 
 
 def test_twist_blocks_rule_wide():
