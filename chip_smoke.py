@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (phylo_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--ptxas] [--phase8]
+    python3 chip_smoke.py [--ptxas] [--phase8] [--phase9]
 
 Phases, each printing a line of its own; any failure raises and the
 script exits non-zero without printing a result:
@@ -104,15 +104,21 @@ script exits non-zero without printing a result:
    alignment and GY94+G4 on betacorona1's codons at K=128 (exact launch
    counts each), site
    batch 256, through phylo_tpu_torch.cli.runner, with every kernel's
-   launch counter set to 0 before each path and read after;
-5. where the time of one epoch of each path goes, under torch.profiler
+   launch counter set to 0 before each path and read after, under the
+   default fused epoch (the captured paths' SGD steps and eval sweeps as
+   CUDA graph replays: steps and steps + 1 of them in epochs 1 and 2;
+   the launch counts through the graphs' bookkeeping);
+5. where the time of the second epoch of each path goes (under the
+   default fused epoch), under torch.profiler: device time, busy share,
+   host dispatches and graph launches
    (K4f's, K4b's, K9f's and K5's device time and launches on every path,
    the rank forward's (K1, K10), and the rank backwards' (K2, K3, K3
    blocked / K10's backward and K11a at 4 states: one body; the wide
    body of K9bs, K9b and K11a), K7's,
    K11c's and K8's;
-   for VNCSMC GTR+G4 on DS1 (one SGD step: its epoch's half a million
-   launches took the profiler minutes to summarise), K11b's, K7 wide's
+   for VNCSMC GTR+G4 on DS1 (one SGD step, a graph replay: its loop
+   epoch's half a million launches took the profiler's summary minutes),
+   K11b's, K7 wide's
    and K4's device time beside an epoch's earlier, and for VNCSMC
    protein+G4 and protein+G8 K11b's and K7 wide's; the block-group
    bodies' device time on every path);
@@ -171,6 +177,21 @@ script exits non-zero without printing a result:
    collective calls and bytes a sweep and its wall seconds; a rank that
    fails fails the script.  `--phase8` runs phase 1, those phase-3
    checks and phase 8 alone, without a result line.
+9. the fused epoch (TrainConfig.fused_epoch): primate VCSMC K=2048,
+   primate VNCSMC K=32 M=10, DS1 GTR+G4 K=2048 and VNCSMC protein+G4
+   K=32 M=10, each 2 epochs twice with fused_epoch=False (the loop) and
+   twice with True: the same launch counts, graph replays of the steps
+   and steps + 1 in epochs 1 and 2, the ELBOs and final parameters the
+   loop's to the bit on primate VCSMC and wherever the loop repeats
+   itself (else within the loops' spread and 1e-6 relative); printed
+   both ways: seconds an epoch, capture seconds, peak memory, and the
+   second epoch's profile (host dispatches, graph launches, busy
+   share); DS1 VNCSMC twice under the default (printed: do the bits
+   repeat?); sample_phylogenies_with_buffer's two sweeps into one leaf
+   buffer against the plain sweep, to the bit (K1 on primate K=2048,
+   K9f blocked on protein+G4, K9f on GY94); then GY94 K=128 under the
+   default, which the plan leaves uncaptured (its reason printed).
+   `--phase9` runs phase 1 and phase 9 alone, without a result line.
 
 The kernels line's launches are phase 4's, phase 7's and phase 8's
 (every rank's).  The last lines are the kernel table as JSON, the card's
@@ -2325,103 +2346,124 @@ def main_path(ext, name):
     earlier = f" ({path['earlier']})" if "earlier" in path else ""
     log(f"phase 4 {name} ELBO {elbo:.3f}; seconds per epoch after warm-up "
         f"{secs[-1]:.4f} (epoch 1 incl. warm-up {secs[0]:.4f}){earlier}")
+    g = res.graphs
+    if g["captured"]:
+        steps = load(path["dataset"], path.get("codons", False)).S // S_BATCH
+        require(g["replays"] == [steps, steps + 1],
+                f"phase 4 {name}: graph replays {g['replays']} an epoch, "
+                f"not [{steps}, {steps + 1}]")
+    log(f"phase 4 {name} fused epoch: {g['reason']}; graph replays an "
+        f"epoch {g['replays']}, capture {g['capture_seconds']:.3f} s")
     return launches
 
 
 # ---------------------------------------------------------------- phase 5
 def profile_epoch(name):
-    """train() for one epoch of a main path's configuration under
-    torch.profiler, after phase 4 warmed everything up.  The profiled run
-    holds train()'s set-up, its initial eval sweep and one epoch (the
-    SGD steps + the eval sweep).  Prints its host wall time, the summed
-    device time and count of all kernel launches, the device's busy
-    share, and the kernels with the most device time.  Only the device
-    is traced: the profiler's summary of host operator events took
-    minutes at VNCSMC DS1's half a million launches an epoch.  A path
-    with `profile_step` profiles one SGD step on the first 256 sites
-    instead of the epoch (even the device events' summary took 136 s at
-    DS1 VNCSMC's epoch)."""
+    """A main path under torch.profiler (device activity, with the
+    runtime calls that hand the card work), after phase 4 warmed
+    everything up: the second epoch of train(num_epoch=2) under the
+    default fused_epoch, from its first step to train()'s end (the eval
+    sweep and the history included).  Prints its host wall time, the
+    summed device time and count of device events, the device's busy
+    share, the host dispatches and the graph launches among them, and
+    the kernels with the most device time.  The trace is read from its
+    raw records (`trace_stats`).  A path with `profile_step` profiles
+    one SGD step on the first 256 sites instead: the step graph's second
+    replay where the plan captures the path, else an eager step."""
     from torch.profiler import ProfilerActivity, profile
 
-    from phylo_tpu_torch.train import TrainConfig, train
+    from phylo_tpu_torch import _ext
+    from phylo_tpu_torch.pruning import kernels
+    from phylo_tpu_torch.train import TrainConfig
     from phylo_tpu_torch.train.trainer import (
-        _optimizer, _sweep_config, init_params, param_tensors, sgd_step,
-        step_generator,
+        _FusedEpoch, _optimizer, _sweep_config, capture_plan, init_params,
+        param_tensors, sgd_step, step_generator, step_seed,
     )
 
-    from phylo_tpu_torch.pruning import kernels
-
     path = PATHS[name]
-    ds = load(path["dataset"], path.get("codons", False))
-    cfg = TrainConfig(batch_size=S_BATCH, num_epoch=1, save_artifacts=False,
-                      log_every=0, device="cuda", **path["train"])
-    run = lambda: train(ds, cfg)  # noqa: E731
-    what = "train(num_epoch=1)"
     if path.get("profile_step"):
+        ds = load(path["dataset"], path.get("codons", False))
+        cfg = TrainConfig(batch_size=S_BATCH, save_artifacts=False,
+                          device="cuda", **path["train"])
         model, params = init_params(ds, cfg)
         genome = (model.expand_leaves(ds.genome)
                   if hasattr(model, "expand_leaves") else ds.genome)
-        batch = torch.tensor(genome[:, :S_BATCH], dtype=torch.float32,
-                             device="cuda")
+        leaves = torch.tensor(genome, dtype=torch.float32, device="cuda")
         opt = _optimizer(cfg, param_tensors(params))
-        run = lambda: sgd_step(  # noqa: E731
-            model, params, opt, _sweep_config(cfg),
-            step_generator(cfg.seed, 0, 1, "cuda"), batch)
-        what = "one SGD step"
-    kernels.TWIST_BWD_V2 = path.get("bwd_v2", False)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
+        sweep_cfg = _sweep_config(cfg)
+        kernels.TWIST_BWD_V2 = path.get("bwd_v2", False)
+        captured = capture_plan(cfg, model)[0]
+        if captured:
+            fe = _FusedEpoch(model, params, opt, sweep_cfg, leaves, S_BATCH,
+                             torch.device("cuda"))
+            idx = torch.arange(S_BATCH, device="cuda")
+            for i in (1, 2):            # eager + captured; replayed
+                fe.step(step_seed(cfg.seed, 0, i), idx)
+            run = lambda: fe.step(step_seed(cfg.seed, 0, 3), idx)  # noqa
+            what = "one SGD step, a graph replay"
+        else:
+            batch = leaves[:, :S_BATCH].contiguous()
+            run = lambda: sgd_step(  # noqa: E731
+                model, params, opt, sweep_cfg,
+                step_generator(cfg.seed, 0, 1, "cuda"), batch)
+            what = "one SGD step"
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
         t1 = time.perf_counter()
-    kernels.TWIST_BWD_V2 = False
-    rows = []
+        t = trace_stats(prof)
+        kernels.TWIST_BWD_V2 = False
+        if captured:
+            fe.release()
+    else:
+        r = fused_run(_ext, name, True, profiled=True)
+        captured = r["res"].graphs["captured"]
+        wall_ms = r["profile"]["wall_ms"]
+        t1 = time.perf_counter()
+        t = r["profile"]["trace"]
+        what = "the second epoch of train(num_epoch=2)"
     named = {k: [0.0, 0] for k in ("K11b", "K7 wide", "K7", "K11c", "K8",
                                    "K4f", "K4b", "rank fwd (K1, K10)",
                                    "rank bwd (K2, K3, K10 bwd, K11a A<=8)",
                                    "K9b / K9bs / K11a", "K9f",
                                    "K9b / K9bs groups", "K9f groups",
                                    "K5")}
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0.0)
-            rows.append((e.key[:70], float(us) / 1e3, int(e.count)))
-            for kname, fn in (("K11b", "pair_ll_fwd_kernel"),
-                              ("K7 wide", "pair_ll_bwd_wide_"),
-                              ("K7", "pair_ll_bwd_narrow_kernel"),
-                              ("K11c", "pair_ll_bwd_t_"),
-                              ("K8", "merge_loglik_kernel"),
-                              ("K4f", "expm_fwd_kernel"),
-                              ("K4b", "expm_bwd_kernel"),
-                              ("rank fwd (K1, K10)", RANK_FWD_KERNEL),
-                              ("rank bwd (K2, K3, K10 bwd, K11a A<=8)",
-                               RANK_BWD_KERNEL),
-                              ("K9b / K9bs / K11a", "wide_rank_bwd_kernel"),
-                              ("K9f", "wide_rank_fwd_kernel"),
-                              ("K9b / K9bs groups",
-                               "wide_rank_bwd_group_kernel"),
-                              ("K9f groups", "wide_rank_fwd_group_kernel"),
-                              ("K5", "categorical_kernel")):
-                if fn in e.key:
-                    named[kname][0] += float(us) / 1e3
-                    named[kname][1] += int(e.count)
-    rows.sort(key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in rows)
-    if not rows:
+    if t is None:
         log(f"phase 5 {name} profile: wall {wall_ms:.1f} ms; the profiler "
             "recorded no device time (device numbers not measured)")
         return
+    for key, ms, n in t["top"]:
+        for kname, fn in (("K11b", "pair_ll_fwd_kernel"),
+                          ("K7 wide", "pair_ll_bwd_wide_"),
+                          ("K7", "pair_ll_bwd_narrow_kernel"),
+                          ("K11c", "pair_ll_bwd_t_"),
+                          ("K8", "merge_loglik_kernel"),
+                          ("K4f", "expm_fwd_kernel"),
+                          ("K4b", "expm_bwd_kernel"),
+                          ("rank fwd (K1, K10)", RANK_FWD_KERNEL),
+                          ("rank bwd (K2, K3, K10 bwd, K11a A<=8)",
+                           RANK_BWD_KERNEL),
+                          ("K9b / K9bs / K11a", "wide_rank_bwd_kernel"),
+                          ("K9f", "wide_rank_fwd_kernel"),
+                          ("K9b / K9bs groups",
+                           "wide_rank_bwd_group_kernel"),
+                          ("K9f groups", "wide_rank_fwd_group_kernel"),
+                          ("K5", "categorical_kernel")):
+            if fn in key:
+                named[kname][0] += ms
+                named[kname][1] += n
     log(f"phase 5 {name} profile of {what}: " + json.dumps({
-        "wall_ms": wall_ms, "device_kernel_ms": device_ms,
-        "device_busy_share": device_ms / wall_ms,
-        "kernel_launches": sum(r[2] for r in rows),
+        "wall_ms": wall_ms, "device_kernel_ms": t["device_ms"],
+        "device_busy_share": t["device_ms"] / wall_ms,
+        "kernel_launches": t["kernels"],
+        "host_dispatches": t["dispatches"],
+        "graph_launches": t["graph_launches"], "captured": captured,
         "summary_s": time.perf_counter() - t1,
-        "top_kernels": [{"name": k, "device_ms": ms, "launches": n}
-                        for k, ms, n in rows[:10]]}))
+        "top_kernels": [{"name": k[:70], "device_ms": ms, "launches": n}
+                        for k, ms, n in t["top"][:10]]}))
     log(f"phase 5 {name} K4 kernels: " + ", ".join(
         f"{k} {named[k][0]:.2f} ms over {named[k][1]} launches"
         for k in ("K4f", "K4b"))
@@ -3313,6 +3355,271 @@ def mesh_phase(ext, dev, card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+# the fused epoch, fused_epoch=False against True; GY94's spectral path
+# runs uncaptured
+PHASE9 = ("vcsmc", "vncsmc", "gtr_g4_ds1", "vncsmc_protein_g4")
+PHASE9_SPECTRAL = "gy94_codon"
+# runtime calls that hand the card work, as the trace names them
+DISPATCH_PREFIXES = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                     "cuGraphLaunch", "cudaMemcpy", "cuMemcpy",
+                     "cudaMemset", "cuMemset")
+
+
+@contextlib.contextmanager
+def second_epoch_profile(out):
+    """Profiles (device activity only) the second epoch of the train()
+    run inside the block: from its second site_batches call (the epoch's
+    start) to the end of train().  Fills out["wall_ms"] (host clock,
+    ending in torch.cuda.synchronize()) and out["trace"]
+    (`trace_stats`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from phylo_tpu_torch.train import trainer
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    orig = trainer.site_batches
+    calls = []
+
+    def hooked(*a, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            torch.cuda.synchronize()
+            prof.start()
+            out["t0"] = time.perf_counter()
+        return orig(*a, **kw)
+
+    trainer.site_batches = hooked
+    try:
+        yield
+    finally:
+        trainer.site_batches = orig
+        torch.cuda.synchronize()
+        if "t0" in out:
+            out["wall_ms"] = (time.perf_counter() - out["t0"]) * 1e3
+            prof.stop()
+    out["trace"] = trace_stats(prof)
+
+
+def trace_stats(prof):
+    """The device events and runtime calls of a finished profile, read
+    from its raw records (the profiler's own summary took minutes at half
+    a million launches): {"device_ms", "kernels" (device events),
+    "dispatches" (runtime calls that hand the card work: kernel and graph
+    launches, copies, memsets), "graph_launches", "top" [(name, ms, n)]},
+    or None when the trace holds no device event."""
+    per = {}
+    dispatches = graphs = 0
+    results = getattr(prof.profiler, "kineto_results", None)
+    for e in (results.events() if results is not None else ()):
+        name = e.name()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            row = per.setdefault(name, [0.0, 0])
+            row[0] += e.duration_ns() / 1e6
+            row[1] += 1
+        elif name.startswith(DISPATCH_PREFIXES):
+            dispatches += 1
+            graphs += "GraphLaunch" in name
+    if not per:
+        return None
+    top = sorted(((k, ms, n) for k, (ms, n) in per.items()),
+                 key=lambda r: -r[1])
+    return {"device_ms": sum(r[1] for r in top),
+            "kernels": sum(r[2] for r in top),
+            "dispatches": dispatches or None, "graph_launches": graphs,
+            "top": top}
+
+
+def fused_run(ext, name, fused, profiled=False, num_epoch=2):
+    """train() on a main path's configuration with fused_epoch as given:
+    {"res", "launches" (the run's, counters zeroed before), "peak"
+    (torch.cuda.max_memory_allocated over the run), "epoch_s" (the
+    second epoch's seconds), "profile" (the second epoch's, when
+    profiled)}."""
+    from phylo_tpu_torch.pruning import kernels
+    from phylo_tpu_torch.train import TrainConfig, train
+
+    path = PATHS[name]
+    ds = load(path["dataset"], path.get("codons", False))
+    cfg = TrainConfig(batch_size=S_BATCH, num_epoch=num_epoch,
+                      save_artifacts=False, device="cuda",
+                      fused_epoch=fused, **path["train"])
+    kernels.TWIST_BWD_V2 = path.get("bwd_v2", False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ext.reset_launches()
+    prof = {}
+    with (second_epoch_profile(prof) if profiled
+          else contextlib.nullcontext()):
+        res = train(ds, cfg)
+    torch.cuda.synchronize()
+    kernels.TWIST_BWD_V2 = False
+    return {"res": res, "launches": dict(ext.LAUNCHES),
+            "peak": torch.cuda.max_memory_allocated(),
+            "epoch_s": res.history["epoch_seconds"][-1], "profile": prof,
+            "steps": ds.S // S_BATCH}
+
+
+def _elbo_spread(runs):
+    """The largest ELBO difference, any epoch, between two runs."""
+    return max(abs(x - y) for a in runs for b in runs
+               for x, y in zip(a["res"].history["elbo"],
+                               b["res"].history["elbo"]))
+
+
+def leaf_buffer_check(ext):
+    """smc.sweep.sample_phylogenies_with_buffer on the card: at the
+    runner's initial parameters, two seeded sweeps into one
+    make_leaf_buffer against sample_phylogenies from the same seed (the
+    same bits; the leaf columns untouched).  The rank forward writes
+    into the buffer's internal columns at its particle stride: K1 on
+    primate K=2048 (all 898 sites), K9f blocked on protein+G4 K=256 and
+    K9f on GY94 K=128."""
+    from phylo_tpu_torch.smc.sweep import (
+        make_leaf_buffer, sample_phylogenies, sample_phylogenies_with_buffer,
+    )
+    from phylo_tpu_torch.train import TrainConfig
+    from phylo_tpu_torch.train.trainer import _sweep_config, init_params
+
+    for name, kname in (("vcsmc", "fused_rank_update"),
+                        ("protein_g4", "fused_rank_update_wide_blocked"),
+                        ("gy94_codon", "fused_rank_update_wide")):
+        path = PATHS[name]
+        ds = load(path["dataset"], path.get("codons", False))
+        cfg = TrainConfig(device="cuda", **path["train"])
+        model, params = init_params(ds, cfg)
+        genome = (model.expand_leaves(ds.genome)
+                  if hasattr(model, "expand_leaves") else ds.genome)
+        leaves = torch.tensor(genome, dtype=torch.float32, device="cuda")
+        sweep_cfg = _sweep_config(cfg)
+        gen = lambda: torch.Generator(device="cuda").manual_seed(5)  # noqa
+        plain = sample_phylogenies(gen(), leaves, model, params, sweep_cfg)
+        buf = make_leaf_buffer(leaves, sweep_cfg, model=model)
+        cols = buf[:, :ds.N].clone()
+        ext.reset_launches()
+        for _ in range(2):
+            res, buf = sample_phylogenies_with_buffer(
+                gen(), leaves, model, params, sweep_cfg, buf)
+            require(torch.equal(res.elbo, plain.elbo) and torch.equal(
+                res.log_weights, plain.log_weights),
+                f"phase 9 {name}: the buffered sweep's ELBO "
+                f"{float(res.elbo)} is not the plain sweep's "
+                f"{float(plain.elbo)}")
+        require(torch.equal(buf[:, :ds.N], cols),
+                f"phase 9 {name}: the buffered sweep wrote a leaf column")
+        require(ext.LAUNCHES.get(kname, 0) == 2 * (ds.N - 1),
+                f"phase 9 {name}: {kname} launched "
+                f"{ext.LAUNCHES.get(kname, 0)} times, not {2 * (ds.N - 1)}")
+        log(f"phase 9 {name} leaf buffer {tuple(buf.shape)}: two buffered "
+            f"sweeps, ELBO {float(plain.elbo):.3f} and log weights the plain "
+            f"sweep's to the bit, leaf columns untouched, {kname} "
+            f"{ext.LAUNCHES[kname]} launches")
+        del buf, cols, plain, res
+        torch.cuda.empty_cache()
+
+
+def fused_epoch_phase(ext):
+    """Phase 9: each path two epochs twice with fused_epoch=False (the
+    loop) and twice with True (CUDA graphs; the second epoch profiled in
+    one run of each): the same launches, graph replays an epoch of the
+    steps + 1 after the warm-up step and the initial eval, and fused =
+    loop to the bit wherever the loop repeats itself (else within the
+    loops' spread and 1e-6 relative); then GY94 under the default, which
+    the plan leaves uncaptured.  Returns {path: printed numbers}."""
+    from phylo_tpu_torch.train.trainer import param_tensors
+
+    out = {}
+    for name in PHASE9:
+        loops = [fused_run(ext, name, False, profiled=True),
+                 fused_run(ext, name, False)]
+        fused = [fused_run(ext, name, True),
+                 fused_run(ext, name, True, profiled=True)]
+        steps = loops[0]["steps"]
+        for r in loops + fused:
+            require(r["launches"] == loops[0]["launches"],
+                    f"phase 9 {name}: launches {r['launches']} differ from "
+                    f"the loop's {loops[0]['launches']}")
+        for r in fused:
+            g = r["res"].graphs
+            require(g["captured"] and g["replays"] == [steps, steps + 1],
+                    f"phase 9 {name}: graphs {g} (steps {steps})")
+        for r in loops:
+            require(not r["res"].graphs["captured"],
+                    f"phase 9 {name}: the loop was captured")
+        spread = _elbo_spread(loops)
+        repeats = spread == 0.0 and same_bits(
+            param_tensors(loops[0]["res"].params),
+            param_tensors(loops[1]["res"].params))
+        ref = loops[0]["res"]
+        gap = _elbo_spread([loops[0]] + fused)
+        rel = max(abs(x - y) / abs(y) for r in fused
+                  for x, y in zip(r["res"].history["elbo"],
+                                  ref.history["elbo"]))
+        bits = all(r["res"].history["elbo"] == ref.history["elbo"]
+                   and same_bits(param_tensors(r["res"].params),
+                                 param_tensors(ref.params)) for r in fused)
+        if repeats or name == "vcsmc":
+            require(bits, f"phase 9 {name}: the fused ELBOs "
+                    f"{[r['res'].history['elbo'] for r in fused]} or "
+                    "parameters are not the loop's "
+                    f"{ref.history['elbo']} to the bit")
+        else:
+            lo = min(min(r["res"].history["elbo"]) for r in loops)
+            hi = max(max(r["res"].history["elbo"]) for r in loops)
+            require(rel <= 1e-6 and all(
+                lo - spread <= x <= hi + spread for r in fused
+                for x in r["res"].history["elbo"]),
+                f"phase 9 {name}: fused ELBOs outside the loops' spread "
+                f"{spread} or 1e-6 relative ({rel:.3g})")
+        prof = {}
+        for mode, r in (("loop", loops[0]), ("fused", fused[1])):
+            t = r["profile"].get("trace")
+            wall = r["profile"].get("wall_ms")
+            prof[mode] = None if t is None else {
+                "wall_ms": wall, "device_ms": t["device_ms"],
+                "busy": t["device_ms"] / wall, "device_events": t["kernels"],
+                "host_dispatches": t["dispatches"],
+                "graph_launches": t["graph_launches"]}
+        row = {
+            "elbo": ref.history["elbo"],
+            "loop_repeats_to_the_bit": repeats, "loop_spread": spread,
+            "fused_gap": gap, "fused_rel_gap": rel,
+            "fused_equals_loop_to_the_bit": bits,
+            "s_per_epoch": {"loop": loops[1]["epoch_s"],
+                            "fused": fused[0]["epoch_s"]},
+            "capture_s": [r["res"].graphs["capture_seconds"]
+                          for r in fused],
+            "replays": fused[0]["res"].graphs["replays"],
+            "max_memory_allocated": {"loop": loops[1]["peak"],
+                                     "fused": fused[0]["peak"]},
+            "second_epoch_profile": prof}
+        log(f"phase 9 {name}: " + json.dumps(row))
+        out[name] = row
+        del loops, fused
+        torch.cuda.empty_cache()
+    # ROADMAP Queue 3 lead 1: DS1 VNCSMC, whose runs have split at epoch
+    # 2, twice under the default (printed, not held)
+    a, b = (fused_run(ext, "vncsmc_gtr_g4_ds1", True)["res"]
+            for _ in range(2))
+    same = a.history["elbo"] == b.history["elbo"] and same_bits(
+        param_tensors(a.params), param_tensors(b.params))
+    log("phase 9 vncsmc_gtr_g4_ds1 twice under the default: ELBOs "
+        f"{json.dumps([a.history['elbo'], b.history['elbo']])}; the same "
+        f"bits (parameters too): {same}; s/epoch "
+        f"{[a.history['epoch_seconds'][-1], b.history['epoch_seconds'][-1]]}")
+    del a, b
+    leaf_buffer_check(ext)
+    r = fused_run(ext, PHASE9_SPECTRAL, True, num_epoch=1)
+    g = r["res"].graphs
+    require(not g["captured"] and "spectral" in g["reason"]
+            and math.isfinite(r["res"].elbo),
+            f"phase 9 {PHASE9_SPECTRAL}: {g}, ELBO {r['res'].elbo}")
+    log(f"phase 9 {PHASE9_SPECTRAL} K={K_CODON} under the default: ELBO "
+        f"{r['res'].elbo:.3f}, {g['reason']}; {r['epoch_s']:.3f} s for "
+        "its epoch")
+    return out
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -3337,6 +3644,10 @@ def main(argv):
     protein_files()
     log(f"phase 1 wrote the protein path's inputs from seed 0: {PROT_FASTA} "
         f"({N_PROT} x {S_PROT}), {PROT_DAT}")
+    if "--phase9" in argv:
+        # phase 9 alone; no result line
+        fused_epoch_phase(_ext)
+        return 0
     if "--phase8" in argv:
         # phase 8 alone, after the phase-3 checks whose CPU runs it reads;
         # no result line
@@ -3575,6 +3886,8 @@ def main(argv):
     for k, n in mesh_phase(_ext, dev, card).items():
         launches[k] = launches.get(k, 0) + n
     log(f"phase 8 done at {time.time() - t0:.1f} s")
+    fused_epoch_phase(_ext)
+    log(f"phase 9 done at {time.time() - t0:.1f} s")
 
     rows = [
         ("fused_rank_update", "phylo_tpu_torch/csrc/rank_kernels.cu",

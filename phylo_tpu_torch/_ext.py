@@ -15,12 +15,16 @@ the first CUDA launch triggers it.
 
 Every C entry point returns ``cudaGetLastError()``; ``check`` raises on a
 non-zero code.  ``LAUNCHES`` counts kernel launches by wrapper name:
-a wrapper adds one where it launches its kernel, and nowhere else.
+a wrapper adds one where it launches its kernel, and nowhere else.  A
+CUDA graph's replay runs no Python, so ``CountedGraph`` keeps the counts
+its capture recorded (a capture launches nothing) and adds them at each
+replay.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -41,6 +45,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = collections.Counter()
 _LIBS = {}
 _FNS = {}
+_CAPTURE_STREAMS = {}
 
 
 def reset_launches():
@@ -138,6 +143,80 @@ def check(code, what):
 
 def stream_ptr(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def new_graph():
+    """The graph object a CountedGraph captures into (a stand-in replaces
+    this in the CPU tests)."""
+    return torch.cuda.CUDAGraph()
+
+
+@contextlib.contextmanager
+def _capture_stream(device):
+    """A capture's stream: one side stream a card, entered after the
+    device is idle and the allocator's cached blocks are released, so the
+    graph's pool can take that memory (as torch.cuda.graph does), and
+    left with the device idle again; nothing on the CPU."""
+    if device.type != "cuda":
+        yield
+        return
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    with torch.cuda.stream(_CAPTURE_STREAMS[device]):
+        yield
+    torch.cuda.synchronize(device)
+
+
+class CountedGraph:
+    """A CUDA graph of one callable, with the kernel launches of its
+    capture.  `generators` are registered with the graph before capture,
+    so each replay draws from their (seed, offset) as an eager call would
+    (reseed one with manual_seed before a replay); `pool` is another
+    graph's memory pool to share.  A failed capture or replay raises."""
+
+    def __init__(self, device, generators=(), pool=None):
+        self.device = torch.device(device)
+        self.graph = new_graph()
+        self.generators = tuple(generators)
+        self.pool = pool
+        self.launches = collections.Counter()
+        self.replays = 0
+        self.capture_seconds = 0.0
+
+    def capture(self, fn, reset=None):
+        """Run fn() once eagerly, then capture it, both on the capture
+        stream: the eager call is the warm-up (it builds, loads and binds
+        the kernels and makes their per-stream state, such as K4's
+        ticket, outside the graph's pool).  reset() runs between the two.
+        Returns (the eager call's value, the graph's static outputs);
+        LAUNCHES counts the eager call and not the capture."""
+        for g in self.generators:
+            self.graph.register_generator_state(g)
+        with _capture_stream(self.device):
+            out = fn()
+            if reset is not None:
+                reset()
+            before = collections.Counter(LAUNCHES)
+            t0 = time.perf_counter()
+            try:
+                self.graph.capture_begin(pool=self.pool)
+                try:
+                    static = fn()
+                finally:
+                    self.graph.capture_end()
+            finally:
+                self.launches = LAUNCHES - before
+                LAUNCHES.clear()
+                LAUNCHES.update(before)
+            self.capture_seconds = time.perf_counter() - t0
+        return out, static
+
+    def replay(self):
+        self.graph.replay()
+        LAUNCHES.update(self.launches)
+        self.replays += 1
 
 
 def require(t, what, dtype=None, ndim=None, shape=None):

@@ -190,8 +190,12 @@ def run(argv=None):
         device=args.device,
     )
     res = train(ds, config)
+    g = res.graphs
     print(f"Done. Final ELBO {res.elbo:.3f}"
-          + (f"; artifacts in {res.save_dir}" if res.save_dir else ""))
+          + (f"; artifacts in {res.save_dir}" if res.save_dir else "")
+          + (f"; fused epoch: {sum(g['replays'])} CUDA graph replays, "
+             f"{g['capture_seconds']:.2f} s capturing" if g["captured"]
+             else f"; fused epoch {g['reason']}"))
     return res
 
 

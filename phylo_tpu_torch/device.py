@@ -7,9 +7,20 @@ CPU.  The CPU is used only when the caller names it (the tests do).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values, dtype, device):
+    """torch.tensor(values) on `device`, made once per (values, dtype,
+    device): `values` a hashable nesting of tuples.  A host-to-device
+    copy inside a sweep would synchronise with the card, and a CUDA
+    graph cannot capture one.  Callers must not write into the tensor."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def resolve_device(device=None):

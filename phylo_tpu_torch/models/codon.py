@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from phylo_tpu_torch.dataio.codons import CODON_AA, SENSE_CODONS
+from phylo_tpu_torch.device import device_constant
 from phylo_tpu_torch.models.expm import expm_ctmc, expm_reversible
 from phylo_tpu_torch.models.substitution import _Model
 
@@ -59,6 +60,15 @@ def _structure_masks():
             if CODON_AA[i] == CODON_AA[j]:
                 is_synonymous[i, j] = 1.0
     return neighbor, is_transition, is_synonymous
+
+
+@functools.lru_cache(maxsize=None)
+def _device_masks(dtype, device):
+    """`_structure_masks` on `device`, made once per (dtype, device): a
+    host-to-device copy in every transition call would synchronise with
+    the card."""
+    return tuple(torch.tensor(m, dtype=dtype, device=device)
+                 for m in _structure_masks())
 
 
 class GY94(_Model):
@@ -103,7 +113,7 @@ class GY94(_Model):
         if self.plus_f:
             e = torch.exp(params["y_station"])
             return e / torch.sum(e)
-        return torch.tensor(self._freqs, dtype=dtype, device=device)
+        return device_constant(self._freqs, dtype, torch.device(device))
 
     def Q(self, params, **_):
         lk = params["log_kappa"]
@@ -112,7 +122,7 @@ class GY94(_Model):
         pi = self.stationary(params, **f).to(dtype)
         kappa = torch.exp(lk).to(dtype)
         omega = torch.exp(params["log_omega"]).to(dtype)
-        nb, ts, syn = (torch.tensor(m, **f) for m in _structure_masks())
+        nb, ts, syn = _device_masks(dtype, lk.device)
         one = torch.ones((), **f)
         # kappa on transitions, omega on nonsynonymous changes
         rate = nb * torch.where(ts > 0, kappa, one) \

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from phylo_tpu_torch.dataio.alphabets import PROTEIN_ALPHABET
+from phylo_tpu_torch.device import device_constant
 from phylo_tpu_torch.models.expm import expm_ctmc, expm_reversible
 from phylo_tpu_torch.models.substitution import _Model
 
@@ -140,13 +141,13 @@ class EmpiricalProtein(_Model):
 
     def stationary(self, params, dtype=torch.float64, device="cpu"):
         if not self.plus_f:
-            return torch.tensor(self._freqs, dtype=dtype, device=device)
+            return device_constant(self._freqs, dtype, torch.device(device))
         e = torch.exp(params["y_station"])
         return e / torch.sum(e)
 
     def Q(self, params, dtype=torch.float64, device="cpu"):
         pi = self.stationary(params, dtype=dtype, device=device)
-        s = torch.tensor(self._exch, dtype=pi.dtype, device=pi.device)
+        s = device_constant(self._exch, pi.dtype, pi.device)
         q = s * pi[None, :]
         q = q - torch.diag(torch.sum(q, dim=1))
         if self.normalize:

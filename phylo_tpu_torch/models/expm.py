@@ -24,10 +24,13 @@ float32 (`exact_matmul` refuses TF32).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
+
+from phylo_tpu_torch.device import device_constant
 
 CLAMP = 80.0     # mu * b is clamped here: P is the stationary projector
 
@@ -125,12 +128,14 @@ def expm_ctmc(Q, b, *, order=12, squarings=12):
     return expm_chain(Q, b, order=order, squarings=squarings)
 
 
+@functools.lru_cache(maxsize=None)
 def _stirling_residuals(n_max):
     """c_n = lgamma(n+1) - (n ln n - n + 0.5 ln(2 pi n)), n = 1..n_max,
-    as float64 host constants (~1/(12n), tiny)."""
+    as a tuple of float64 host constants (~1/(12n), tiny); on a device
+    through `device_constant`, once per (n_max, dtype, device)."""
     n = np.arange(1, n_max + 1, dtype=np.float64)
     lg = np.array([math.lgamma(v + 1.0) for v in n])
-    return lg - (n * np.log(n) - n + 0.5 * np.log(2.0 * np.pi * n))
+    return tuple(lg - (n * np.log(n) - n + 0.5 * np.log(2.0 * np.pi * n)))
 
 
 def expm_poisson(Q, b, *, n_max=160, clamp=80.0):
@@ -168,7 +173,7 @@ def expm_poisson(Q, b, *, n_max=160, clamp=80.0):
     t = mu * torch.minimum(b, clamp / mu)              # (...,)
     t_safe = torch.maximum(t, torch.full_like(t, 1e-6))[..., None]
     n = torch.arange(1, n_max + 1, **f)
-    c_n = torch.tensor(_stirling_residuals(n_max), **f)
+    c_n = device_constant(_stirling_residuals(n_max), dtype, Q.device)
     d = (t_safe - n) / n
     small = torch.abs(d) < 0.5
     d_safe = torch.where(small, d, torch.zeros_like(d))

@@ -145,9 +145,15 @@ def expm_fwd(Q, b, order=12, squarings=12):
 def _ticket(device):
     """The backward's block counter on the current stream: an int32 the
     kernel's last block resets to 0, so launches on one stream share
-    it."""
+    it.  A CUDA graph's capture takes the one its stream's warm-up made:
+    one made during the capture would live in the graph's memory pool
+    and outlive the graph."""
     key = (device, _ext.stream_ptr(device))
     if key not in _TICKETS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "expm_bwd captured on a stream it never ran on: warm the "
+                "call up on the capturing stream first")
         _TICKETS[key] = torch.zeros((1,), dtype=torch.int32, device=device)
     return _TICKETS[key]
 

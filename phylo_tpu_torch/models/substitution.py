@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from phylo_tpu_torch.device import device_constant
 from phylo_tpu_torch.models.expm import expm_ctmc, jc69_transition
 from phylo_tpu_torch.utils.math import gammainc
 
@@ -105,10 +106,10 @@ class FixedQ(_Model):
         return {}
 
     def Q(self, params, dtype=torch.float64, device="cpu"):
-        return torch.tensor(self._Q, dtype=dtype, device=device)
+        return device_constant(self._Q, dtype, torch.device(device))
 
     def stationary(self, params, dtype=torch.float64, device="cpu"):
-        return torch.tensor(self._pi, dtype=dtype, device=device)
+        return device_constant(self._pi, dtype, torch.device(device))
 
     def transition(self, params, b):
         return expm_ctmc(self.Q(params, dtype=b.dtype, device=b.device), b)
@@ -183,7 +184,7 @@ class HKY(_Model):
     def Q(self, params, **_):
         pi = self.stationary(params)
         kappa = torch.exp(params["log_kappa"])
-        mask = torch.tensor(self._TRANSITION_MASK, device=pi.device) == 1
+        mask = device_constant(self._TRANSITION_MASK, torch.bool, pi.device)
         off = torch.where(mask, kappa, torch.ones_like(kappa)) * pi[None, :]
         off = off * (1.0 - torch.eye(4, dtype=off.dtype, device=off.device))
         q = off - torch.diag(torch.sum(off, dim=1))
@@ -261,7 +262,10 @@ class _SiteMixture(_Model):
         mixture's own parameters are the same tensors, unchanged: the
         twist asks for transitions at every rank and pair chunk, and a
         discrete Gamma's 25 Newton steps are some hundreds of small
-        kernel launches each time."""
+        kernel launches each time.  "Unchanged" is read from the tensors'
+        versions, which a CUDA graph's replay does not bump: the fused
+        epoch calls `clear_memos` around each capture and after each
+        replay."""
         own = [t for k, t in sorted(params.items()) if k != "base"]
         key = [(t, t._version) for t in own]
         if torch.is_grad_enabled() and any(t.requires_grad for t in own):
@@ -368,6 +372,14 @@ class FreeRates(_SiteMixture):
     def rates(self, params):
         raw = torch.exp(params["log_rates"])
         return raw / torch.sum(self.weights(params) * raw)
+
+
+def clear_memos(model):
+    """Forget the category rates `_SiteMixture._category_rates` keeps, on
+    `model` and the models it wraps."""
+    while model is not None:
+        model.__dict__.pop("_rates_memo", None)
+        model = getattr(model, "base", None)
 
 
 def _get_base_model(name, A):

@@ -244,7 +244,9 @@ def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
     merge + rescale + root log-lik + write of column `outc` of `buf`.
 
     leaves (N, GA, S) shared leaf messages; buf (K, R, GA, S) write-once
-    buffer (node N+q lives in column q); idx (4, K) int32; outc int (the
+    buffer (node N+q lives in column q), contiguous or the trailing R
+    columns of a wider contiguous buffer (the kernels take its particle
+    stride in columns); idx (4, K) int32; outc int (the
     rank, never among the children read); P_l, P_r (K, A, A), or
     (K, G, A, A) blocked (K10); pi (GA,); weights (S,).  Returns (rootll
     (K,), logscale (K,)) and, with save_children, the gathered children
@@ -261,7 +263,11 @@ def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
     blocked = P_l.ndim == 4
     f32 = torch.float32
     _ext.require(leaves, "leaves", f32, shape=(N, GA, S))
-    _ext.require(buf, "buf", f32)
+    _ext.require(buf[0], "buf", f32)
+    Rs = buf.stride(0) // (GA * S)          # columns a particle
+    if buf.stride(0) != Rs * GA * S or Rs < R:
+        raise ValueError(f"buf: particle stride {buf.stride(0)} is not a "
+                         "whole number of its columns")
     _ext.require(idx, "idx", torch.int32, shape=(4, K))
     pshape = (K, G, A, A) if blocked else (K, A, A)
     _ext.require(P_l, "P_l", f32, shape=pshape)
@@ -290,21 +296,21 @@ def fused_rank_update(leaves, buf, idx, outc, P_l, P_r, pi, weights,
         _ext.LAUNCHES[name] += 1
         if gb == G:
             fn = _ext.bind("wide_kernels", "launch_wide_rank", 11, 10)
-            code = fn(*ptrs, K, R, N, G, A, S, outc, sc, cluster, threads,
+            code = fn(*ptrs, K, Rs, N, G, A, S, outc, sc, cluster, threads,
                       _ext.stream_ptr(dev))
         else:
             # each site's running max and pi-sum over the groups
             scr = torch.empty((K, 2, _ceil(S, sc) * sc), dtype=f32,
                               device=dev)
             fn = _ext.bind("wide_kernels", "launch_wide_rank_group", 12, 11)
-            code = fn(*ptrs, scr.data_ptr(), K, R, N, G, A, S, outc, sc,
+            code = fn(*ptrs, scr.data_ptr(), K, Rs, N, G, A, S, outc, sc,
                       cluster, threads, gb, _ext.stream_ptr(dev))
     else:
         spl, warps, _, _, _ = rank_fwd_plan(K, G, A, S)
         fn = _ext.bind("rank_kernels", "launch_fused_rank_fwd", 11, 9)
         name = "fused_rank_update" + ("_blocked" if blocked else "")
         _ext.LAUNCHES[name] += 1
-        code = fn(*ptrs, K, R, N, G, A, S, outc, spl, warps,
+        code = fn(*ptrs, K, Rs, N, G, A, S, outc, spl, warps,
                   _ext.stream_ptr(dev))
     _ext.check(code, name)
     rootll, logscale = sums

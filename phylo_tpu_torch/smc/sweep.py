@@ -223,6 +223,51 @@ def differentiable_decisions(decisions):
                  and decisions[k].requires_grad)
 
 
+def make_leaf_buffer(leaves, config, dtype=None, model=None):
+    """The unified message buffer (K, 2N-1, A, S) of
+    `sample_phylogenies_with_buffer` (the JAX package's make_leaf_buffer):
+    the leaves (N, S, A), states-major, replicated into columns 0..N-1
+    and zeros in the N-1 internal columns.  The sweep writes the internal
+    columns only, so a returned buffer is reused as it is.  `model` is
+    the JAX signature's (its site padding for the TPU kernel); the card
+    pads no sites."""
+    N, S, A = leaves.shape
+    dtype = dtype or leaves.dtype
+    buf = torch.zeros((config.K, 2 * N - 1, A, S), dtype=dtype,
+                      device=leaves.device)
+    buf[:, :N] = leaves.to(dtype).transpose(1, 2)
+    return buf
+
+
+def sample_phylogenies_with_buffer(generator, leaves, model, params, config,
+                                   leaf_buffer, *, shardings=None,
+                                   site_weights=None, decisions=None):
+    """`sample_phylogenies` writing its merged messages into the internal
+    columns of a pre-built `make_leaf_buffer` (no buffer allocated a
+    sweep); returns (SweepResult, leaf_buffer), whose leaf columns are
+    untouched, so the next call takes it as it is.  Value-only sweeps
+    (eval loops), without twist or a particle mesh, as in the JAX
+    package; `decisions` as in `sample_phylogenies`."""
+    N, S, A = leaves.shape
+    if config.twist is not None:
+        raise ValueError("sample_phylogenies_with_buffer takes no twist")
+    if shardings is not None and shardings.has_k:
+        raise NotImplementedError(
+            "sample_phylogenies_with_buffer holds all K particles: no "
+            "particle mesh")
+    if tuple(leaf_buffer.shape) != (config.K, 2 * N - 1, A, S):
+        raise ValueError(
+            f"leaf buffer {tuple(leaf_buffer.shape)} is not make_leaf_"
+            f"buffer's {(config.K, 2 * N - 1, A, S)}")
+    _check_supported(config, leaves, model, shardings)
+    with torch.no_grad():
+        res = _sample_body(generator, leaves, model, params, config,
+                           decisions=decisions, site_weights=site_weights,
+                           fused_rank=config.rescale, shardings=shardings,
+                           buf=leaf_buffer[:, N:])
+    return res, leaf_buffer
+
+
 def sample_phylogenies(generator, leaves, model, params, config, *,
                        decisions=None, site_weights=None, shardings=None):
     """Run one full CSMC sweep.
@@ -285,7 +330,8 @@ def sample_phylogenies(generator, leaves, model, params, config, *,
 
 def _sample_body(generator, leaves, model, params, config, *,
                  decisions=None, site_weights=None, injected=None,
-                 want_aux=False, fused_rank=False, shardings=None):
+                 want_aux=False, fused_rank=False, shardings=None,
+                 buf=None):
     """One sweep.  Modes:
 
     * plain (fused_rank=False): K8 merge (or plain torch ops without
@@ -305,6 +351,9 @@ def _sample_body(generator, leaves, model, params, config, *,
     give are summed over 's' and gathered over 'k' before anything reads
     them.  K1 is off on a 'k' mesh (explicit children fetched over 'k',
     then K8), as in the JAX package.
+
+    `buf` is the internal-message buffer to write (a leaf buffer's
+    internal columns), else one is allocated.
 
     Returns SweepResult, or (SweepResult, aux) with want_aux.
     """
@@ -389,8 +438,7 @@ def _sample_body(generator, leaves, model, params, config, *,
             model, params["model"], rates_l, rates_r, eps_l, eps_r, dtype,
             blocked=blocks is not None, shardings=sh)
 
-    buf = None
-    if injected is None:
+    if injected is None and buf is None:
         buf = alloc_rank_buffer(Kl, R, A, S, dtype, dev)
     # the manual VJP's reverse pass reads the saved children (K2) while
     # they fit under the cap, else re-gathers them (K3)

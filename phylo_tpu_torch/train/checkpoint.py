@@ -60,8 +60,11 @@ def restore_checkpoint(path, params, optimizer):
     host (map_location="cpu"), so a checkpoint written on the card
     restores on a machine without one; copy_ and the optimizer's
     load_state_dict then place each value on its parameter's device, and
-    Adam's step counter stays on the host, as in a fresh run.  history is
-    None for checkpoints written without one."""
+    Adam's step counter where a fresh run keeps it (on the card for the
+    trainer's capturable Adam, on the host on the CPU).  The trainer
+    restores before its fused epoch captures anything, so the graphs
+    hold the restored tensors.  history is None for checkpoints written
+    without one."""
     path = os.path.abspath(str(path))
     if not os.path.basename(path).startswith("epoch_"):
         latest = latest_checkpoint(path)

@@ -1,17 +1,33 @@
 """Variational training loop: SGD/Adam ascent on the log Z_SMC ELBO (port
 of phylo_tpu/train/trainer.py).
 
-Each epoch runs floor(S / batch_size) minibatch SGD steps (a Python loop;
-the JAX package fuses them into one lax.scan) and then one full-S eval
-sweep, as the reference does (vcsmc.py:466-591).  Random streams are a
-pure function of (seed, epoch, step): every step and eval gets its own
-torch.Generator seeded from numpy's SeedSequence of that triple, and the
-site batches come from numpy's default_rng((seed, epoch)) exactly as in
-the JAX package.
+Each epoch runs floor(S / batch_size) minibatch SGD steps and then one
+full-S eval sweep, as the reference does (vcsmc.py:466-591).  Random
+streams are a pure function of (seed, epoch, step): every step and eval
+draws from a torch.Generator seeded from numpy's SeedSequence of that
+triple, and the site batches come from numpy's default_rng((seed,
+epoch)) exactly as in the JAX package.
+
+The fused epoch (TrainConfig.fused_epoch, on by default, as in the JAX
+package, which runs an epoch's steps as one jitted lax.scan): on the
+card the SGD step and the eval sweep are each captured once as a CUDA
+graph and replayed, one host dispatch a step and one an eval in place
+of one a kernel.  The first call of each runs eagerly (it is the run's
+real first step / first eval and the warm-up that builds and binds the
+kernels); the graph is captured right after it and replayed at every
+later call.  A replay reads the batch's site indices from a static device
+tensor and draws from a generator registered with the graph and
+reseeded to the loop's (seed, epoch, step) seed, so the values are the
+loop's.  `capture_plan` says, from the configuration alone, whether a
+run is captured: not on the CPU (no graphs; the loop gives the same
+values), on a mesh (gloo cannot be captured; NCCL capture is not
+tried), nor for a spectral `expm_reversible` model (GY94, .dat: a host
+sync on the eigengap a call).  A failed capture or replay raises.
 
 Checkpoints (train/checkpoint.py) hold the parameters, the optimizer's
 state and the history; with those streams, a run resumed from the
-epoch-e checkpoint replays epochs e.. bit for bit on the CPU.
+epoch-e checkpoint replays epochs e.. bit for bit on the CPU.  A restore
+copies into the tensors the graphs hold, before they are captured.
 
 On a mesh (TrainConfig.mesh_shape; one process per device, see
 parallel/) every rank draws the same site batches and random streams,
@@ -36,10 +52,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from phylo_tpu_torch import _ext
 from phylo_tpu_torch.device import resolve_device, resolve_dtype
 from phylo_tpu_torch.models.branches import branch_rates, init_branch_params
 from phylo_tpu_torch.models.substitution import (
-    FreeRates, GammaSites, get_model,
+    FreeRates, GammaSites, clear_memos, get_model,
 )
 from phylo_tpu_torch.params import flatten
 from phylo_tpu_torch.smc.sweep import SweepConfig, sample_phylogenies
@@ -115,7 +132,18 @@ class TrainConfig:
     mesh_shape: Optional[tuple] = None
     log_every: int = 1
     log_params: bool = False
+    # an epoch's SGD steps and its eval sweep as CUDA graph replays, one
+    # host dispatch each (where `capture_plan` admits the run); the
+    # values are the step-by-step loop's
+    fused_epoch: bool = True
     device: Optional[str] = None     # None = cuda
+
+
+@dataclass
+class TrainState:
+    params: dict
+    opt_state: object
+    epoch: int = 0
 
 
 @dataclass
@@ -124,22 +152,35 @@ class TrainResult:
     history: dict = field(repr=False)
     save_dir: Optional[str] = None
     elbo: float = float("nan")
+    # the fused epoch: {"captured", "reason", "capture_seconds",
+    # "replays" (graph replays an epoch)}
+    graphs: dict = field(default_factory=dict, repr=False)
+
+
+def step_seed(seed, epoch, step):
+    """The 64-bit generator seed of (seed, epoch, step); step 0 is the
+    epoch's eval sweep, 1.. its SGD steps (the JAX package's fold_in
+    layout)."""
+    word = np.random.SeedSequence([seed, epoch, step]).generate_state(
+        2, dtype=np.uint32)
+    return int(word[0]) << 32 | int(word[1])
 
 
 def step_generator(seed, epoch, step, device):
-    """The torch.Generator of (seed, epoch, step); step 0 is the epoch's
-    eval sweep, 1.. its SGD steps (the JAX package's fold_in layout)."""
-    word = np.random.SeedSequence([seed, epoch, step]).generate_state(
-        2, dtype=np.uint32)
+    """A torch.Generator seeded with `step_seed(seed, epoch, step)`."""
     g = torch.Generator(device=device)
-    g.manual_seed(int(word[0]) << 32 | int(word[1]))
+    g.manual_seed(step_seed(seed, epoch, step))
     return g
 
 
 def _optimizer(config, tensors):
     name = config.optimizer.lower()
     if name == "adam":
-        return torch.optim.Adam(tensors, lr=config.learning_rate)
+        # capturable on the card, fused epoch or not, so both give the
+        # same bits: its step count and bias corrections stay there
+        cuda = any(t.is_cuda for t in tensors)
+        return torch.optim.Adam(tensors, lr=config.learning_rate,
+                                capturable=cuda)
     if name in ("gradientdescentoptimizer", "sgd", "gradient_descent"):
         return torch.optim.SGD(tensors, lr=config.learning_rate)
     raise KeyError(f"unknown optimizer {config.optimizer!r}")
@@ -249,11 +290,13 @@ def _rate_mixture(model, config):
 
 
 def sgd_step(model, params, optimizer, sweep_cfg, generator, batch, *,
-             decisions=None, shardings=None):
+             decisions=None, shardings=None, set_to_none=True):
     """One ascent step on the ELBO of `batch` (N, B, A); returns the
     loss (-ELBO) as a 0-d tensor (not synchronised).  On a mesh `batch`
-    is the whole batch and each rank sweeps its block of it."""
-    optimizer.zero_grad(set_to_none=True)
+    is the whole batch and each rank sweeps its block of it.
+    set_to_none=False zeroes existing gradients in place (the fused
+    epoch's graphs keep them outside their memory pool)."""
+    optimizer.zero_grad(set_to_none=set_to_none)
     batch, weights = shard_batch(batch, shardings)
     loss = -sample_phylogenies(generator, batch, model, params, sweep_cfg,
                                decisions=decisions, site_weights=weights,
@@ -286,6 +329,104 @@ def evaluate(model, params, sweep_cfg, generator, leaves, *,
         return sample_phylogenies(generator, leaves, model, params,
                                   sweep_cfg, site_weights=site_weights,
                                   shardings=shardings)
+
+
+def capture_plan(config, model, shardings=None, device=None):
+    """(captured, reason): whether `train` runs this configuration's SGD
+    steps and eval sweeps as CUDA graph replays (TrainConfig.fused_epoch),
+    decided from the configuration before the run; touches no device."""
+    dev = torch.device(device or config.device or "cuda")
+    if not config.fused_epoch:
+        return False, "off (fused_epoch=False): one host dispatch a kernel"
+    if dev.type != "cuda":
+        return False, ("not captured on the CPU: no CUDA graphs there; "
+                       "the loop gives the same values")
+    if shardings is not None or config.mesh_shape:
+        return False, ("not captured on a mesh: gloo cannot be captured "
+                       "and NCCL capture is not tried")
+    m = model
+    while m is not None:
+        if getattr(m, "spectral", False):
+            return False, (
+                f"not captured: {type(m).__name__}'s spectral "
+                "expm_reversible reads its eigengap on the host once a "
+                "call, and eigh checks its result on the host")
+        m = getattr(m, "base", None)
+    return True, ("captured: one CUDA graph replay an SGD step and one an "
+                  "eval sweep")
+
+
+class _FusedEpoch:
+    """The fused epoch's two CUDA graphs, the SGD step's and the eval
+    sweep's, sharing one memory pool (they never run at once).  Each
+    runs eagerly at its first call, is captured right after it and
+    replayed at every later call; a replay's inputs are the static
+    site-index tensor and the generator reseeded before it.  The
+    gradients stay outside the pool (zeroed in place), so neither graph's
+    replay can overwrite them; the eval's static outputs are read before
+    the next step.  The rate mixtures' memo is cleared around a capture
+    and after each replay (a replay bumps no tensor version)."""
+
+    def __init__(self, model, params, optimizer, sweep_cfg, leaves, B,
+                 dev):
+        self.model, self.params = model, params
+        self.optimizer, self.sweep_cfg = optimizer, sweep_cfg
+        self.leaves, self.dev = leaves, dev
+        self.idx = torch.zeros((B,), dtype=torch.int64, device=dev)
+        self.gens = {"step": torch.Generator(device=dev),
+                     "eval": torch.Generator(device=dev)}
+        self.graphs, self.outs = {}, {}
+        self.pool = None
+
+    def _step(self):
+        return sgd_step(self.model, self.params, self.optimizer,
+                        self.sweep_cfg, self.gens["step"],
+                        self.leaves.index_select(1, self.idx),
+                        set_to_none=False)
+
+    def _eval(self):
+        return evaluate(self.model, self.params, self.sweep_cfg,
+                        self.gens["eval"], self.leaves)
+
+    def _run(self, name, fn, seed):
+        self.gens[name].manual_seed(seed)
+        g = self.graphs.get(name)
+        if g is not None:
+            g.replay()
+            clear_memos(self.model)
+            return self.outs[name]
+        g = _ext.CountedGraph(self.dev, generators=(self.gens[name],),
+                              pool=self.pool)
+        # the eager call is the run's own call and the warm-up
+        out, self.outs[name] = g.capture(
+            fn, reset=lambda: clear_memos(self.model))
+        clear_memos(self.model)
+        if self.pool is None:
+            self.pool = g.graph.pool()
+        self.graphs[name] = g
+        return out
+
+    def step(self, seed, idx):
+        """One SGD step on the sites `idx` (B,), a device tensor."""
+        self.idx.copy_(idx)
+        self._run("step", self._step, seed)
+
+    def evaluate(self, seed):
+        """The eval sweep; its SweepResult holds the graph's static
+        outputs after a replay: read it before the next step."""
+        return self._run("eval", self._eval, seed)
+
+    def release(self):
+        """Drop the graphs and their static outputs."""
+        self.graphs.clear()
+        self.outs.clear()
+        clear_memos(self.model)
+
+    def replays(self):
+        return sum(g.replays for g in self.graphs.values())
+
+    def capture_seconds(self):
+        return sum(g.capture_seconds for g in self.graphs.values())
 
 
 def train(dataset, config: TrainConfig):
@@ -328,116 +469,149 @@ def train(dataset, config: TrainConfig):
         start_epoch, restored_history = restore_checkpoint(
             resume_from, params, optimizer)
 
-    initial_elbo = None
-    if config.log_every:
-        res0 = evaluate(model, params, sweep_cfg,
-                        step_generator(config.seed, INITIAL_EVAL_STEP, 0,
-                                       dev), eval_leaves,
-                        site_weights=eval_weights, shardings=shardings)
-        initial_elbo = float(res0.elbo)
-        if writer:
-            print(f"Initial evaluation of ELBO: {initial_elbo:.3f}")
+    captured, reason = capture_plan(config, model, shardings, dev)
+    if writer and config.log_every:
+        print(f"Fused epoch: {reason}")
+    fused = None
+    if captured:
+        fused = _FusedEpoch(model, params, optimizer, sweep_cfg, leaves,
+                            config.batch_size, dev)
+    graphs = {"captured": captured, "reason": reason,
+              "capture_seconds": 0.0, "replays": []}
 
-    save_dir = None
-    if config.save_artifacts and writer:
-        from phylo_tpu_torch.train.results import (
-            make_save_dir, write_run_params,
-        )
+    def eval_sweep(seed):
+        if fused is not None:
+            return fused.evaluate(seed)
+        return evaluate(model, params, sweep_cfg,
+                        torch.Generator(device=dev).manual_seed(seed),
+                        eval_leaves, site_weights=eval_weights,
+                        shardings=shardings)
 
-        save_dir = make_save_dir(config, dataset)
-        write_run_params(save_dir, config, dataset)
+    try:
+        initial_elbo = None
+        if config.log_every:
+            res0 = eval_sweep(step_seed(config.seed, INITIAL_EVAL_STEP, 0))
+            initial_elbo = float(res0.elbo)
+            if writer:
+                print(f"Initial evaluation of ELBO: {initial_elbo:.3f}")
 
-    history = {
-        "elbo": [], "Qmatrices": [], "stationary": [],
-        "left_branches": [], "right_branches": [],
-        "log_weights": [], "log_lik": [], "log_lik_R": [],
-        "rates_l": [], "rates_r": [], "epoch_seconds": [],
-        "newick_best": [], "jump_chain_evolution": [],
-        "ancestors": [], "merged_nodes": [],
-    }
-    if restored_history is not None:
-        # keep the epochs before the resume, so results.p indices match
-        # epoch numbers
-        for k, v in restored_history.items():
-            if k in history:
-                history[k] = list(v)
-    ckpt_dir = config.checkpoint_dir or (
-        os.path.join(save_dir, "ckpt") if save_dir else None)
-    if not writer:
-        ckpt_dir = None
-    fixed_batches = None
-    if config.fixed_partition:
-        fixed_batches = list(site_batches(
-            np.random.default_rng(config.seed), S, config.batch_size,
-            drop_last=True))
-
-    for epoch in range(start_epoch, config.num_epoch):
-        if config.fault_injection:
-            _inject_fault(config.fault_injection, epoch, start_epoch)
-        t0 = time.time()
-        batches = fixed_batches if fixed_batches is not None else list(
-            site_batches(np.random.default_rng((config.seed, epoch)), S,
-                         config.batch_size, drop_last=True))
-        for i, site_idx in enumerate(batches):
-            idx = torch.as_tensor(np.asarray(site_idx), device=dev)
-            sgd_step(model, params, optimizer, sweep_cfg,
-                     step_generator(config.seed, epoch, 1 + i, dev),
-                     leaves.index_select(1, idx), shardings=shardings)
-        res = evaluate(model, params, sweep_cfg,
-                       step_generator(config.seed, epoch, 0, dev),
-                       eval_leaves, site_weights=eval_weights,
-                       shardings=shardings)
-        elbo = float(res.elbo)
-        dt = time.time() - t0
-        if shardings is not None:
-            from phylo_tpu_torch.parallel.collectives import (
-                check_replicated,
+        save_dir = None
+        if config.save_artifacts and writer:
+            from phylo_tpu_torch.train.results import (
+                make_save_dir, write_run_params,
             )
 
-            check_replicated(shardings, param_tensors(params))
+            save_dir = make_save_dir(config, dataset)
+            write_run_params(save_dir, config, dataset)
 
-        with torch.no_grad():
-            history["elbo"].append(elbo)
-            history["Qmatrices"].append(_np(model.Q(
-                params["model"], dtype=dtype, device=dev)))
-            history["stationary"].append(_np(model.stationary(
-                params["model"], dtype=dtype, device=dev)))
-            history["left_branches"].append(_np(res.left_branches))
-            history["right_branches"].append(_np(res.right_branches))
-            history["log_weights"].append(_np(res.log_weights))
-            history["log_lik"].append(_np(res.log_likelihood))
-            history["log_lik_R"].append(_np(res.log_likelihood_R))
-            rl, rr = branch_rates(params["branches"])
-            history["rates_l"].append(_np(rl))
-            history["rates_r"].append(_np(rr))
-            history["epoch_seconds"].append(dt)
-            history["ancestors"].append(_np(res.ancestors))
-            history["merged_nodes"].append(_np(res.merged_nodes))
-        if config.collect_trees:
-            history["newick_best"].append(best_newick(
-                dataset.taxa, history["ancestors"][-1],
-                history["merged_nodes"][-1], history["left_branches"][-1],
-                history["right_branches"][-1], history["log_weights"][-1]))
-        if config.collect_jump_chains and save_dir:
-            history["jump_chain_evolution"].append(jump_chain_evolution(
-                dataset.taxa, history["ancestors"][-1],
-                history["merged_nodes"][-1]))
+        history = {
+            "elbo": [], "Qmatrices": [], "stationary": [],
+            "left_branches": [], "right_branches": [],
+            "log_weights": [], "log_lik": [], "log_lik_R": [],
+            "rates_l": [], "rates_r": [], "epoch_seconds": [],
+            "newick_best": [], "jump_chain_evolution": [],
+            "ancestors": [], "merged_nodes": [],
+        }
+        if restored_history is not None:
+            # keep the epochs before the resume, so results.p indices match
+            # epoch numbers
+            for k, v in restored_history.items():
+                if k in history:
+                    history[k] = list(v)
+        ckpt_dir = config.checkpoint_dir or (
+            os.path.join(save_dir, "ckpt") if save_dir else None)
+        if not writer:
+            ckpt_dir = None
+        fixed_batches = None
+        if config.fixed_partition:
+            fixed_batches = list(site_batches(
+                np.random.default_rng(config.seed), S, config.batch_size,
+                drop_last=True))
 
-        if config.log_every and writer and (epoch % config.log_every == 0):
-            llr_max = float(np.max(history["log_lik_R"][-1]))
-            print(f"epoch {epoch + 1}/{config.num_epoch}  ELBO {elbo:.3f}  "
-                  f"log_lik_R max {llr_max:.3f}  {dt:.2f}s")
-            if config.log_params:
-                with np.printoptions(precision=4, suppress=True):
-                    print(f"Q matrix:\n{history['Qmatrices'][-1]}")
-                    print(f"stationary: {history['stationary'][-1]}")
-                    print(f"branch rates L: {history['rates_l'][-1]}")
-                    print(f"branch rates R: {history['rates_r'][-1]}")
+        for epoch in range(start_epoch, config.num_epoch):
+            if config.fault_injection:
+                _inject_fault(config.fault_injection, epoch, start_epoch)
+            t0 = time.time()
+            batches = fixed_batches if fixed_batches is not None else list(
+                site_batches(np.random.default_rng((config.seed, epoch)), S,
+                             config.batch_size, drop_last=True))
+            replays = fused.replays() if fused is not None else 0
+            if fused is not None and batches:
+                # the epoch's site indices in one copy; a step's is a device
+                # copy into the graph's static input
+                all_idx = torch.as_tensor(np.stack(batches), device=dev)
+                for i, idx in enumerate(all_idx):
+                    fused.step(step_seed(config.seed, epoch, 1 + i), idx)
+            else:
+                for i, site_idx in enumerate(batches):
+                    idx = torch.as_tensor(np.asarray(site_idx), device=dev)
+                    sgd_step(model, params, optimizer, sweep_cfg,
+                             step_generator(config.seed, epoch, 1 + i, dev),
+                             leaves.index_select(1, idx), shardings=shardings)
+            res = eval_sweep(step_seed(config.seed, epoch, 0))
+            elbo = float(res.elbo)
+            if fused is not None:
+                graphs["replays"].append(fused.replays() - replays)
+                graphs["capture_seconds"] = fused.capture_seconds()
+            dt = time.time() - t0
+            if shardings is not None:
+                from phylo_tpu_torch.parallel.collectives import (
+                    check_replicated,
+                )
 
-        if (config.checkpoint_every and ckpt_dir
-                and (epoch + 1) % config.checkpoint_every == 0):
-            save_checkpoint(ckpt_dir, params, optimizer, epoch + 1,
-                            history=history)
+                check_replicated(shardings, param_tensors(params))
+
+            with torch.no_grad():
+                history["elbo"].append(elbo)
+                history["Qmatrices"].append(_np(model.Q(
+                    params["model"], dtype=dtype, device=dev)))
+                history["stationary"].append(_np(model.stationary(
+                    params["model"], dtype=dtype, device=dev)))
+                history["left_branches"].append(_np(res.left_branches))
+                history["right_branches"].append(_np(res.right_branches))
+                history["log_weights"].append(_np(res.log_weights))
+                history["log_lik"].append(_np(res.log_likelihood))
+                history["log_lik_R"].append(_np(res.log_likelihood_R))
+                rl, rr = branch_rates(params["branches"])
+                history["rates_l"].append(_np(rl))
+                history["rates_r"].append(_np(rr))
+                history["epoch_seconds"].append(dt)
+                history["ancestors"].append(_np(res.ancestors))
+                history["merged_nodes"].append(_np(res.merged_nodes))
+            if config.collect_trees:
+                history["newick_best"].append(best_newick(
+                    dataset.taxa, history["ancestors"][-1],
+                    history["merged_nodes"][-1], history["left_branches"][-1],
+                    history["right_branches"][-1], history["log_weights"][-1]))
+            if config.collect_jump_chains and save_dir:
+                history["jump_chain_evolution"].append(jump_chain_evolution(
+                    dataset.taxa, history["ancestors"][-1],
+                    history["merged_nodes"][-1]))
+
+            if (config.log_every and writer
+                    and epoch % config.log_every == 0):
+                llr_max = float(np.max(history["log_lik_R"][-1]))
+                print(f"epoch {epoch + 1}/{config.num_epoch}  "
+                      f"ELBO {elbo:.3f}  log_lik_R max {llr_max:.3f}  "
+                      f"{dt:.2f}s")
+                if config.log_params:
+                    with np.printoptions(precision=4, suppress=True):
+                        print(f"Q matrix:\n{history['Qmatrices'][-1]}")
+                        print(f"stationary: {history['stationary'][-1]}")
+                        print(f"branch rates L: {history['rates_l'][-1]}")
+                        print(f"branch rates R: {history['rates_r'][-1]}")
+
+            if (config.checkpoint_every and ckpt_dir
+                    and (epoch + 1) % config.checkpoint_every == 0):
+                save_checkpoint(ckpt_dir, params, optimizer, epoch + 1,
+                                history=history)
+    finally:
+        # the graphs' memory pool is freed once nothing holds them: a
+        # reference cycle can keep this frame alive until the collector
+        # runs, so drop them (and the eval's static outputs) here
+        res0 = res = None
+        if fused is not None:
+            fused.release()
 
     if save_dir:
         from phylo_tpu_torch.train.results import save_results
@@ -445,7 +619,7 @@ def train(dataset, config: TrainConfig):
         save_results(save_dir, config, dataset, history)
     final_elbo = history["elbo"][-1] if history["elbo"] else math.nan
     return TrainResult(params=params, history=history, save_dir=save_dir,
-                       elbo=final_elbo)
+                       elbo=final_elbo, graphs=graphs)
 
 
 def best_newick(taxa, ancestors, merged_nodes, left_branches,
