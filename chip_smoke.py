@@ -46,7 +46,13 @@ script exits non-zero without printing a result:
    K11a at A=4 and 16, and at 4 and 8 blocks of 20), with the tolerances
    printed, and
    timed beside the plain version, the least time the card could take
-   (bound) and, where one exists, a single PyTorch library call; K5 at
+   (bound) and, where one exists, a single PyTorch library call; the
+   Jacobi eigh kernel of the spectral transitions (float64) against
+   torch.linalg.eigh at .dat's 20 states, GY94's 61, a random 64 and
+   the collapsed 9-state JC69 (eigenvalues, reconstruction and
+   orthogonality 1e-12, the backward 1e-9 relative L2), timed beside
+   it, and on a matrix holding a NaN or an infinity (NaN out, no launch
+   error); K5 at
    K=2048 and at VNCSMC's K=32, with some particles at weight 0 (-inf,
    never drawn), by chi-square beside torch.multinomial; and the
    saved-children route (K10 saving + K10's backward) against the
@@ -76,7 +82,9 @@ script exits non-zero without printing a result:
    1086 codons over it: K9b), after a probe of GY94's transitions from a
    float32 eigh (why expm_reversible works in float64), and protein+G4
    on the simulated 16 x 500 protein alignment (K=64, S=256: K9bs
-   blocked; K=256, all 500 sites: K9b blocked), and VNCSMC K=32, M=10
+   blocked; K=256, all 500 sites: K9b blocked) and .dat+F+G4 on it
+   (K=64, S=256: K9bs blocked, spectral transitions through the eigh
+   kernel), and VNCSMC K=32, M=10
    (primate with the defaults: K11b, K7, K11a; with the plain forward;
    with the T-field backward K11c; GTR+G4 on DS1's first 10 taxa at
    S=256: K11b and K7 wide blocked, K11a at 16 dense states, and again
@@ -178,19 +186,20 @@ script exits non-zero without printing a result:
    fails fails the script.  `--phase8` runs phase 1, those phase-3
    checks and phase 8 alone, without a result line.
 9. the fused epoch (TrainConfig.fused_epoch): primate VCSMC K=2048,
-   primate VNCSMC K=32 M=10, DS1 GTR+G4 K=2048 and VNCSMC protein+G4
-   K=32 M=10, each 2 epochs twice with fused_epoch=False (the loop) and
-   twice with True: the same launch counts, graph replays of the steps
-   and steps + 1 in epochs 1 and 2, the ELBOs and final parameters the
-   loop's to the bit on primate VCSMC and wherever the loop repeats
-   itself (else within the loops' spread and 1e-6 relative); printed
-   both ways: seconds an epoch, capture seconds, peak memory, and the
-   second epoch's profile (host dispatches, graph launches, busy
-   share); DS1 VNCSMC twice under the default (printed: do the bits
-   repeat?); sample_phylogenies_with_buffer's two sweeps into one leaf
-   buffer against the plain sweep, to the bit (K1 on primate K=2048,
-   K9f blocked on protein+G4, K9f on GY94); then GY94 K=128 under the
-   default, which the plan leaves uncaptured (its reason printed).
+   primate VNCSMC K=32 M=10, DS1 GTR+G4 K=2048, VNCSMC protein+G4
+   K=32 M=10 and the spectral paths GY94 K=128, GY94+G4 K=128 and
+   .dat+F+G4 K=64, each 2 epochs twice with fused_epoch=False (the
+   loop) and twice with True: the same launch counts, graph replays of
+   the steps and steps + 1 in epochs 1 and 2, the ELBOs and final
+   parameters the loop's to the bit on primate VCSMC, on the spectral
+   paths (whose loops must repeat themselves) and wherever the loop
+   repeats itself (else within the loops' spread and 1e-6 relative);
+   printed both ways: seconds an epoch, capture seconds, peak memory,
+   and the second epoch's profile (host dispatches, graph launches,
+   busy share); DS1 VNCSMC twice under the default, its ELBOs and
+   parameters to the bit; sample_phylogenies_with_buffer's two sweeps
+   into one leaf buffer against the plain sweep, to the bit (K1 on
+   primate K=2048, K9f blocked on protein+G4, K9f on GY94).
    `--phase9` runs phase 1 and phase 9 alone, without a result line.
 
 The kernels line's launches are phase 4's, phase 7's and phase 8's
@@ -216,6 +225,8 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and FP32 (non-tensor)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# FP64 on the tensor cores (NVIDIA's H100 SXM data sheet)
+FP64_TC_OPS_PER_S = 67e12
 K, N, S_BATCH, S_FULL, A = 2048, 12, 256, 898, 4
 K_TWIST, M_TWIST = 32, 10          # VNCSMC: reference autorun.sh
 R = N - 1
@@ -1114,6 +1125,138 @@ def check_k4(ek, gen, dev, label, Q, b, timed=True, order=12, squarings=12):
                plain_ms=plain_b, bound_ms=bb_, bound_by=byb,
                library_ms=lib_b)
     return fwd, bwd
+
+
+def eigh_cases():
+    """The symmetrized generators the eigh kernel takes on the main paths
+    and at its widest: .dat's 20 states (the seeded .dat's F
+    frequencies), GY94's 61 (betacorona1's F61, initial kappa and omega),
+    a random reversible 64-state generator, and JC69 on 9 states, whose
+    spectrum collapses (eight equal eigenvalues)."""
+    from phylo_tpu_torch.models.empirical import EmpiricalProtein
+    from phylo_tpu_torch.models.substitution import get_model
+    from phylo_tpu_torch.train.trainer import _resolve_codon_frequencies
+
+    f64 = dict(dtype=torch.float64, device="cpu")
+
+    def sym(Q, pi):
+        d = torch.sqrt(pi)
+        S = Q * (d[:, None] / d[None, :])
+        return (S + S.T) / 2
+
+    dat = EmpiricalProtein.from_paml(PROT_DAT, plus_f=True)
+    p = dat.init_params(**f64)
+    ds = load("betacorona1", codons=True)
+    gy = _resolve_codon_frequencies(get_model("gy94", A=ds.A), ds)
+    q = gy.init_params(**f64)
+    rng = np.random.default_rng(64)
+    pi = rng.dirichlet(np.ones(64))
+    E = rng.gamma(1.0, size=(64, 64))
+    Q64 = (E + E.T) / 2 * pi[None]
+    np.fill_diagonal(Q64, 0.0)
+    Q64 -= np.diag(Q64.sum(1))
+    return {"dat 20": sym(dat.Q(p, **f64), dat.stationary(p, **f64)),
+            "GY94 61": sym(gy.Q(q), gy.stationary(q, **f64)),
+            "random 64": sym(torch.tensor(Q64), torch.tensor(pi)),
+            "JC69 9": torch.full((9, 9), 1.0 / 9, **f64)
+            - torch.eye(9, **f64)}
+
+
+def eigh_bound(A):
+    """(ms, by): the least time the card could take for one A x A
+    symmetric eigendecomposition with its eigenvectors, whatever the
+    method: the larger of S read and (w, U) written once at the HBM rate
+    and 9 A^3 FP64 operations (the symmetric QR algorithm's count with
+    the eigenvectors: Golub & Van Loan, Matrix Computations, 4th ed.,
+    section 8.3.5) at the card's FP64 tensor-core peak, 67 TFLOP/s
+    (NVIDIA's H100 SXM data sheet)."""
+    t_ops = 9 * A ** 3 / FP64_TC_OPS_PER_S * 1e3
+    t_bytes = (2 * A * A + A) * 8 / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_eigh_non_finite(dev):
+    """A NaN or an infinity in S (what a non-finite parameter would
+    bring): the kernel launches without error and returns NaN in every
+    output, with a well-formed matrix beside it in the same batch
+    decomposed as alone; the card stays usable."""
+    from phylo_tpu_torch.models import eigh_kernel
+
+    S = eigh_cases()["GY94 61"].to(dev)
+    alone = eigh_kernel.eigh_fwd(S)
+    for bad in (float("nan"), float("inf")):
+        X = S.clone()
+        X[3, 17] = X[17, 3] = bad
+        w, U, sweeps = eigh_kernel.eigh_fwd(torch.stack([X, S]))
+        torch.cuda.synchronize()
+        require(bool(torch.isnan(w[0]).all()) and bool(
+            torch.isnan(U[0]).all()) and int(sweeps[0]) == 0,
+            f"eigh with {bad} in S: outputs not all NaN")
+        require(torch.equal(w[1], alone[0]) and torch.equal(U[1], alone[1]),
+                f"eigh with {bad} beside it: the finite matrix's result "
+                "changed")
+    log("  eigh with NaN or inf in S: every output NaN, no launch error; "
+        "the finite matrix of the same batch the bits it has alone")
+
+
+def check_eigh(dev):
+    """The Jacobi eigh kernel (models.eigh_kernel, float64) against
+    torch.linalg.eigh on the card at `eigh_cases`: eigenvalues within
+    1e-12 of the largest, U diag(w) U^T within 1e-12 of S, U orthogonal
+    within 1e-12, the backward of a gauge-invariant loss within 1e-9
+    relative L2 of torch.linalg.eigh's autograd, two calls the same bits
+    and one device kernel a call (a captured graph); timed (CUDA events)
+    beside torch.linalg.eigh, the plain version and the library call at
+    once, and `eigh_bound`; then `check_eigh_non_finite`.  The kernels
+    line carries GY94's 61 states."""
+    from phylo_tpu_torch.models import eigh_kernel
+
+    row = None
+    for label, S_cpu in eigh_cases().items():
+        S = S_cpu.to(dev)
+        A = S.shape[0]
+        w, U, sweeps = eigh_kernel.eigh_fwd(S)
+        wr, _ = torch.linalg.eigh(S)
+        eye = torch.eye(A, dtype=S.dtype, device=dev)
+        w_err = float((w - wr).abs().max() / wr.abs().max())
+        recon = float(((U * w) @ U.T - S).abs().max())
+        orth = float((U.T @ U - eye).abs().max())
+        rng = np.random.default_rng(A)
+        G = torch.tensor(rng.normal(size=(A, A)), device=dev)
+        X0 = torch.tensor(rng.normal(0.0, 1e-3, (A, A)), device=dev)
+
+        def loss(fn, X):
+            ww, UU = fn(S + (X + X.T) / 2)
+            return torch.sum(G * ((UU * torch.exp(0.3 * ww)) @ UU.T)) \
+                + torch.sum(ww * torch.arange(A, device=dev))
+
+        Xk = X0.clone().requires_grad_(True)
+        Xr = X0.clone().requires_grad_(True)
+        gk, = torch.autograd.grad(loss(eigh_kernel.eigh, Xk), Xk)
+        gr, = torch.autograd.grad(loss(torch.linalg.eigh, Xr), Xr)
+        bwd = float(torch.norm(gk - gr) / torch.norm(gr))
+        require(w_err <= 1e-12 and recon <= 1e-12 and orth <= 1e-12
+                and bwd <= 1e-9,
+                f"eigh {label}: eigenvalues {w_err:.3e}, reconstruction "
+                f"{recon:.3e}, orthogonality {orth:.3e}, backward {bwd:.3e}")
+        repeat_checks(f"eigh {label}", lambda: eigh_kernel.eigh_fwd(S)[:2],
+                      kernel="jacobi_eigh_kernel")
+        n_sweeps = int(sweeps)
+        ms = time_ms(lambda: eigh_kernel.eigh_fwd(S))
+        lib = time_ms(lambda: torch.linalg.eigh(S))
+        b_ms, b_by = eigh_bound(A)
+        log(f"  eigh {label}: {n_sweeps} sweeps; eigenvalues {w_err:.3e} "
+            f"of the largest, reconstruction {recon:.3e}, orthogonality "
+            f"{orth:.3e}, backward {bwd:.3e} rel L2 (tol 1e-12, 1e-12, "
+            f"1e-12, 1e-9); kernel {ms:.4f} ms, torch.linalg.eigh (the "
+            f"plain version and the library call) {lib:.4f} ms, bound "
+            f"{b_ms:.6f} ms (by {b_by}: the larger of S, w and U at "
+            f"3.35 TB/s and 9 A^3 FP64 operations at 67 TFLOP/s)")
+        if label == "GY94 61":
+            row = dict(max_abs_err=recon, ms=ms, plain_ms=lib,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    check_eigh_non_finite(dev)
+    return row
 
 
 def check_k4_all(ek, gen, dev):
@@ -2104,6 +2247,15 @@ PROT_TWIST_EXACT = {
         1 + 2 * (S_PROT // S_BATCH + 1)) + PROT_STEPS,
     "merge_bwd": PROT_STEPS, "pair_loglik_fwd": 0, "pair_ll_bwd_wide": 0,
     "pair_ll_bwd_t": 0}
+
+
+def eigh_calls(S):
+    """Launches of the eigh kernel on a spectral path (initial eval + 2
+    epochs): one a transition call, two an SGD step (the sweep and the
+    manual VJP's recompute) and one an eval sweep."""
+    return 1 + 2 * (2 * (S // S_BATCH) + 1)
+
+
 PATHS = {
     "vcsmc": dict(
         dataset="primate_data", band=(-8000.0, -5500.0),
@@ -2183,11 +2335,12 @@ PATHS = {
         train=dict(n_particles=K_CODON, substitution_model="gy94"),
         argv=["--codons=True", f"--n_particles={K_CODON}"],
         kernels=("fused_rank_update_wide", "fused_rank_bwd_saved_wide",
-                 "categorical"),
+                 "categorical", "eigh_jacobi"),
         exact={"fused_rank_update_wide": (N_CODON - 1) * (1 + 2 * (
             S_CODON // S_BATCH + 1)),
                "fused_rank_bwd_saved_wide": (N_CODON - 1) * 2 * (
-            S_CODON // S_BATCH)}),
+            S_CODON // S_BATCH),
+               "eigh_jacobi": eigh_calls(S_CODON)}),
     # protein + Gamma4 (80 planes) on the simulated 16 x 500 alignment: an
     # epoch is 1 SGD step of 256 sites (K=256: the children would take
     # 629 MB, over SAVE_CHILDREN_CAP, so K9b blocked) + the 500-site eval
@@ -2285,11 +2438,13 @@ PATHS = {
         train=dict(n_particles=K_CODON, substitution_model="gy94+g4"),
         argv=["--codons=True", "--model=gy94+g4", f"--n_particles={K_CODON}"],
         kernels=("fused_rank_update_wide_blocked",
-                 "fused_rank_bwd_wide_blocked", "categorical"),
+                 "fused_rank_bwd_wide_blocked", "categorical",
+                 "eigh_jacobi"),
         exact={"fused_rank_update_wide_blocked": (N_CODON - 1) * (1 + 2 * (
             S_CODON // S_BATCH + 1)),
                "fused_rank_bwd_wide_blocked": (N_CODON - 1) * 2 * (
-            S_CODON // S_BATCH), "fused_rank_bwd_saved_wide_blocked": 0}),
+            S_CODON // S_BATCH), "fused_rank_bwd_saved_wide_blocked": 0,
+               "eigh_jacobi": eigh_calls(S_CODON)}),
     "protein_dat_f_g4": dict(
         dataset=PROT_FASTA, band=(-16000.0, -9000.0), profile=False,
         train=dict(n_particles=K_PROT_SAVED, gamma_categories=4,
@@ -2297,11 +2452,13 @@ PATHS = {
         argv=[f"--paml_dat={PROT_DAT}", "--plus_f=True",
               "--gamma_categories=4", f"--n_particles={K_PROT_SAVED}"],
         kernels=("fused_rank_update_wide_blocked",
-                 "fused_rank_bwd_saved_wide_blocked", "categorical"),
+                 "fused_rank_bwd_saved_wide_blocked", "categorical",
+                 "eigh_jacobi"),
         exact={"fused_rank_update_wide_blocked": (N_PROT - 1) * (1 + 2 * (
             S_PROT // S_BATCH + 1)),
                "fused_rank_bwd_saved_wide_blocked": (N_PROT - 1) * 2 * (
-            S_PROT // S_BATCH)}),
+            S_PROT // S_BATCH),
+               "eigh_jacobi": eigh_calls(S_PROT)}),
 }
 
 
@@ -2392,7 +2549,7 @@ def profile_epoch(name):
         opt = _optimizer(cfg, param_tensors(params))
         sweep_cfg = _sweep_config(cfg)
         kernels.TWIST_BWD_V2 = path.get("bwd_v2", False)
-        captured = capture_plan(cfg, model)[0]
+        captured = capture_plan(cfg)[0]
         if captured:
             fe = _FusedEpoch(model, params, opt, sweep_cfg, leaves, S_BATCH,
                              torch.device("cuda"))
@@ -3356,10 +3513,11 @@ def mesh_phase(ext, dev, card):
 
 
 # ---------------------------------------------------------------- phase 9
-# the fused epoch, fused_epoch=False against True; GY94's spectral path
-# runs uncaptured
-PHASE9 = ("vcsmc", "vncsmc", "gtr_g4_ds1", "vncsmc_protein_g4")
-PHASE9_SPECTRAL = "gy94_codon"
+# the fused epoch, fused_epoch=False against True; the spectral paths
+# (captured since their eigengap is decided on the device) held to the bit
+PHASE9_SPECTRAL = ("gy94_codon", "gy94_g4", "protein_dat_f_g4")
+PHASE9 = ("vcsmc", "vncsmc", "gtr_g4_ds1",
+          "vncsmc_protein_g4") + PHASE9_SPECTRAL
 # runtime calls that hand the card work, as the trace names them
 DISPATCH_PREFIXES = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
                      "cuGraphLaunch", "cudaMemcpy", "cuMemcpy",
@@ -3524,8 +3682,10 @@ def fused_epoch_phase(ext):
     one run of each): the same launches, graph replays an epoch of the
     steps + 1 after the warm-up step and the initial eval, and fused =
     loop to the bit wherever the loop repeats itself (else within the
-    loops' spread and 1e-6 relative); then GY94 under the default, which
-    the plan leaves uncaptured.  Returns {path: printed numbers}."""
+    loops' spread and 1e-6 relative), and always on primate VCSMC and the
+    spectral paths (GY94, GY94+G4, .dat+F+G4: eigh kernel, eigengap on
+    the device); then DS1 VNCSMC twice under the default, to the bit.
+    Returns {path: printed numbers}."""
     from phylo_tpu_torch.train.trainer import param_tensors
 
     out = {}
@@ -3558,7 +3718,9 @@ def fused_epoch_phase(ext):
         bits = all(r["res"].history["elbo"] == ref.history["elbo"]
                    and same_bits(param_tensors(r["res"].params),
                                  param_tensors(ref.params)) for r in fused)
-        if repeats or name == "vcsmc":
+        if repeats or name == "vcsmc" or name in PHASE9_SPECTRAL:
+            require(repeats or name not in PHASE9_SPECTRAL,
+                    f"phase 9 {name}: the loop does not repeat itself")
             require(bits, f"phase 9 {name}: the fused ELBOs "
                     f"{[r['res'].history['elbo'] for r in fused]} or "
                     "parameters are not the loop's "
@@ -3597,8 +3759,9 @@ def fused_epoch_phase(ext):
         out[name] = row
         del loops, fused
         torch.cuda.empty_cache()
-    # ROADMAP Queue 3 lead 1: DS1 VNCSMC, whose runs have split at epoch
-    # 2, twice under the default (printed, not held)
+    # DS1 VNCSMC twice under the default: the twist's root log-likelihood
+    # cotangents summed in a fixed order (smc.twist.gather_cols), so the
+    # runs agree to the bit
     a, b = (fused_run(ext, "vncsmc_gtr_g4_ds1", True)["res"]
             for _ in range(2))
     same = a.history["elbo"] == b.history["elbo"] and same_bits(
@@ -3607,16 +3770,9 @@ def fused_epoch_phase(ext):
         f"{json.dumps([a.history['elbo'], b.history['elbo']])}; the same "
         f"bits (parameters too): {same}; s/epoch "
         f"{[a.history['epoch_seconds'][-1], b.history['epoch_seconds'][-1]]}")
+    require(same, "phase 9 vncsmc_gtr_g4_ds1: two runs differ")
     del a, b
     leaf_buffer_check(ext)
-    r = fused_run(ext, PHASE9_SPECTRAL, True, num_epoch=1)
-    g = r["res"].graphs
-    require(not g["captured"] and "spectral" in g["reason"]
-            and math.isfinite(r["res"].elbo),
-            f"phase 9 {PHASE9_SPECTRAL}: {g}, ELBO {r['res'].elbo}")
-    log(f"phase 9 {PHASE9_SPECTRAL} K={K_CODON} under the default: ELBO "
-        f"{r['res'].elbo:.3f}, {g['reason']}; {r['epoch_s']:.3f} s for "
-        "its epoch")
     return out
 
 
@@ -3704,6 +3860,7 @@ def main(argv):
     # K4 on primate VCSMC's batch, DS1 GTR+G4's (the kernels line) and the
     # twist's; ragged and single-element batches; the generic instance
     k4f, k4b = check_k4_all(expm_kernel, gen, dev)
+    k_eigh = check_eigh(dev)
     k5 = check_k5(resample_kernel, gen, dev)
     check_k5(resample_kernel, gen, dev, K_TWIST)      # VNCSMC's K
     k7 = check_k7(kernels, gen, dev)
@@ -3852,6 +4009,11 @@ def main(argv):
                          route="fused_rank_bwd_saved_wide_blocked")
     fixed_decision_check(dev, spec="reference+g4", dataset=PROT_FASTA,
                          Kd=K_PROT, route="fused_rank_bwd_wide_blocked")
+    # .dat+F+G4 (spectral transitions through the eigh kernel) at its
+    # main path's K=64, under the cap (K9bs blocked)
+    fixed_decision_check(dev, spec=f"{PROT_DAT}+f+g4", dataset=PROT_FASTA,
+                         Kd=K_PROT_SAVED, S=S_BATCH,
+                         route="fused_rank_bwd_saved_wide_blocked")
     # over 128 planes: protein+G8 at K=64, S=256 (315 MB over the cap:
     # K9b blocked, one group), GY94+G4 at the main path's K=128, S=256
     # (over the cap: K9b blocked in 2 groups), VNCSMC protein+G8 on the
@@ -3909,6 +4071,9 @@ def main(argv):
          "phylo_tpu/models/expm_kernel.py:169", k4b),
         ("categorical", "phylo_tpu_torch/csrc/resample_kernels.cu",
          "phylo_tpu/smc/resample_kernel.py:93", k5),
+        # no pallas_call: JAX's jnp.linalg.eigh in expm_reversible
+        ("eigh_jacobi", "phylo_tpu_torch/csrc/eigh_kernels.cu",
+         "phylo_tpu/models/expm.py:308", k_eigh),
         ("pair_ll_bwd", "phylo_tpu_torch/csrc/twist_kernels.cu",
          "phylo_tpu/pruning/kernels.py:1059", k7),
         ("fused_merge_loglik", "phylo_tpu_torch/csrc/twist_kernels.cu",

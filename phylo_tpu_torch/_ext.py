@@ -38,7 +38,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_ROOT = os.path.join(_HERE, "_build")
 SOURCES = ("rank_kernels", "expm_kernels", "resample_kernels",
-           "twist_kernels", "wide_kernels", "twist_wide_kernels")
+           "twist_kernels", "wide_kernels", "twist_wide_kernels",
+           "eigh_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

@@ -1,7 +1,8 @@
 """Batched matrix exponentials of CTMC rate matrices (port of
 phylo_tpu/models/expm.py: the JC69 closed form, the uniformized
 delta-form chain, the Poisson power table `expm_poisson` and the
-spectral `expm_reversible`).
+spectral `expm_reversible`, whose eigendecomposition is
+models.eigh_kernel's: a hand-written Jacobi kernel on the card).
 
 Uniformization: Q = mu (R - I) with mu >= max_i |Q_ii| and R >= 0, so
 expm(Q b) = exp(-mu b) expm(mu b R); with static scaling-and-squaring
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from phylo_tpu_torch.device import device_constant
+from phylo_tpu_torch.models.eigh_kernel import eigh
 
 CLAMP = 80.0     # mu * b is clamped here: P is the stationary projector
 
@@ -196,15 +198,21 @@ def expm_reversible(Q, pi, b, *, clip=True, chain_fallback=True,
 
         expm(Q b)^T = diag(d) U diag(e^{w b}) U^T diag(1/d):
 
-    one A x A eigendecomposition per call, then one batched matmul.
+    one A x A eigendecomposition per call (models.eigh_kernel.eigh: the
+    Jacobi kernel on the card, torch.linalg.eigh on the CPU), then one
+    batched matmul.
 
     Gradients flow through eigh's backward, whose eigenvector terms
     divide by eigenvalue gaps.  chain_fallback=True routes a collapsed
     spectrum (min gap < gap_tol * max|w|) through `expm_ctmc(Q.T, b)`
-    instead.  The JAX package decides with a lax.cond on a second
-    eigvalsh; here the gap, a predicate that is never differentiated,
-    comes from the same eigh's eigenvalues, detached, and the branch is
-    taken on the host: ONE host synchronisation per call.
+    instead, decided on the device as the JAX package's lax.cond decides
+    it: both branches are computed and `torch.where` keeps one, so no
+    value is read on the host and a CUDA graph can hold the call.  The
+    gap, a predicate that is never differentiated, comes from the
+    eigenvalues, detached (the JAX package probes a second eigvalsh).
+    The branch not taken gets an exactly zero cotangent, and eigh's
+    backward sets the terms of equal eigenvalues to 0 (not 1/0), so the
+    gradient is the taken branch's alone, never NaN.
 
     clip=True zeroes the tiny negative entries the reconstruction can
     produce (exact expm is nonnegative), by torch.maximum(PT, 0), whose
@@ -229,17 +237,16 @@ def expm_reversible(Q, pi, b, *, clip=True, chain_fallback=True,
     d = torch.sqrt(torch.clamp(pi, min=1e-30))
     S = Q * (d[:, None] / d[None, :])
     S = (S + S.T) / 2          # exact symmetry for eigh
-    w, U = torch.linalg.eigh(S)
-    if chain_fallback:
-        wd = w.detach()
-        scale = torch.clamp(torch.max(torch.abs(wd)), min=1e-30)
-        gap = torch.min(torch.diff(wd)) / scale
-        if float(gap) < gap_tol:
-            return expm_ctmc(Q.T, b)
+    w, U = eigh(S)
     E = torch.exp(w * b[..., None])                    # (..., A)
     left = (U * d[:, None]) * E[..., None, :]          # (..., A, A)
     right = (U / d[:, None]).T
     PT = exact_matmul(left, right)
     if clip:
         PT = torch.maximum(PT, torch.zeros_like(PT))
-    return PT
+    if not chain_fallback:
+        return PT
+    wd = w.detach()
+    scale = torch.clamp(torch.max(torch.abs(wd)), min=1e-30)
+    gap = torch.min(torch.diff(wd)) / scale
+    return torch.where(gap < gap_tol, expm_ctmc(Q.T, b), PT)

@@ -135,6 +135,35 @@ def pick(pool, choice, M):
     return pool[choice // M, choice % M, ks]
 
 
+class _FixedOrderGather(torch.autograd.Function):
+    """torch.gather(x, 1, index) for a 2-D x whose cotangent sums the
+    duplicate columns by index_put_(accumulate=True), which adds each run
+    of equal indices in order (on the card after sorting them): the same
+    bits every run, and torch.gather's own on the CPU.  torch.gather's
+    CUDA backward, scatter_add_, adds them with float atomics, in any
+    order once three or more meet (each root of a forest of n stands in
+    n - 1 candidate pairs)."""
+
+    @staticmethod
+    def forward(ctx, x, index):
+        ctx.save_for_backward(index)
+        ctx.width = x.shape[1]
+        return torch.gather(x, 1, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        index, = ctx.saved_tensors
+        K, n = index.shape[0], ctx.width
+        flat = (torch.arange(K, device=index.device)[:, None] * n
+                + index).reshape(-1)
+        gx = g.new_zeros((K * n,)).index_put_((flat,), g.reshape(-1),
+                                              accumulate=True)
+        return gx.view(K, n), None
+
+
+gather_cols = _FixedOrderGather.apply
+
+
 def pair_positions(pairs, K):
     """(K, 2C) positions [i..., j...] of a (C, 2) pair table."""
     return pairs.T.reshape(-1)[None].expand(K, -1)
@@ -176,11 +205,13 @@ def pot_terms(pairs, slot, leaf_counts, row_of_node, node_lsc, root_ll, N,
         -ll(left) - ll(right) + [prior(merged) - prior(l) - prior(r)]
 
     with ll(pos) = root_ll(pos) - logscale(node at pos).  `node_lsc`
-    (K, r) holds the internal nodes' log-scales (None at rank 0)."""
+    (K, r) holds the internal nodes' log-scales (None at rank 0).
+    root_ll's cotangent sums each root's pairs in a fixed order
+    (`gather_cols`)."""
     C = pairs.shape[0]
     pos = pair_positions(pairs, slot.shape[0])
     _, rows, q, is_leaf = lookup_nodes(slot, row_of_node, pos, N)
-    rll = torch.gather(root_ll, 1, pos) - node_logscales(
+    rll = gather_cols(root_ll, pos) - node_logscales(
         node_lsc, rows, q, is_leaf, dtype)
     cts = torch.gather(leaf_counts, 1, pos)
     c1, c2 = cts[:, :C], cts[:, C:]

@@ -19,10 +19,11 @@ later call.  A replay reads the batch's site indices from a static device
 tensor and draws from a generator registered with the graph and
 reseeded to the loop's (seed, epoch, step) seed, so the values are the
 loop's.  `capture_plan` says, from the configuration alone, whether a
-run is captured: not on the CPU (no graphs; the loop gives the same
-values), on a mesh (gloo cannot be captured; NCCL capture is not
-tried), nor for a spectral `expm_reversible` model (GY94, .dat: a host
-sync on the eigengap a call).  A failed capture or replay raises.
+run is captured: every model on one card (the spectral GY94 and .dat
+models too: `expm_reversible` decides its eigengap on the device and
+decomposes with a kernel), not on the CPU (no graphs; the loop gives
+the same values), nor on a mesh (gloo cannot be captured; NCCL capture
+is not tried).  A failed capture or replay raises.
 
 Checkpoints (train/checkpoint.py) hold the parameters, the optimizer's
 state and the history; with those streams, a run resumed from the
@@ -331,10 +332,11 @@ def evaluate(model, params, sweep_cfg, generator, leaves, *,
                                   shardings=shardings)
 
 
-def capture_plan(config, model, shardings=None, device=None):
+def capture_plan(config, shardings=None, device=None):
     """(captured, reason): whether `train` runs this configuration's SGD
     steps and eval sweeps as CUDA graph replays (TrainConfig.fused_epoch),
-    decided from the configuration before the run; touches no device."""
+    decided from the configuration before the run (every model alike);
+    touches no device."""
     dev = torch.device(device or config.device or "cuda")
     if not config.fused_epoch:
         return False, "off (fused_epoch=False): one host dispatch a kernel"
@@ -344,14 +346,6 @@ def capture_plan(config, model, shardings=None, device=None):
     if shardings is not None or config.mesh_shape:
         return False, ("not captured on a mesh: gloo cannot be captured "
                        "and NCCL capture is not tried")
-    m = model
-    while m is not None:
-        if getattr(m, "spectral", False):
-            return False, (
-                f"not captured: {type(m).__name__}'s spectral "
-                "expm_reversible reads its eigengap on the host once a "
-                "call, and eigh checks its result on the host")
-        m = getattr(m, "base", None)
     return True, ("captured: one CUDA graph replay an SGD step and one an "
                   "eval sweep")
 
@@ -469,7 +463,7 @@ def train(dataset, config: TrainConfig):
         start_epoch, restored_history = restore_checkpoint(
             resume_from, params, optimizer)
 
-    captured, reason = capture_plan(config, model, shardings, dev)
+    captured, reason = capture_plan(config, shardings, dev)
     if writer and config.log_every:
         print(f"Fused epoch: {reason}")
     fused = None

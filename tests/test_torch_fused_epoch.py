@@ -32,7 +32,7 @@ from phylo_tpu_torch.models.codon import (
 )
 from phylo_tpu_torch.models.empirical import EmpiricalProtein
 from phylo_tpu_torch.models.substitution import (
-    GTR, HKY, FixedQ, GammaSites, ReferenceQ, clear_memos,
+    HKY, FixedQ, GammaSites, ReferenceQ, clear_memos,
 )
 from phylo_tpu_torch.params import params_from_numpy
 from phylo_tpu_torch.smc.sweep import (
@@ -114,28 +114,30 @@ def test_fused_epoch_field_has_jax_default_and_cpu_bits_match_loop():
 @pytest.mark.parametrize("case", ["cpu", "spectral", "spectral_mixture",
                                   "mesh", "learned_q", "gamma", "off"])
 def test_capture_plan(case):
-    cfg, model, dev = TrainConfig(), ReferenceQ(4), "cuda"
+    """Decided from the configuration alone: every model is captured on
+    the card (the spectral ones too: the eigengap is decided on the
+    device), nothing on the CPU, on a mesh or with fused_epoch off."""
+    cfg, dev = TrainConfig(), "cuda"
     want, word = True, "captured"
     if case == "cpu":
         dev, want, word = "cpu", False, "CPU"
     elif case == "spectral":
-        model, want, word = GY94(), False, "spectral"
+        cfg = TrainConfig(substitution_model="gy94")
     elif case == "spectral_mixture":
-        model = GammaSites(EmpiricalProtein(np.ones((20, 20)) - np.eye(20),
-                                            np.full(20, 0.05)), G=4)
-        want, word = False, "spectral"
+        cfg = TrainConfig(paml_dat="lg.dat", plus_f=True, gamma_categories=4)
     elif case == "mesh":
         cfg, want, word = TrainConfig(mesh_shape=(2,)), False, "mesh"
+    elif case == "learned_q":
+        cfg = TrainConfig(substitution_model="gtr")
     elif case == "gamma":
-        model = GammaSites(GTR(4), G=4)
+        cfg = TrainConfig(substitution_model="gtr", gamma_categories=4)
     elif case == "off":
         cfg, want, word = TrainConfig(fused_epoch=False), False, "off"
-    captured, reason = capture_plan(cfg, model, None, dev)
+    captured, reason = capture_plan(cfg, None, dev)
     assert captured is want and word in reason
     # the device may come from the configuration; None means cuda
-    assert capture_plan(TrainConfig(device=dev, mesh_shape=cfg.mesh_shape,
-                                    fused_epoch=cfg.fused_epoch),
-                        model) == (captured, reason)
+    assert capture_plan(TrainConfig(**{**cfg.__dict__, "device": dev})) == (
+        captured, reason)
 
 
 # ------------------------------------------------------------------ (c)
