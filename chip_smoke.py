@@ -31,7 +31,11 @@ script exits non-zero without printing a result:
    4, as the twist takes a rate mixture) and dense (the same
    transitions as 16 block-diagonal states), each in an A/B against the
    plain forward, K7 wide blocked and dense and K11c at DS1 KC=896 and
-   timed at KC=11,232, K11c (K7's bodies in their T-field form) also at
+   timed at KC=11,232, K11b and K7 wide dense at GY94's rank 0 (61
+   states, KC = 32 x 136, S=256) beside their plain versions (every K7
+   wide and K11c call's dP held entry by entry, its dpi entry by entry
+   against the sum of its terms' magnitudes), K11c
+   (K7's bodies in their T-field form) also at
    primate rank 0 (A=4, KC=2,112, where phase 4 launches it), untimed
    at the later ranks' KC=480 and 32 (4 and 8 warps a row) and small,
    each K11c shape called twice through its launcher (the same bits)
@@ -43,8 +47,8 @@ script exits non-zero without printing a result:
    K7 wide blocked and K11c blocked at KC=896 and timed at 3,840), the
    plan's block groups against one group and 2 a group (dm to the bit),
    and 3 x 20, 8 x 20, 4 x 61 and 17 x 4 over two site tiles small;
-   K11a at A=4 and 16, and at 4 and 8 blocks of 20), with the tolerances
-   printed, and
+   K11a at A=4, 16 and 61 (its wide body), and at 4 and 8 blocks of 20),
+   with the tolerances printed, and
    timed beside the plain version, the least time the card could take
    (bound) and, where one exists, a single PyTorch library call; the
    Jacobi eigh kernel of the spectral transitions (float64) against
@@ -52,7 +56,8 @@ script exits non-zero without printing a result:
    the collapsed 9-state JC69 (eigenvalues, reconstruction and
    orthogonality 1e-12, the backward 1e-9 relative L2), timed beside
    it, and on a matrix holding a NaN or an infinity (NaN out, no launch
-   error); K5 at
+   error), and under a lowered sweep cap at .dat's and GY94's matrices
+   (their own sweeps: the uncapped bits; one fewer: NaN); K5 at
    K=2048 and at VNCSMC's K=32, with some particles at weight 0 (-inf,
    never drawn), by chi-square beside torch.multinomial; and the
    saved-children route (K10 saving + K10's backward) against the
@@ -94,7 +99,12 @@ script exits non-zero without printing a result:
    K11a at 80 planes), each against one CPU run; protein+G8 (K=256,
    S=256: K9b blocked), GY94+G4 (K=128, S=256: K9b blocked in block
    groups) and VNCSMC protein+G8 (6 taxa, 128 sites: K11a on 8 blocks
-   of 20);
+   of 20), and VNCSMC GY94 on betacorona1's first 5 taxa and 64 codons
+   (K11b and K7 wide dense at 61 states, K11a's wide body, the eigh
+   kernel) in one pair chunk a rank and again with pair_chunk=4 on the
+   card (rank 0 in 3 uneven chunks), against the same CPU run and the
+   two card runs against each other (1e-5; the chunks' extra launches
+   exact);
 4. the main paths: two epochs each of VCSMC training on primate (N=12,
    S=898) at K=2048, of VNCSMC (twisted) training at K=32, M=10, of
    GTR+G4 VCSMC training on DS1 (N=27, S=1949) at K=2048, of GY94
@@ -110,7 +120,14 @@ script exits non-zero without printing a result:
    counts) and again with the T-field backward (K11c blocked), of
    protein+G8 at K=256 and VNCSMC protein+G8 at K=32, M=10 on the same
    alignment and GY94+G4 on betacorona1's codons at K=128 (exact launch
-   counts each), site
+   counts each), of VNCSMC over the spectral models at K=32, M=10 (GY94
+   on betacorona1's codons: K11b and K7 wide dense at 61 states, K11a's
+   wide body; GY94+G4: K11b and K7 wide blocked, 4 blocks of 61;
+   .dat+F+G4 on the protein alignment), their pair chunks from
+   TwistConfig.chunk_budget_mb (each rank's chunks printed, exact launch
+   counts from the same rule), and of GY94+G8 VCSMC at K=128 (488
+   planes: K9f blocked's group body, 2 blocks a group), each with its
+   peak torch.cuda.max_memory_allocated printed, site
    batch 256, through phylo_tpu_torch.cli.runner, with every kernel's
    launch counter set to 0 before each path and read after, under the
    default fused epoch (the captured paths' SGD steps and eval sweeps as
@@ -181,14 +198,18 @@ script exits non-zero without printing a result:
    VNCSMC K=32, M=10 on an ('s',) mesh of 2 (K11b, K7, K11a, K8 per
    shard) against phase 3's CPU run; (e) the data cotangents of item 8b
    (dleaves, dw) are phase 3's lines of primate K=2048 S=256 (K2) and
-   DS1 GTR+G4 K=128 (K3 blocked).  Each rank prints its launches, its
+   DS1 GTR+G4 K=128 (K3 blocked); (e) primate VNCSMC K=32 on the ('k',)
+   mesh of 2, twice: the ELBO and gradients the same bits both times
+   (the roots' cotangents summed in a fixed order), and against phase
+   3's CPU float64 run.  Each rank prints its launches, its
    collective calls and bytes a sweep and its wall seconds; a rank that
    fails fails the script.  `--phase8` runs phase 1, those phase-3
    checks and phase 8 alone, without a result line.
 9. the fused epoch (TrainConfig.fused_epoch): primate VCSMC K=2048,
    primate VNCSMC K=32 M=10, DS1 GTR+G4 K=2048, VNCSMC protein+G4
-   K=32 M=10 and the spectral paths GY94 K=128, GY94+G4 K=128 and
-   .dat+F+G4 K=64, each 2 epochs twice with fused_epoch=False (the
+   K=32 M=10 and the spectral paths GY94 K=128, GY94+G4 K=128,
+   .dat+F+G4 K=64 and VNCSMC GY94 and .dat+F+G4 K=32 M=10, each 2 epochs
+   twice with fused_epoch=False (the
    loop) and twice with True: the same launch counts, graph replays of
    the steps and steps + 1 in epochs 1 and 2, the ELBOs and final
    parameters the loop's to the bit on primate VCSMC, on the spectral
@@ -218,6 +239,7 @@ import re
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -241,7 +263,7 @@ K_PROT, K_PROT_SAVED, N_PROT, S_PROT, A_PROT = 256, 64, 16, 500, 20
 # rate mixtures over more than 128 planes (K9 blocked in block groups
 # where one does not fit): protein + Gamma8 (IQ-TREE's +G8, MrBayes'
 # ngammacat=8) on the same alignment, GY94 + Gamma4 on betacorona1
-G_GAMMA8, G_GY94 = 8, 4
+G_GAMMA8, G_GY94, G_GY94G8 = 8, 4, 8
 PROT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "results", "chip_smoke")
 PROT_FASTA = os.path.join(PROT_DIR, "protein_16x500.fa")
@@ -331,6 +353,16 @@ def max_rel(a, b):
     a = a.double().cpu()
     b = b.double().cpu()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def entry_rel(a, b, scale=None):
+    """Entry by entry: the largest |a - b| / (scale + 1e-30), scale |b|
+    where not given, and the median |b|, on the device (a float32
+    tensor's entries span many decades, where a ratio of maxima holds
+    only the largest)."""
+    scale = b.float().abs() if scale is None else scale
+    d = (a.float() - b.float()).abs() / (scale + 1e-30)
+    return float(d.max()), float(b.float().abs().median())
 
 
 def max_abs(a, b):
@@ -1199,6 +1231,31 @@ def check_eigh_non_finite(dev):
         "the finite matrix of the same batch the bits it has alone")
 
 
+def check_eigh_cap(S, n_sweeps, label):
+    """The sweep cap (models.eigh_kernel.eigh_fwd's max_sweeps, 40 by
+    default): at the sweeps S takes, the uncapped bits; one fewer, NaN in
+    every w and U entry of the batch (two copies of S) and the cap as its
+    sweeps, with no launch error.  No host read is added to the call."""
+    from phylo_tpu_torch.models import eigh_kernel
+
+    w, U, _ = eigh_kernel.eigh_fwd(S)
+    pair = torch.stack([S, S])
+    w1, U1, s1 = eigh_kernel.eigh_fwd(pair, max_sweeps=n_sweeps)
+    wc, Uc, sc = eigh_kernel.eigh_fwd(pair, max_sweeps=n_sweeps - 1)
+    torch.cuda.synchronize()
+    require(torch.equal(w1[0], w) and torch.equal(U1[1], U)
+            and bool((s1 == n_sweeps).all()),
+            f"eigh {label} capped at its {n_sweeps} sweeps differs from "
+            "the uncapped call")
+    require(bool(torch.isnan(wc).all()) and bool(torch.isnan(Uc).all())
+            and bool((sc == n_sweeps - 1).all()),
+            f"eigh {label} capped at {n_sweeps - 1} sweeps: not all NaN")
+    log(f"  eigh {label} sweep cap: at {n_sweeps} sweeps the uncapped bits; "
+        f"at {n_sweeps - 1} every w and U entry NaN ({n_sweeps - 1} "
+        f"sweeps reported), no launch error (default cap "
+        f"{eigh_kernel.MAX_SWEEPS})")
+
+
 def check_eigh(dev):
     """The Jacobi eigh kernel (models.eigh_kernel, float64) against
     torch.linalg.eigh on the card at `eigh_cases`: eigenvalues within
@@ -1208,7 +1265,8 @@ def check_eigh(dev):
     and one device kernel a call (a captured graph); timed (CUDA events)
     beside torch.linalg.eigh, the plain version and the library call at
     once, and `eigh_bound`; then `check_eigh_non_finite`.  The kernels
-    line carries GY94's 61 states."""
+    line carries GY94's 61 states.  At .dat's 20 and GY94's 61 states,
+    `check_eigh_cap`."""
     from phylo_tpu_torch.models import eigh_kernel
 
     row = None
@@ -1242,6 +1300,8 @@ def check_eigh(dev):
         repeat_checks(f"eigh {label}", lambda: eigh_kernel.eigh_fwd(S)[:2],
                       kernel="jacobi_eigh_kernel")
         n_sweeps = int(sweeps)
+        if label in ("dat 20", "GY94 61"):
+            check_eigh_cap(S, n_sweeps, label)
         ms = time_ms(lambda: eigh_kernel.eigh_fwd(S))
         lib = time_ms(lambda: torch.linalg.eigh(S))
         b_ms, b_by = eigh_bound(A)
@@ -1508,7 +1568,7 @@ def check_k7(kern, gen, dev, KC=K_TWIST * (N * (N - 1) // 2), M_=M_TWIST,
 
 
 def twist_inputs(gen, dev, dataset, spec, C, S, A_=None, Kt=K_TWIST,
-                 G_=None, blocked=False):
+                 G_=None, blocked=False, codons=False):
     """The twist's pair-loglik inputs at rank 0 of `dataset` under model
     `spec` (ReferenceQ for None): the first C prefix-ordered candidate
     pairs (leaves, shared by the Kt particles) over the first S sites,
@@ -1517,7 +1577,8 @@ def twist_inputs(gen, dev, dataset, spec, C, S, A_=None, Kt=K_TWIST,
     Kt * C rows in the sweep's K-major order.  `blocked`: a rate
     mixture's per-category transitions (M, KC, G, A_b, A_b), as the
     twist takes them.  With A_, random inputs of A_ states instead (a
-    small shape), or of G_ blocks of A_ states with G_."""
+    small shape), or of G_ blocks of A_ states with G_.  `codons`: the
+    dataset as 61 sense codons (GY94 with its F61 frequencies)."""
     from phylo_tpu_torch.smc import twist as tw
     from phylo_tpu_torch.train.trainer import TrainConfig, init_params
 
@@ -1532,7 +1593,7 @@ def twist_inputs(gen, dev, dataset, spec, C, S, A_=None, Kt=K_TWIST,
         pi = torch.rand((GA,), generator=gen, **f) + 0.1
         return m_l, m_r, P_l, P_r, (pi / pi.sum()).contiguous(), \
             torch.ones((S,), **f)
-    ds = load(dataset)
+    ds = load(dataset, codons)
     model, params = init_params(ds, TrainConfig(
         n_particles=Kt, device=dev, substitution_model=spec))
     genome = ds.genome[:, :S]
@@ -1676,12 +1737,15 @@ def bwd_launch(kern, ins, g, t_field, gb=None):
 
 
 def check_twist_bwd(kern, gen, ins, label, t_field, timed=True,
-                    full=None):
+                    full=None, plain_iters=3):
     """K7 wide, dense or blocked (t_field False), or K11c (the T-field
     backward, dP formed from T in the kernel) against its plain version;
     also called twice through its launcher (the same bits) and once
-    captured (one device kernel); timed at these inputs, and the kernel
-    alone at the `full` rank-0 inputs."""
+    captured (one device kernel); timed at these inputs (the plain
+    version over `plain_iters` calls, or where that is 1 the call that
+    gave the reference, after the kernel's: at GY94's rank 0 its unrolled
+    autograd VJP takes ~16 s a call), and the kernel alone at the `full`
+    rank-0 inputs."""
     M_, KC = ins[2].shape[:2]
     f = dict(dtype=torch.float32, device=ins[0].device)
     g = torch.randn((M_, KC), generator=gen, **f)
@@ -1691,7 +1755,11 @@ def check_twist_bwd(kern, gen, ins, label, t_field, timed=True,
     kern.TWIST_BWD_V2 = t_field
     try:
         got = kern.pair_ll_bwd(*ins, g, want_dw=False)[:5]
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
         want = plain(*ins, g)[:5]
+        ev[1].record()
         torch.cuda.synchronize()
         names = ["dm1", "dm2", "dP_l", "dP_r", "dpi"]
         errs = {n: max_rel(a, b) for n, a, b in zip(names, got, want)}
@@ -1702,13 +1770,32 @@ def check_twist_bwd(kern, gen, ins, label, t_field, timed=True,
             + f" (tol {tol:g})")
         for n, v in errs.items():
             require(v <= tol, f"{label} {n} relative error {v} > {tol}")
+        # dP and dpi entry by entry.  A dP entry is the cotangent g[m, kc]
+        # times a sum over the sites of terms of one sign: each is held
+        # at the relative bar, however small beside the largest.  dpi[b]
+        # = sum over (m, kc, a) of dP_l[.., a, b] P_l[.., a, b] / pi_b,
+        # terms of either sign (g's), so each entry is held against that
+        # sum of magnitudes
+        P_l, pi = ins[2], ins[4]
+        dpi_scale = ((want[2].abs() * P_l).sum(dim=(0, 1, -2)).reshape(-1)
+                     / pi)
+        for n, a, b, sc in zip(names[2:], got[2:], want[2:],
+                               (None, None, dpi_scale)):
+            e, med = entry_rel(a, b, sc)
+            of = "|entry|" if sc is None else "sum of |terms|"
+            log(f"  {label} {n} entry-wise rel err {e:.3e} of its {of} "
+                f"(tol {tol:g}; median |entry| {med:.3e}, largest "
+                f"{float(b.abs().max()):.3e})")
+            require(e <= tol, f"{label} {n} entry-wise relative error {e} "
+                    f"> {tol}")
         launch, kname, plan = bwd_launch(kern, ins, g, t_field)
         repeat_checks(f"{label} M={M_} KC={KC} (launcher, plan {plan})",
                       launch, kernel=kname)
         if not timed:
             return None
         ms = time_ms(lambda: kern.pair_ll_bwd(*ins, g, want_dw=False))
-        plain_ms = time_ms(lambda: plain(*ins, g), iters=3)
+        plain_ms = (time_ms(lambda: plain(*ins, g), iters=plain_iters)
+                    if plain_iters > 1 else ev[0].elapsed_time(ev[1]))
         b_ms, b_by = twist_bound(ins, kind)
         A_, S = ins[0].shape[1:]
         alone = ""
@@ -1821,7 +1908,8 @@ def check_twist_kernels(kernels, gen, dev):
     """Phase 2's pair-loglik kernels (K11b, K7 wide, K11c), dense and
     blocked; returns the kernels line's entries (K11b dense, K11b
     blocked, K7 wide dense, K7 wide blocked, K11c at primate's launched
-    shape, K11c blocked at protein+G4's)."""
+    shape, K11c blocked at protein+G4's, and K11b and K7 wide dense at
+    GY94's rank 0)."""
     # VNCSMC's pair log-likelihoods at rank 0 (all candidate pairs):
     # K11b dense on primate (A=4, KC = 32 x 66); on DS1 GTR+G4 (KC = 32 x
     # 351) blocked, as the twist takes a rate mixture (G=4 blocks of 4),
@@ -1885,6 +1973,17 @@ def check_twist_kernels(kernels, gen, dev):
         + json.dumps([k11b_prot, k7wb_prot]))
     del prot, rows_p
     torch.cuda.empty_cache()
+    # GY94 at rank 0 of betacorona1 (61 dense states, KC = 32 x 136, S =
+    # 256: VNCSMC GY94's first rank, which its pair chunks split in two):
+    # K11b dense and K7 wide dense, each timed beside its plain version
+    # (the unrolled expression and its autograd VJP)
+    gy = twist_inputs(gen, dev, "betacorona1", "gy94",
+                      N_CODON * (N_CODON - 1) // 2, S_BATCH, codons=True)
+    k11b_61 = check_k11b(kernels, gy, "GY94 dense 61", repeat=True)
+    k7w_61 = check_twist_bwd(kernels, gen, gy, "K7 wide dense GY94", False,
+                             plain_iters=1)
+    del gy
+    torch.cuda.empty_cache()
     for A_, S in ((20, 70), (61, 70), (20, 300)):
         small = twist_inputs(gen, dev, None, None, 5, S, A_=A_, Kt=3)
         check_k11b(kernels, small, "small dense", timed=False)
@@ -1913,7 +2012,7 @@ def check_twist_kernels(kernels, gen, dev):
                         timed=False)
     group_forms(kernels, gen, twist_inputs(gen, dev, None, None, 5, 300,
                                            A_=20, Kt=3, G_=4), "small")
-    return k11b, k11b_blk, k7w, k7wb, k11c, k11c_blk
+    return k11b, k11b_blk, k7w, k7wb, k11c, k11c_blk, k11b_61, k7w_61
 
 
 def check_k11a(kern, gen, dev, A_, S=S_BATCH, Kt=K_TWIST, G_=1):
@@ -2044,7 +2143,7 @@ _CPU_RUNS = {}
 
 def fixed_inputs(twist=False, spec=None, dataset="primate", Kd=K, S=None,
                  codons=False, Nd=None, use_pallas_ll=True,
-                 data_grads=False):
+                 data_grads=False, pair_chunk=None):
     """fixed_decision_check's inputs, from seed 11: (model, genome (N, S,
     planes), numpy params tree, numpy decisions, SweepConfig, label, the
     site weights or None: uniform in [0.5, 1.5] with `data_grads`)."""
@@ -2076,10 +2175,12 @@ def fixed_inputs(twist=False, spec=None, dataset="primate", Kd=K, S=None,
         Kd = K_TWIST
         dec = make_twist_decisions(rng, Nd, Kd, M_TWIST, *rates)
         cfg = SweepConfig(K=Kd, twist=TwistConfig(
-            M=M_TWIST, use_pallas_ll=use_pallas_ll))
+            M=M_TWIST, pair_chunk=pair_chunk, use_pallas_ll=use_pallas_ll))
         label = (f"{os.path.basename(dataset)} {spec or 'reference'} "
                  f"VNCSMC N={Nd} K={Kd} M={M_TWIST} S={genome.shape[1]}"
-                 f"{'' if use_pallas_ll else ', plain forward'}")
+                 f"{'' if use_pallas_ll else ', plain forward'}"
+                 + ("" if pair_chunk is None else
+                    f", pair_chunk={pair_chunk} on the card"))
     else:
         dec = make_decisions(rng, Nd, Kd, *rates)
         cfg = SweepConfig(K=Kd)
@@ -2098,7 +2199,7 @@ def rel_l2(a, b):
 def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
                          Kd=K, S=None, route=(), codons=False, Nd=None,
                          use_pallas_ll=True, bwd_v2=False, cpu_bwd_v2=None,
-                         data_grads=False):
+                         data_grads=False, pair_chunk=None, note=""):
     """The sweep with numpy-made decisions, float32 on the card against
     float64 on the CPU: VCSMC at K=2048, VNCSMC at K=32, M=10, or model
     `spec` (a rate mixture, or GY94 on `dataset` as codons, with the
@@ -2112,8 +2213,12 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
     the unrolled forward).  `route` names the kernels the card must have
     launched in the gradient.  With `data_grads` the sweep takes site
     weights, and the leaves' and weights' cotangents (item 8b) are held
-    to the same 1e-2 bar.  Returns the two runs' (ELBO, log_likelihood_R,
-    gradients, named gradients, data cotangents) by name."""
+    to the same 1e-2 bar.  `pair_chunk` sets the twist's pair chunks on
+    the card; the CPU runs one chunk a rank (tests/test_torch_twist_
+    spectral.py holds chunks = one chunk to 1e-12 there).  `note` ends
+    the printed label (a cut of the taxa or sites, and why).  Returns the
+    two runs' (ELBO, log_likelihood_R, gradients, named gradients, data
+    cotangents) by name, and the card run's launches under "launches"."""
     from phylo_tpu_torch import _ext
     from phylo_tpu_torch.params import params_from_numpy
     from phylo_tpu_torch.pruning import kernels
@@ -2123,10 +2228,12 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
     cpu_bwd_v2 = bwd_v2 if cpu_bwd_v2 is None else cpu_bwd_v2
     t_start = time.time()
     model, genome, tree, dec, cfg, label, weights = fixed_inputs(
-        twist, spec, dataset, Kd, S, codons, Nd, use_pallas_ll, data_grads)
+        twist, spec, dataset, Kd, S, codons, Nd, use_pallas_ll, data_grads,
+        pair_chunk)
     if twist:
         label += (f"{', T-field backward' if bwd_v2 else ''}"
                   f"{', CPU T-field' if cpu_bwd_v2 and not bwd_v2 else ''}")
+    label += note
     out = {}
     key = (twist, spec, dataset, Kd, S, codons, Nd, use_pallas_ll,
            cpu_bwd_v2, data_grads)
@@ -2144,10 +2251,13 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
             weights, dtype=dtype, device=device, requires_grad=True))
         d = {k: torch.as_tensor(v, device=device) for k, v in dec.items()}
         _ext.reset_launches()
-        res = sample_phylogenies(None, leaves, model, params, cfg,
+        run_cfg = cfg if device != "cpu" or not twist else replace(
+            cfg, twist=replace(cfg.twist, pair_chunk=None))
+        res = sample_phylogenies(None, leaves, model, params, run_cfg,
                                  decisions=d, site_weights=sw)
         res.elbo.backward()
         if device != "cpu":
+            out["launches"] = dict(_ext.LAUNCHES)
             for kname in (route,) if isinstance(route, str) else route:
                 require(_ext.LAUNCHES[kname] > 0, f"{kname} did not run in "
                         f"the {label} gradient")
@@ -2201,6 +2311,34 @@ def fixed_decision_check(dev, twist=False, spec=None, dataset="primate",
     return out
 
 
+def chunk_agreement(one, chunked, C, Nd, label):
+    """A card run with pair_chunk=C against the one-chunk card run of the
+    same sweep (`fixed_decision_check`'s outputs): the ELBO and
+    log_likelihood_R to 1e-5 relative and the gradients to 1e-5 relative
+    L2 (float32 sums in another order), and exactly the extra launches
+    the chunks make: eigh and K11b a chunk of the forward and of the
+    re-evaluation, K7 wide a chunk of the reverse pass."""
+    (e1, llr1, g1, _, _), (e2, llr2, g2, _, _) = (one["cuda f32"],
+                                                  chunked["cuda f32"])
+    extra = sum(-(-(n * (n - 1) // 2) // C) - 1 for n in range(Nd, 1, -1))
+    want = {"eigh_jacobi": 2 * extra, "pair_loglik_fwd": 2 * extra,
+            "pair_ll_bwd_wide": extra}
+    got = {k: chunked["launches"].get(k, 0) - one["launches"].get(k, 0)
+           for k in want}
+    g1, g2 = (torch.cat([g.reshape(-1) for g in gs]) for gs in (g1, g2))
+    errs = {"ELBO": abs(e2 - e1) / abs(e1),
+            "log_likelihood_R": float(((llr2 - llr1).abs()
+                                       / llr1.abs()).max()),
+            "gradient rel L2": rel_l2(g2, g1)}
+    log(f"phase 3 {label} pair_chunk={C} against one chunk, both on the "
+        "card: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol 1e-5); extra launches {got} (want {want})")
+    for k, v in errs.items():
+        require(v <= 1e-5, f"{label} pair_chunk={C}: {k} {v} > 1e-5")
+    require(got == want, f"{label} pair_chunk={C}: extra launches {got}, "
+            f"want {want}")
+
+
 def spectral_float32_probe(dev):
     """Why models.expm.expm_reversible works in float64: GY94's
     transitions (betacorona1's F61 frequencies, initial kappa and omega)
@@ -2247,6 +2385,52 @@ PROT_TWIST_EXACT = {
         1 + 2 * (S_PROT // S_BATCH + 1)) + PROT_STEPS,
     "merge_bwd": PROT_STEPS, "pair_loglik_fwd": 0, "pair_ll_bwd_wide": 0,
     "pair_ll_bwd_t": 0}
+
+
+def twist_chunks(spec, A_, Nd, S, K_=K_TWIST, M_=M_TWIST):
+    """The pair chunks each rank of a VNCSMC sweep of `spec` (A_ states a
+    category) on Nd taxa and S sites takes, at the runner's K_TWIST and
+    M=10 in float32: `smc.twist.resolve_chunk`'s rule at the default
+    chunk budget, a pure function of shapes."""
+    from phylo_tpu_torch.models.substitution import get_model
+    from phylo_tpu_torch.smc import twist as tw
+
+    model = get_model(spec, A=A_)
+    twist = tw.TwistConfig(M=M_)
+    out = []
+    for n in range(Nd, 1, -1):
+        P = n * (n - 1) // 2
+        C = tw.resolve_chunk(twist, model, P, K_, model.A, S, 4)
+        out.append(-(-P // C))
+    return out
+
+
+def twist_exact(spec, A_, Nd, S_full, blocked, spectral):
+    """Exact launches of a VNCSMC path through the runner (the initial
+    eval and 2 epochs of S_full // S_BATCH SGD steps and an eval sweep),
+    from `twist_chunks`: K11b a pair chunk of every forward sweep and of
+    each step's re-evaluation, K7 wide a chunk of each step's reverse
+    pass, K11a a rank of each reverse pass; with `spectral`, eigh a
+    transition call: a chunk, and a rank's chosen merges, of every
+    forward sweep, and a chunk of each re-evaluation plus the prologue's
+    one call of each reverse pass.  Returns (counts, the chunks of each
+    rank at S_BATCH and S_full)."""
+    steps = 2 * (S_full // S_BATCH)
+    R_ = Nd - 1
+    c_b = twist_chunks(spec, A_, Nd, S_BATCH)
+    c_e = twist_chunks(spec, A_, Nd, S_full)
+    fwd = "pair_loglik_fwd" + ("_blocked" if blocked else "")
+    bwd = "pair_ll_bwd_wide" + ("_blocked" if blocked else "")
+    other = "" if blocked else "_blocked"
+    exact = {fwd: 3 * sum(c_e) + 2 * steps * sum(c_b),
+             bwd: steps * sum(c_b), "merge_bwd": steps * R_,
+             "pair_loglik_fwd" + other: 0, "pair_ll_bwd_wide" + other: 0,
+             "pair_ll_bwd": 0, "pair_ll_bwd_t": 0,
+             "pair_ll_bwd_t_blocked": 0, "fused_merge_loglik": 0}
+    if spectral:
+        exact["eigh_jacobi"] = (3 * (sum(c_e) + R_)
+                                + steps * (2 * sum(c_b) + R_ + 1))
+    return exact, (c_b, c_e)
 
 
 def eigh_calls(S):
@@ -2459,6 +2643,81 @@ PATHS = {
                "fused_rank_bwd_saved_wide_blocked": (N_PROT - 1) * 2 * (
             S_PROT // S_BATCH),
                "eigh_jacobi": eigh_calls(S_PROT)}),
+    # VNCSMC GY94 on betacorona1's codons (dense 61 states: K11b and K7
+    # wide dense, K11a's wide body at 61 on the chosen merges; spectral
+    # transitions through the eigh kernel, a call a pair chunk): 4 SGD
+    # steps of 256 codons + the 1086-codon eval sweep, 16 ranks each.
+    # The pair chunks come from TwistConfig.chunk_budget_mb: rank 0's 136
+    # candidate pairs x M = 10 x 32 particles (87,040 float64 transitions
+    # of 61 x 61 a call in one chunk, ~2.6 GB a tensor) take 2 chunks.
+    # Exact launches from the chunk rule (`twist`: twist_exact's
+    # arguments).  Band from a CPU run of the port (K=4, M=2, b256, seed 0,
+    # PHYLO_TWIST_BWD_V2=1): -52590.6 at init, -45577.0 / -43766.8 after
+    # epochs 1 / 2
+    "vncsmc_gy94": dict(
+        dataset="betacorona1", codons=True, band=(-70000.0, -30000.0),
+        train=dict(nested=True, M=M_TWIST, n_particles=K_TWIST,
+                   substitution_model="gy94"),
+        argv=["--codons=True", "--nested=True", f"--M={M_TWIST}",
+              f"--n_particles={K_TWIST}"],
+        kernels=("pair_loglik_fwd", "pair_ll_bwd_wide", "merge_bwd",
+                 "categorical", "eigh_jacobi"),
+        twist=("gy94", A_CODON, N_CODON, S_CODON, False, True),
+        twist_profile="no earlier run: the first twist over a spectral "
+                      "model on the card"),
+    # VNCSMC GY94+Gamma4 (4 blocks of 61, 244 planes): K11b and K7 wide
+    # blocked a block a group, K11a on 4 blocks of 61 (K9bs blocked's
+    # body); 4 times GY94's transitions a pair (rank 0 in 5 chunks at 256
+    # codons, 6 at 1086); not profiled.  Band from a CPU run of the port
+    # (K=4, M=2, b256, seed 0, PHYLO_TWIST_BWD_V2=1): -48401.4 at init,
+    # -44881.3 / -43851.1 after epochs 1 / 2
+    "vncsmc_gy94_g4": dict(
+        dataset="betacorona1", codons=True, band=(-70000.0, -30000.0),
+        profile=False,
+        train=dict(nested=True, M=M_TWIST, n_particles=K_TWIST,
+                   substitution_model="gy94+g4"),
+        argv=["--codons=True", "--model=gy94+g4", "--nested=True",
+              f"--M={M_TWIST}", f"--n_particles={K_TWIST}"],
+        kernels=("pair_loglik_fwd_blocked", "pair_ll_bwd_wide_blocked",
+                 "merge_bwd", "categorical", "eigh_jacobi"),
+        twist=("gy94+g4", A_CODON, N_CODON, S_CODON, True, True)),
+    # VNCSMC .dat+F+Gamma4 on the simulated 16 x 500 alignment (4 blocks
+    # of 20, spectral transitions): 1 SGD step + the 500-site eval sweep,
+    # 15 ranks each, one pair chunk a rank; not profiled.  Band from a CPU
+    # run of the port (K=4, M=2, b256, seed 0, PHYLO_TWIST_BWD_V2=1):
+    # -11755.7 at init, -11891.7 / -11809.5 after epochs 1 / 2
+    "vncsmc_protein_dat_f_g4": dict(
+        dataset=PROT_FASTA, band=VNCSMC_PROT_BAND, profile=False,
+        train=dict(nested=True, M=M_TWIST, n_particles=K_TWIST,
+                   gamma_categories=4, paml_dat=PROT_DAT, plus_f=True),
+        argv=[f"--paml_dat={PROT_DAT}", "--plus_f=True",
+              "--gamma_categories=4", "--nested=True", f"--M={M_TWIST}",
+              f"--n_particles={K_TWIST}"],
+        kernels=("pair_loglik_fwd_blocked", "pair_ll_bwd_wide_blocked",
+                 "merge_bwd", "categorical", "eigh_jacobi"),
+        twist=(f"{PROT_DAT}+f+g4", A_PROT, N_PROT, S_PROT, True, True)),
+    # GY94+Gamma8 VCSMC on betacorona1's codons (8 blocks of 61, 488
+    # planes): K9f blocked past one block group, its group body in 4
+    # groups of 2 blocks (wide_fwd_group(128, 8, 61, S) = 2 at S = 256 and
+    # 1086): that body's first path.  The backward is K9b blocked in
+    # groups of 2 blocks: the children would take ~1 GB, over
+    # SAVE_CHILDREN_CAP.  4 SGD steps + the eval sweep, 16 ranks each;
+    # profiled (the group bodies' device time).  Band from a CPU run of the
+    # port (K=16, b256, seed 0): -54002.4 at init, -50143.3 / -50093.7
+    # after epochs 1 / 2
+    "gy94_g8": dict(
+        groups=(G_GY94G8, A_CODON),
+        dataset="betacorona1", codons=True, band=(-70000.0, -30000.0),
+        train=dict(n_particles=K_CODON, substitution_model="gy94+g8"),
+        argv=["--codons=True", "--model=gy94+g8", f"--n_particles={K_CODON}"],
+        kernels=("fused_rank_update_wide_blocked",
+                 "fused_rank_bwd_wide_blocked", "categorical",
+                 "eigh_jacobi"),
+        exact={"fused_rank_update_wide_blocked": (N_CODON - 1) * (1 + 2 * (
+            S_CODON // S_BATCH + 1)),
+               "fused_rank_bwd_wide_blocked": (N_CODON - 1) * 2 * (
+            S_CODON // S_BATCH), "fused_rank_bwd_saved_wide_blocked": 0,
+               "eigh_jacobi": eigh_calls(S_CODON)}),
 }
 
 
@@ -2472,17 +2731,39 @@ def main_path(ext, name):
     path = PATHS[name]
     argv = [f"--dataset={path['dataset']}", f"--batch_size={S_BATCH}"] \
         + path["argv"] + ["--num_epoch=2", "--no_artifacts", "--device=cuda"]
+    exact = path.get("exact", {})
+    if "twist" in path:
+        exact, (c_b, c_e) = twist_exact(*path["twist"])
+        log(f"phase 4 {name} pair chunks a rank (smc.twist.resolve_chunk, "
+            f"default budget): {c_b} at {S_BATCH} sites, {c_e} at "
+            f"{path['twist'][3]}")
+    if "groups" in path:
+        G_, A_ = path["groups"]
+        gbs = [kernels.wide_fwd_group(path["train"]["n_particles"], G_, A_, S)
+               for S in (S_BATCH, load(path["dataset"], True).S)]
+        require(all(gb < G_ for gb in gbs), f"phase 4 {name}: K9f blocked "
+                f"takes {gbs} of {G_} blocks a group: not its group body")
+        log(f"phase 4 {name}: K9f blocked's group body, {gbs} blocks a "
+            f"group of {G_} at {S_BATCH} and the eval's sites "
+            "(kernels.wide_fwd_group)")
     kernels.TWIST_BWD_V2 = path.get("bwd_v2", False)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     ext.reset_launches()
     res = runner.run(argv)
     torch.cuda.synchronize()
     launches = dict(ext.LAUNCHES)
     kernels.TWIST_BWD_V2 = False
     log(f"phase 4 {name} main path launches: {json.dumps(launches)}")
+    peak = torch.cuda.max_memory_allocated()
+    held = torch.cuda.max_memory_reserved()
+    log(f"phase 4 {name} peak memory: torch.cuda.max_memory_allocated "
+        f"{peak} B ({peak / 2 ** 30:.2f} GiB); max_memory_reserved {held} B "
+        f"({held / 2 ** 30:.2f} GiB)")
     for kname in path["kernels"]:
         require(launches.get(kname, 0) > 0, f"{kname} never launched")
-    for kname, n in path.get("exact", {}).items():
+    for kname, n in exact.items():
         require(launches.get(kname, 0) == n,
                 f"{kname} launched {launches.get(kname, 0)} times, not {n}")
     log(f"phase 4 {name} ELBO after each epoch: "
@@ -2587,7 +2868,7 @@ def profile_epoch(name):
                                    "rank bwd (K2, K3, K10 bwd, K11a A<=8)",
                                    "K9b / K9bs / K11a", "K9f",
                                    "K9b / K9bs groups", "K9f groups",
-                                   "K5")}
+                                   "K5", "eigh")}
     if t is None:
         log(f"phase 5 {name} profile: wall {wall_ms:.1f} ms; the profiler "
             "recorded no device time (device numbers not measured)")
@@ -2608,7 +2889,8 @@ def profile_epoch(name):
                           ("K9b / K9bs groups",
                            "wide_rank_bwd_group_kernel"),
                           ("K9f groups", "wide_rank_fwd_group_kernel"),
-                          ("K5", "categorical_kernel")):
+                          ("K5", "categorical_kernel"),
+                          ("eigh", "jacobi_eigh_kernel")):
             if fn in key:
                 named[kname][0] += ms
                 named[kname][1] += n
@@ -2633,9 +2915,9 @@ def profile_epoch(name):
         f"{k} {named[k][0]:.3f} ms over {named[k][1]} launches"
         for k in ("rank bwd (K2, K3, K10 bwd, K11a A<=8)",
                   "K9b / K9bs / K11a", "K7", "K11c", "K8")))
-    log(f"phase 5 {name} K9f and K5: " + ", ".join(
+    log(f"phase 5 {name} K9f, K5 and eigh: " + ", ".join(
         f"{k} {named[k][0]:.2f} ms over {named[k][1]} launches"
-        for k in ("K9f", "K9f groups", "K9b / K9bs groups", "K5")))
+        for k in ("K9f", "K9f groups", "K9b / K9bs groups", "K5", "eigh")))
     if "twist_profile" in path:
         twist = {k: named[k] for k in ("K11b", "K7 wide")}
         log(f"phase 5 {name} twist kernels: " + ", ".join(
@@ -3182,7 +3464,10 @@ MESH_PARTS = {
     "s": [("b K=128", dict(DS1_G4, Kd=128, data_grads=True)),
           ("b K=2048", dict(DS1_G4, Kd=K)),
           ("d", dict(twist=True))],
-    "k": [("c", dict())],
+    # (e): primate VNCSMC K=32 on the 'k' mesh, twice: the roots'
+    # cotangents summed in a fixed order (smc.twist.add_cols)
+    "k": [("c", dict()), ("e", dict(twist=True)),
+          ("e again", dict(twist=True))],
 }
 MESH_TRAIN = dict(n_particles=K, batch_size=S_BATCH, num_epoch=1,
                   substitution_model="gtr+g4", save_artifacts=False,
@@ -3443,10 +3728,11 @@ def mesh_phase(ext, dev, card):
                 if p.poll() is None:
                     p.kill()
                     p.wait()
+    twist_cpu = _CPU_RUNS[(True, None, "primate", K, None, False, None,
+                           True, False, False)]
     cpu = {"b K=128": _CPU_RUNS[(False, "gtr+g4", "hohna_data_1", 128, None,
                                  False, None, True, False, True)],
-           "d": _CPU_RUNS[(True, None, "primate", K, None, False, None,
-                           True, False, False)],
+           "d": twist_cpu, "e": twist_cpu, "e again": twist_cpu,
            "c": _CPU_RUNS[(False, None, "primate", K, None, False, None,
                            True, False, False)]}
     need = {"b K=128": ("fused_rank_update_blocked",
@@ -3455,6 +3741,10 @@ def mesh_phase(ext, dev, card):
                          "fused_rank_bwd_blocked"),
             "d": ("pair_loglik_fwd", "pair_ll_bwd", "merge_bwd",
                   "fused_merge_loglik"),
+            "e": ("pair_loglik_fwd", "pair_ll_bwd", "merge_bwd",
+                  "fused_merge_loglik"),
+            "e again": ("pair_loglik_fwd", "pair_ll_bwd", "merge_bwd",
+                        "fused_merge_loglik"),
             "c": ("fused_merge_loglik", "merge_bwd", "expm_fwd",
                   "expm_bwd"),
             "c seeded": ("fused_merge_loglik", "expm_fwd", "categorical"),
@@ -3488,6 +3778,15 @@ def mesh_phase(ext, dev, card):
                 require(torch.equal(rs[0][part]["grad"], rs[1][part]["grad"])
                         and rs[0][part]["elbo"] == rs[1][part]["elbo"],
                         f"phase 8 ({part}): the ranks' results differ")
+    for rank, r in enumerate(ranks["k"]):
+        same = (r["e"]["elbo"] == r["e again"]["elbo"]
+                and torch.equal(r["e"]["grad"], r["e again"]["grad"]))
+        require(same, f"phase 8 (e) rank {rank}: the 'k' mesh's twist sweep "
+                "gave other bits the second time")
+    log(f"phase 8 (e) ('k',) 2 {ranks['k'][0]['e']['label']}, twice: ELBO "
+        f"{ranks['k'][0]['e']['elbo']!r} and every gradient the same bits "
+        "in both runs on both ranks (the roots' cotangents summed in a "
+        "fixed order)")
     log(f"phase 8 (b) one-rank card run {one['label']}: ELBO "
         f"{one['elbo']:.6f}, {one['seconds']:.3f} s ({card}); launches "
         f"{json.dumps(one['launches'])}")
@@ -3515,7 +3814,10 @@ def mesh_phase(ext, dev, card):
 # ---------------------------------------------------------------- phase 9
 # the fused epoch, fused_epoch=False against True; the spectral paths
 # (captured since their eigengap is decided on the device) held to the bit
-PHASE9_SPECTRAL = ("gy94_codon", "gy94_g4", "protein_dat_f_g4")
+# and the new VNCSMC spectral paths but GY94+G4 (its 4 runs would take
+# ~260 s): VNCSMC GY94 and .dat+F+G4
+PHASE9_SPECTRAL = ("gy94_codon", "gy94_g4", "protein_dat_f_g4",
+                   "vncsmc_gy94", "vncsmc_protein_dat_f_g4")
 PHASE9 = ("vcsmc", "vncsmc", "gtr_g4_ds1",
           "vncsmc_protein_g4") + PHASE9_SPECTRAL
 # runtime calls that hand the card work, as the trace names them
@@ -3873,10 +4175,12 @@ def main(argv):
     check_k8(kernels, gen, dev, S_FULL)
     check_k8(kernels, gen, dev, S_FULL, A=7, timed=False)
     check_k8(kernels, gen, dev, 2 * S_FULL + 3, A=8, timed=False)
-    k11b, k11b_blk, k7w, k7wb, k11c, k11c_blk = check_twist_kernels(
-        kernels, gen, dev)
+    (k11b, k11b_blk, k7w, k7wb, k11c, k11c_blk, k11b_61,
+     k7w_61) = check_twist_kernels(kernels, gen, dev)
     check_k11a(kernels, gen, dev, A)
     k11a = check_k11a(kernels, gen, dev, 4 * G_GAMMA)
+    # VNCSMC GY94's chosen merges: K11a's wide body at 61 dense states
+    k11a_61 = check_k11a(kernels, gen, dev, A_CODON)
     # protein+G4's chosen merges: K9bs blocked's body, 80 planes
     check_k11a(kernels, gen, dev, A_PROT, G_=G_GAMMA)
     torch.cuda.empty_cache()
@@ -4030,6 +4334,26 @@ def main(argv):
         Nd=5, cpu_bwd_v2=True, route=("pair_loglik_fwd_blocked",
                                       "pair_ll_bwd_wide_blocked",
                                       "merge_bwd"))
+    # VNCSMC GY94 (dense 61 states: K11b and K7 wide dense, K11a's wide
+    # body, spectral transitions through the eigh kernel) on betacorona1's
+    # first 5 taxa and 64 codons: the CPU's float64 twist at 61 states
+    # (the unrolled plain forward, the T-field plain backward) took ~70 s
+    # there on 4 threads of a shared host.  GY94+G4's would take ~4x as
+    # long and is not run; .dat+F+G4's is the protein check above
+    gy94_fixed = dict(
+        twist=True, spec="gy94", dataset="betacorona1", codons=True, S=64,
+        Nd=5, cpu_bwd_v2=True, route=("pair_loglik_fwd", "pair_ll_bwd_wide",
+                                      "merge_bwd", "eigh_jacobi"),
+        note=f" (cut from {N_CODON} taxa and {S_CODON} codons for the CPU "
+             "float64 reference's time)")
+    one = fixed_decision_check(dev, **gy94_fixed)
+    # the same with several pair chunks a rank on the card (4 pairs a
+    # chunk: rank 0's 10 pairs in 3 uneven chunks, rank 1's 6 in 2): an
+    # eigh call, a K11b launch and a K7 wide launch a chunk, the manual
+    # VJP re-evaluating the same chunks; held to the same CPU run and to
+    # the one-chunk card run
+    chunked = fixed_decision_check(dev, pair_chunk=4, **gy94_fixed)
+    chunk_agreement(one, chunked, 4, 5, "VNCSMC GY94 N=5 S=64")
     torch.cuda.empty_cache()
     log(f"phase 3 done at {time.time() - t0:.1f} s")
     by_path = {name: main_path(_ext, name) for name in PATHS}
@@ -4115,11 +4439,18 @@ def main(argv):
                  for name, site in (("fused_rank_update_wide_blocked", 1646),
                                     ("fused_rank_bwd_wide_blocked", 1949))]
     wide_rows.append(("merge_bwd 8x20", "vncsmc_protein_g8", 395, k11a_g8))
+    # GY94's 61 dense states under the twist (phase 2 at rank 0), launches
+    # from VNCSMC GY94's path
+    wide_rows += [("pair_loglik_fwd 61", "vncsmc_gy94", 588, k11b_61),
+                  ("pair_ll_bwd_wide 61", "vncsmc_gy94", 1059, k7w_61),
+                  ("merge_bwd 61", "vncsmc_gy94", 395, k11a_61)]
     table = [dict(name=name, route="cuda", source=src, replaces=rep,
                   launches=int(launches.get(name, 0)), **m)
              for name, src, rep, m in rows] + [
         dict(name=name, route="cuda",
-             source="phylo_tpu_torch/csrc/wide_kernels.cu",
+             source=("phylo_tpu_torch/csrc/twist_wide_kernels.cu"
+                     if name.startswith("pair_") else
+                     "phylo_tpu_torch/csrc/wide_kernels.cu"),
              replaces=f"phylo_tpu/pruning/kernels.py:{site}",
              launches=int(by_path[path].get(name.split()[0], 0)), **m)
         for name, path, site, m in wide_rows]

@@ -190,15 +190,21 @@ class CountedGraph:
         """Run fn() once eagerly, then capture it, both on the capture
         stream: the eager call is the warm-up (it builds, loads and binds
         the kernels and makes their per-stream state, such as K4's
-        ticket, outside the graph's pool).  reset() runs between the two.
-        Returns (the eager call's value, the graph's static outputs);
-        LAUNCHES counts the eager call and not the capture."""
+        ticket, outside the graph's pool).  reset() runs between the two,
+        and the blocks the eager call freed go back to the card, so the
+        graph's pool does not sit beside the eager call's cache (two
+        copies of a pair chunk's transitions, VNCSMC GY94+G4's ~20 GB
+        each).  Returns (the eager call's value, the graph's static
+        outputs); LAUNCHES counts the eager call and not the capture."""
         for g in self.generators:
             self.graph.register_generator_state(g)
         with _capture_stream(self.device):
             out = fn()
             if reset is not None:
                 reset()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()
             before = collections.Counter(LAUNCHES)
             t0 = time.perf_counter()
             try:

@@ -12,7 +12,8 @@
 //
 // Method, per matrix (one thread block each):
 //   A <- S (padded with a zero row and column to an even order n_p),
-//   V <- I;  sweep until a sweep applies no rotation (at most 40):
+//   V <- I;  sweep until a sweep applies no rotation (at most
+//   max_sweeps, 40 from the wrapper):
 //     for each of the n_p - 1 rounds of the round-robin (circle) order,
 //     n_p / 2 disjoint pairs (p, q) at once:
 //       t = sign(d) h / (|d| + sqrt(d^2 + h^2)), d = a_qq - a_pp,
@@ -23,7 +24,10 @@
 //   w = diag(A) sorted ascending (ties by index, NaN last), U = V's
 //   columns in the same order.
 // A NaN or an infinity anywhere in S makes every output NaN (and the
-// sweeps 0): no error, where torch.linalg.eigh gives NaN or raises.
+// sweeps 0): no error, where torch.linalg.eigh gives NaN or raises.  A
+// matrix whose last allowed sweep still rotated has not converged: its
+// w and U are NaN too (its sweeps max_sweeps), so a capped matrix shows
+// in the transitions on the device, with no flag for the host to read.
 // A rotation's diagonal block takes the exact closed form (a_pp - t a_pq,
 // a_qq + t a_pq, zero off-diagonal), written by the thread that forms the
 // rotation (no other reads those entries in that phase); every other 2 x 2
@@ -58,7 +62,6 @@ namespace {
 
 constexpr int kMaxN = 64;
 constexpr int kThreads = 512;
-constexpr int kMaxSweeps = 40;
 constexpr double kTolScale = 1e-18;
 
 // the round-robin order: round r of n_p - 1 pairs player n_p - 1 with r
@@ -103,7 +106,7 @@ __device__ __forceinline__ bool sorts_before(double x, int j, double y,
 __global__ void __launch_bounds__(kThreads)
     jacobi_eigh_kernel(const double* __restrict__ S, double* __restrict__ w,
                        double* __restrict__ U, int* __restrict__ sweeps,
-                       int n, int np) {
+                       int n, int np, int max_sweeps) {
   extern __shared__ double smem[];
   double* a = smem;             // np x np, row-major
   double* v = smem + np * np;   // np x np, row-major
@@ -169,7 +172,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   int sweep = 0, g = 0;      // g: rounds so far, over every sweep
-  while (sweep < kMaxSweeps) {
+  bool converged = false;
+  while (sweep < max_sweeps) {
     if (tid == 0) rotated = 0;
     __syncthreads();
     ++sweep;
@@ -239,7 +243,20 @@ __global__ void __launch_bounds__(kThreads)
     }
     const int any = rotated;
     __syncthreads();
-    if (!any) break;
+    if (!any) {
+      converged = true;
+      break;
+    }
+  }
+  // the cap reached with rotations still applied: NaN out, as for a
+  // non-finite S (the block agrees on `converged`, read from `rotated`)
+  if (!converged) {
+    const double kNaN = __longlong_as_double(0x7ff8000000000000LL);
+    for (int e = tid; e < n * n; e += kThreads)
+      U[(size_t)blockIdx.x * n * n + e] = kNaN;
+    if (tid < n) w[(size_t)blockIdx.x * n + tid] = kNaN;
+    if (tid == 0) sweeps[blockIdx.x] = sweep;
+    return;
   }
   // the last round's V update
   if (g > 0) {
@@ -279,12 +296,14 @@ __global__ void __launch_bounds__(kThreads)
 
 // S (batch, n, n) float64, symmetric -> w (batch, n) ascending, U (batch,
 // n, n) with U[:, :, j] the eigenvector of w[:, j], and the sweeps each
-// matrix took (batch,) int32.  1 <= n <= 64.
+// matrix took (batch,) int32; a matrix not converged within max_sweeps
+// sweeps gives NaN in its w and U.  1 <= n <= 64, max_sweeps >= 1.
 extern "C" int launch_eigh_jacobi(const double* S, double* w, double* U,
                                   int* sweeps, int batch, int n,
-                                  void* stream) {
+                                  int max_sweeps, void* stream) {
   if (batch <= 0) return 0;
-  if (n < 1 || n > kMaxN) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > kMaxN || max_sweeps < 1)
+    return (int)cudaErrorInvalidValue;
   const int np = n + (n & 1);
   const size_t smem = 2 * (size_t)np * np * sizeof(double);
   if (smem > 48 * 1024) {
@@ -295,6 +314,7 @@ extern "C" int launch_eigh_jacobi(const double* S, double* w, double* U,
   }
   jacobi_eigh_kernel<<<batch, kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(S, w, U, sweeps,
-                                                            n, np);
+                                                            n, np,
+                                                            max_sweeps);
   return (int)cudaGetLastError();
 }

@@ -7,8 +7,11 @@ kernel.  torch.linalg.eigh on a CUDA tensor checks its solver's status on
 the host (a synchronisation), so a step that calls it cannot be captured.
 On a CUDA tensor `eigh` launches csrc/eigh_kernels.cu instead: the
 parallel-ordered cyclic Jacobi method in float64, one thread block a
-matrix, run to convergence inside the kernel.  On a CPU tensor it runs
-torch.linalg.eigh, the plain version and the oracle.
+matrix, run to convergence inside the kernel, at most MAX_SWEEPS sweeps:
+a matrix that has not converged by then comes back NaN (w and U), so it
+shows on the device, in the transitions and the ELBO, with no host
+read.  On a CPU tensor it runs torch.linalg.eigh, the plain version and
+the oracle.
 
 The gradient is a torch.autograd.Function whose backward is eigh's
 standard formula in torch ops (they capture):
@@ -31,13 +34,18 @@ import torch
 from phylo_tpu_torch import _ext
 
 MAX_A = 64
+# Jacobi sweeps before a matrix counts as not converged (GY94's 61
+# states take 9-10 on an H100; PERF.md)
+MAX_SWEEPS = 40
 
 
-def eigh_fwd(S):
+def eigh_fwd(S, max_sweeps=MAX_SWEEPS):
     """(w, U, sweeps): S (..., A, A) symmetric float64 on the card ->
     eigenvalues ascending (..., A), eigenvectors as columns (..., A, A)
     and the Jacobi sweeps each matrix took (...,) int32, from one launch
-    of the kernel.  A CPU tensor runs torch.linalg.eigh (sweeps None)."""
+    of the kernel; a matrix still rotating after `max_sweeps` sweeps
+    gives NaN in its w and U.  A CPU tensor runs torch.linalg.eigh
+    (sweeps None)."""
     if not S.is_cuda:
         w, U = torch.linalg.eigh(S)
         return w, U, None
@@ -55,11 +63,11 @@ def eigh_fwd(S):
     U = torch.empty((B, A, A), **f)
     sweeps = torch.empty((B,), dtype=torch.int32, device=S.device)
     if B:
-        fn = _ext.bind("eigh_kernels", "launch_eigh_jacobi", 4, 2)
+        fn = _ext.bind("eigh_kernels", "launch_eigh_jacobi", 4, 3)
         _ext.LAUNCHES["eigh_jacobi"] += 1
         _ext.check(fn(flat.data_ptr(), w.data_ptr(), U.data_ptr(),
-                      sweeps.data_ptr(), B, A, _ext.stream_ptr(S.device)),
-                   "eigh_jacobi")
+                      sweeps.data_ptr(), B, A, max_sweeps,
+                      _ext.stream_ptr(S.device)), "eigh_jacobi")
     return (w.reshape(*batch, A), U.reshape(*batch, A, A),
             sweeps.reshape(batch))
 

@@ -326,7 +326,8 @@ def _twist_messages_bwd(spec, aux, tensors, decisions, g_llm,
     for r in range(R):
         n_active = N - r
         Pv = n_active * (n_active - 1) // 2
-        C = config.twist.pair_chunk or Pv
+        C = tw.resolve_chunk(config.twist, model, Pv, K, A, S,
+                             buf.element_size())
         if kmesh:
             roots = tw.root_messages(sh, leaves_sm, buf, aux["slot_t"][r],
                                      aux["rows_t"][r], n_active)
@@ -374,8 +375,8 @@ def _twist_messages_bwd(spec, aux, tensors, decisions, g_llm,
             with torch.no_grad():
                 if kmesh:
                     for dm, j in ((dm_l, 0), (dm_r, 1)):
-                        droots.index_add_(1, pc[:, j],
-                                          dm.reshape(K, Cc, A, S))
+                        tw.add_cols(droots, pc[:, j],
+                                    dm.reshape(K, Cc, A, S))
                     continue
                 for dm, half in ((dm_l, slice(None, Cc)),
                                  (dm_r, slice(Cc, None))):

@@ -30,6 +30,11 @@ transitions the JAX package enumerates: the same values.
 Branch pools are unit-rate exponential draws (R, P, M, K) made once per
 sweep in prefix order, divided by the rank's rate; the manual VJP keeps
 them instead of regenerating them.
+
+A rank's pairs are evaluated in chunks whose size `resolve_chunk` takes
+from the shapes alone (TwistConfig.chunk_budget_mb, the JAX package's
+field): the forward and the manual VJP's re-evaluation chunk alike, and
+the chunks give the one-chunk values.
 """
 
 from __future__ import annotations
@@ -59,20 +64,87 @@ from phylo_tpu_torch.utils.math import topology_log_prior
 @dataclass(frozen=True)
 class TwistConfig:
     """M: subparticle branch samples per candidate pair (reference
-    runner.py:42-45).  pair_chunk: pairs evaluated in one batch (memory
-    knob for the (M, K * pair_chunk, S) intermediates); None evaluates a
-    rank's whole table at once.  use_pallas_ll: on the card, the pair
-    log-likelihoods' forward is kernel K11b (`fused_pair_loglik`, the
-    JAX package's field of the same name); False runs the plain
-    multiply-add expression there.  The CPU always runs the plain
-    expression, and both give the same values and gradients.  The
-    default differs from JAX's (False, from TPU timings): on the H100
-    K11b beat the plain forward (PERF.md, ROADMAP.md "Deliberate
-    divergences")."""
+    runner.py:42-45).  pair_chunk: pairs evaluated in one batch; None
+    sizes the chunks from chunk_budget_mb (`resolve_chunk`), the JAX
+    package's field of that name: the bytes a chunk holds live on the card
+    stay within it, and a rank whose whole table fits takes one chunk.
+    The default differs from JAX's 32 MB, which came from TPU timings of
+    the messages alone: the port counts the transitions and the spectral
+    models' branch not taken too, and at this budget every twist that
+    does not need chunks takes one a rank (ROADMAP.md "Deliberate
+    divergences").  use_pallas_ll: on the card, the pair log-likelihoods'
+    forward is kernel K11b (`fused_pair_loglik`, the JAX package's field
+    of the same name); False runs the plain multiply-add expression
+    there.  The CPU always runs the plain expression, and both give the
+    same values and gradients.  The default differs from JAX's (False,
+    from TPU timings): on the H100 K11b beat the plain forward (PERF.md,
+    ROADMAP.md "Deliberate divergences")."""
 
     M: int = 10
     pair_chunk: Optional[int] = None
+    chunk_budget_mb: int = 20480
     use_pallas_ll: bool = True
+
+
+# What a candidate pair holds live at a chunk's peak, the reverse pass's
+# re-evaluation under autograd, counted from the code.  The messages:
+# gathered, split into m_l and m_r, their cotangents.
+MESSAGE_COPIES = 3
+# A spectral transition (models.expm.expm_reversible, float64): left,
+# PT, torch.maximum's zeros and its output, the branch not taken
+# (expm_poisson: P, lin, its where), the final where.
+SPECTRAL_COPIES = 8
+# expm_poisson's transitions in the working dtype (A_b > 8): P, lin,
+# its where; expm_ctmc's kernel (A_b <= 8) gives one.
+POISSON_COPIES = 3
+# Working-dtype copies any route adds: the permuted P_l and P_r of a
+# chunk, and the spectral models' cast out of float64.
+SPLIT_COPIES = 1
+# expm_poisson's rows of n_max + 1 weights a transition: d, its mask,
+# d_safe, the two logs, log_ratio, log_w, w.
+WEIGHT_ROWS = 8
+POISSON_TERMS = 161
+
+
+def pair_bytes(twist, model, K, planes, S, itemsize):
+    """Bytes one candidate pair holds live on the card while its chunk is
+    evaluated: 2K message slabs of `planes` x S (the working dtype's
+    `itemsize`) MESSAGE_COPIES times, and the 2 M K transitions, G blocks
+    of A_b x A_b each (`kernels.twist_blocks`; dense: 1 of `planes`), as
+    many times as the route that computes them holds them (the counts
+    above), with expm_poisson's weights where it runs.  A pure function
+    of shapes."""
+    blocks = twist_blocks(model)
+    G, Ab = blocks if blocks is not None else (1, planes)
+    # the model whose `transition` a chunk calls: a mixture's base where
+    # the twist takes its blocks
+    base = model.base if blocks is not None else model
+    if getattr(base, "spectral", False):
+        per_matrix = (Ab * Ab * (8 * SPECTRAL_COPIES
+                                 + itemsize * (SPLIT_COPIES + 1))
+                      + 8 * WEIGHT_ROWS * POISSON_TERMS)
+    elif Ab > 8:
+        per_matrix = itemsize * (Ab * Ab * (POISSON_COPIES + SPLIT_COPIES)
+                                 + WEIGHT_ROWS * POISSON_TERMS)
+    else:
+        per_matrix = itemsize * Ab * Ab * (1 + SPLIT_COPIES)
+    return 2 * K * (MESSAGE_COPIES * planes * S * itemsize
+                    + twist.M * G * per_matrix)
+
+
+def resolve_chunk(twist, model, P, K, planes, S, itemsize):
+    """Pairs a chunk of a rank's P candidate pairs: `twist.pair_chunk`
+    where set (as in JAX, it wins), else as many as `twist.chunk_budget_mb`
+    holds by `pair_bytes` (JAX's rule for its chunks' memory), at least
+    one: a rank whose whole table fits takes one chunk, and every full
+    chunk of a sweep has one shape, whatever its rank, so the allocator
+    reuses its blocks.  Static shapes only, so the forward and the manual
+    VJP's re-evaluation chunk alike and no device value is read."""
+    C = twist.pair_chunk
+    if C is None:
+        per_pair = pair_bytes(twist, model, K, planes, S, itemsize)
+        C = twist.chunk_budget_mb * 2 ** 20 // per_pair
+    return max(1, min(C, P))
 
 
 def upper_tri_pairs(N):
@@ -162,6 +234,20 @@ class _FixedOrderGather(torch.autograd.Function):
 
 
 gather_cols = _FixedOrderGather.apply
+
+
+def add_cols(dst, index, src):
+    """dst (K, n, ...) += src (K, C, ...) at the columns index (C,), the
+    duplicate columns summed by index_put_(accumulate=True) in a fixed
+    order as `gather_cols`' backward sums them: the same bits every run,
+    where index_add_'s CUDA kernel adds with float atomics.  dst is
+    contiguous; returns it."""
+    K, n = dst.shape[:2]
+    flat = (torch.arange(K, device=dst.device)[:, None] * n
+            + index[None]).reshape(-1)
+    dst.view(K * n, -1).index_put_((flat,), src.reshape(flat.shape[0], -1),
+                                   accumulate=True)
+    return dst
 
 
 def pair_positions(pairs, K):
@@ -279,7 +365,9 @@ def twisted_extend(generator, twist, model, model_params, stationary,
         if kmesh:
             roots = root_messages(sh, leaves_m, buf, slot, row_of_node,
                                   n_active)
-        C = twist.pair_chunk or Pv
+        A, S = leaves_m.shape[-2:]
+        C = resolve_chunk(twist, model, Pv, pl_m.shape[-1], A, S,
+                          leaves_m.element_size())
         parts = []
         for c0 in range(0, Pv, C):
             pc = pairs[c0:c0 + C]
@@ -290,7 +378,6 @@ def twisted_extend(generator, twist, model, model_params, stationary,
                 looked_up = lookup_nodes(slot, row_of_node,
                                          pair_positions(pc, K), N)
                 msgs = gather_messages(leaves_m, buf, *looked_up)
-                A, S = msgs.shape[-2:]
                 m_l = msgs[:, :Cc].reshape(K * Cc, A, S)
                 m_r = msgs[:, Cc:].reshape(K * Cc, A, S)
             parts.append(chunk_loglik(

@@ -171,8 +171,9 @@ def jacobi_reference(S, tol_scale=1e-18, max_sweeps=40):
     in the kernel's form, t = sign(d) h / (|d| + sqrt(d^2 + h^2)),
     skipped where |a_pq| <= tol_scale ||S||_F), sweeps until one applies
     none; eigenvalues ascending (ties by index, NaN last: `ranks`); a
-    NaN or an infinity in S gives NaN everywhere and 0 sweeps.  Returns
-    (w, U, sweeps)."""
+    NaN or an infinity in S gives NaN everywhere and 0 sweeps, and a
+    matrix whose max_sweeps-th sweep still rotated NaN everywhere and
+    max_sweeps sweeps.  Returns (w, U, sweeps)."""
     n = S.shape[0]
     if not np.all(np.isfinite(S)):
         return np.full(n, np.nan), np.full((n, n), np.nan), 0
@@ -210,6 +211,8 @@ def jacobi_reference(S, tol_scale=1e-18, max_sweeps=40):
             v = v @ J
         if not rotated:
             break
+    else:
+        return np.full(n, np.nan), np.full((n, n), np.nan), sweeps
     w = np.diag(a)[:n]
     order = np.argsort(ranks(w))
     return w[order], v[:n, :n][:, order], sweeps
